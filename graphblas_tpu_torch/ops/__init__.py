@@ -1,0 +1,1 @@
+"""ops of the PyTorch port (counterparts of graphblas_tpu.ops)."""

@@ -1,0 +1,1 @@
+"""utils of the PyTorch port (counterparts of graphblas_tpu.utils)."""

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one CUDA card (triangle
-counting and the masked valued product ``mxm``), and check each
-hand-written kernel against its plain PyTorch version.
+"""Drive the PyTorch port's paths once on one CUDA card (triangle
+counting, the masked valued product ``mxm``, and SpMV with BFS and
+PageRank), and check each hand-written kernel against its plain
+PyTorch version.
 
     python3 chip_smoke.py
 
@@ -39,10 +40,29 @@ uncaught exception and a nonzero exit):
    the R-MAT 18 plan) against its plain version and one library call
    for the same function (``torch.sparse.sampled_addmm`` over the live
    pairs, timed only here), its ns per live lane, and the ESC residual's
-   ns per lane.
+   ns per lane;
+11. the BSR SpMV kernel (K5) against its plain version at the Wathen
+   nx=ny=256 plan (15,425 tiles): per row within K * 2^-24 *
+   sum_c |a_rc * x_c| of the float64 product (K: the row's term count),
+   timed in turns with its plain version and the library call for the
+   same function (``torch.sparse_bsr_tensor(crow, col, tiles) @ x``,
+   cuSPARSE bsrmv, timed only here);
+12. SpMV on Wathen 256 (FP32, duplicates summed): ``mxv(w, None, None,
+   "plus_times", A, u)`` with a dense u through ``cuda:bsr_spmv``,
+   first and warm, against a float64 scipy CSR product and against the
+   dense-x engine (``A._options["bsr_spmv"] = False``, also timed);
+   ``vxm`` with TRAN1;
+13. SpMV on the R-MAT 18 graph of phase 6 (symmetrized): a dense
+   ``plus_times[FP32]`` ``mxv`` (dense-x engine) against scipy, one
+   frontier step ``vxm(lor_land)`` from vertex 0 with the complemented
+   mask and REPLACE (sparse-x engine), ``bfs_csr`` from vertex 0 (level
+   counts exact) and ``pagerank_csr(iters=20)`` (top-10 vertices exact),
+   anchors taken from the JAX package on the CPU.
 
-Launch counters are zeroed just before phase 3 and read just after
-phase 9: every kernel must have launched there.  The line before the
+Launch counters are zeroed just before each path and read just after
+it: before phase 3 and after phase 9 (triangle counting and ``mxm``:
+the first four kernels), before phase 12 and after phase 13 (SpMV: K5);
+every kernel of a path must have launched there.  The line before the
 last is the per-kernel JSON summary, with each kernel's bound (the
 larger of its compulsory bytes over 3.35 TB/s and its operations over
 the card's peak for their type); the last line is
@@ -61,6 +81,18 @@ import torch
 WATHEN_128_NTRI = 884_992
 RMAT_ANCHORS = {16: (1_819_622, 15_623_664), 18: (7_612_718, 82_947_332)}
 VALUED_NNZC = {16: 391_597, 18: 1_533_157}
+# Wathen nx=ny=256, duplicates summed: n, nnz, occupied 128x128 tiles
+WATHEN_256 = (197_633, 3_084_289, 15_425)
+# R-MAT 18 (ef 16, seed 7, symmetrized), from the JAX package on the CPU:
+# bfs_csr(A, 0) level -> vertex count (0 = unreached) and the
+# pagerank_csr(A, 20) top-10 vertices in rank order
+RMAT18_BFS_LEVELS = {0: 88_501, 1: 1, 2: 25_261, 3: 140_309, 4: 8_041,
+                     5: 31}
+RMAT18_PAGERANK_TOP10 = [0, 32, 16384, 1024, 512, 2048, 2, 16, 8192, 4]
+# the kernels each path must launch
+MXM_PATH = ("tri_band_ring", "window_count", "bitdot_popcount",
+            "valdot_gatherdot")
+SPMV_PATH = ("bsr_spmv",)
 
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes/s,
 # int8 tensor-core ops/s, and the CUDA cores' 32-bit ops/s (the float32
@@ -175,6 +207,45 @@ def check_gatherdot(got: torch.Tensor, Av, Bv, ai, bj, nlive: int):
     return worst
 
 
+def spmv_error(got: torch.Tensor, plan, xpad: torch.Tensor,
+               deg: torch.Tensor) -> float:
+    """Max |error| of a BSR SpMV result (nrb * 128,) against the float64
+    plain version; each row within K * 2^-24 * sum_c |a_rc * x_c|, K the
+    row's term count ``deg`` (at least 1; padded rows must be 0)."""
+    from graphblas_tpu_torch.sparse import cuda_spmv as cs
+    want = cs._bsr_spmv_plain(plan._replace(tiles=plan.tiles.double()),
+                              xpad.double())
+    mag = cs._bsr_spmv_plain(plan._replace(tiles=plan.tiles.abs().double()),
+                             xpad.abs().double())
+    K = torch.ones_like(want)
+    K[:deg.numel()] = deg.double().clamp(min=1)
+    err = (got.double() - want).abs()
+    if got.shape != want.shape or bool((err > K * 2.0 ** -24 * mag).any()):
+        raise AssertionError(f"BSR SpMV beyond the bound: max err "
+                             f"{float(err.max())}")
+    return float(err.max())
+
+
+def scipy_check(y: np.ndarray, pat: np.ndarray, A, x: torch.Tensor):
+    """(max |error|, per-row bound) of an SpMV result y against the
+    float64 scipy CSR product of A's stored values: each row within
+    K * 2^-24 * sum |a * x| (K the row's term count), and the pattern
+    the rows with entries."""
+    import scipy.sparse as ssp
+    hp = A._options["host_pattern"]
+    S = ssp.csr_matrix((A.values[:A.nvals].double().cpu().numpy(),
+                        (hp[0][:A.nvals], hp[1][:A.nvals])), shape=A.shape)
+    x64 = x.double().cpu().numpy()
+    deg = np.diff(S.indptr)
+    ref = S @ x64
+    tol = np.maximum(deg, 1) * 2.0 ** -24 * (abs(S) @ np.abs(x64))
+    err = np.abs(y.astype(np.float64) - ref)
+    assert np.array_equal(pat, deg > 0), "SpMV pattern != rows with entries"
+    if not (err <= tol).all():
+        raise AssertionError(f"SpMV beyond the bound: max err {err.max()}")
+    return float(err.max()), tol
+
+
 def wathen_lu(gt, nx: int):
     """Wathen nx x nx pattern as strictly lower/upper BOOL CSR on the
     card, assembled as bench.py does."""
@@ -194,6 +265,8 @@ def wathen_lu(gt, nx: int):
 
 
 def rmat_lu(gt, scale: int):
+    """(L, U, nnz, A): the prepped triangular factors and the
+    symmetrized graph itself."""
     n = 1 << scale
     I, J = gt.rmat_edges(scale, 16, seed=7)
     I, J = gt.symmetrize_pattern(I, J, n)
@@ -201,7 +274,7 @@ def rmat_lu(gt, scale: int):
                               type=gt.BOOL, sum_duplicates=False,
                               device="cuda")
     L, U = gt.tricount_prep_csr(A)
-    return L, U, len(I)
+    return L, U, len(I), A
 
 
 def with_values(gt, X, rng):
@@ -260,6 +333,7 @@ def main() -> None:
     import graphblas_tpu_torch as gt
     from graphblas_tpu_torch import _build
     from graphblas_tpu_torch.sparse import bitdot as bd
+    from graphblas_tpu_torch.sparse import cuda_spmv as cs
     from graphblas_tpu_torch.sparse import cuda_window as cw
     from graphblas_tpu_torch.sparse import esc as esc_mod
     from graphblas_tpu_torch.sparse import valdot as vd
@@ -384,7 +458,7 @@ def main() -> None:
     graphs = {}
     for phase, scale in ((5, 16), (6, 18)):
         t0 = time.perf_counter()
-        L, U, nnz = rmat_lu(gt, scale)
+        L, U, nnz, A = rmat_lu(gt, scale)
         build_s = time.perf_counter() - t0
         want_nnz, want_ntri = RMAT_ANCHORS[scale]
         assert nnz == want_nnz, f"R-MAT {scale}: nnz {nnz} != {want_nnz}"
@@ -403,13 +477,13 @@ def main() -> None:
         if scale == 18:
             plan18 = L._options["bitdot_plan"][2]
             M18 = L
-        graphs[scale] = (L, U, build_s)
+        graphs[scale] = (L, U, build_s, A)
 
     # 9. the masked valued product, bench.py's value recipe
     sr = gt.semiring.plus_times[gt.FP32]
     valued = {}
     for scale in (16, 18):
-        L, U, build_s = graphs[scale]
+        L, U, build_s, _ = graphs[scale]
         n = L.nrows
         t0 = time.perf_counter()
         rng3 = np.random.default_rng(3)
@@ -464,7 +538,7 @@ def main() -> None:
               f"{esc_warm:.6f} s); peak device memory {peak} B")
         valued[scale] = (Lv, Uv, Mv, C0, plan)
     sync()
-    launches = dict(_build.launches)
+    launches = {k: _build.launches[k] for k in MXM_PATH}
     print(f"main-path launches: {json.dumps(launches)}")
     missing = [k for k, v in launches.items() if v == 0]
     assert not missing, f"kernels not launched on the main path: {missing}"
@@ -564,6 +638,194 @@ def main() -> None:
           f"{engine:.4f}; epilogue {whole - engine:.4f}; mxm {whole:.4f}")
     sync()
 
+    # ---- 11. the BSR SpMV kernel (K5) at the Wathen 256 plan ----
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain bmm: f32
+    t0 = time.perf_counter()
+    I, J, X, n = gt.wathen_coo(256, 256, seed=1)
+    W = gt.CsrMatrix.from_coo(I, J, X, n, n, type=gt.FP32, device="cuda")
+    wbuild = time.perf_counter() - t0
+    del I, J, X
+    plan, plan_s = timed(lambda: cs.bsr_spmv_plan(W))
+    assert (n, W.nvals, plan.ntiles) == WATHEN_256, \
+        (n, W.nvals, plan.ntiles)
+    xw = torch.from_numpy(np.random.default_rng(11).standard_normal(n)
+                          .astype(np.float32)).to("cuda")
+    T = plan.tiles.shape[1]
+    xpad = torch.zeros(plan.ncb * T, device="cuda")
+    xpad[:n] = xw
+    degW = W.indptr[1:] - W.indptr[:-1]
+    err = spmv_error(cs.bsr_spmv_tiles(plan, xpad), plan, xpad, degW)
+    # the library call for the same function: cuSPARSE's BSR SpMV over the
+    # plan's valid tiles (their slots are 0..ntiles-1 in triple order)
+    valid = plan.valid.bool()
+    crow = torch.zeros(plan.nrb + 1, dtype=torch.int64, device="cuda")
+    crow[1:] = torch.bincount(plan.rb[valid].long(),
+                              minlength=plan.nrb).cumsum(0)
+    bsr = torch.sparse_bsr_tensor(crow, plan.cb[valid].long(), plan.tiles,
+                                  (plan.nrb * T, plan.ncb * T),
+                                  check_invariants=True)
+
+    def bsr_library():
+        return bsr @ xpad
+
+    lib_err = spmv_error(bsr_library(), plan, xpad, degW)
+    ms, pms, lms = turns(lambda: cs.bsr_spmv_tiles(plan, xpad),
+                         lambda: cs._bsr_spmv_plain(plan, xpad), 20, 5,
+                         bsr_library)
+    summary["bsr_spmv"] = (err, ms, pms)
+    library_ms["bsr_spmv"] = lms
+    ntrip = plan.rb.numel()
+    bounds["bsr_spmv"] = bound(
+        plan.tiles.numel() * 4 + 12 * ntrip + 4 * (plan.nrb + 1)
+        + 4 * xpad.numel() + 4 * plan.nrb * T, 2 * plan.ntiles * T * T,
+        CUDA32_OPS)
+    print(f"{tag} phase11 bsr_spmv at Wathen 256 (n {n}, nnz {W.nvals}, "
+          f"{plan.ntiles} tiles, {ntrip} triples, {plan.nrb} row-blocks; "
+          f"graph {wbuild:.3f} s, plan {plan_s:.3f} s): max_abs_err {err} "
+          f"(within bound); kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+          f"torch.sparse_bsr_tensor @ x {lms:.4f} ms (max_abs_err "
+          f"{lib_err}, within bound), bound "
+          f"{bounds['bsr_spmv'][0]:.4f} ms ({bounds['bsr_spmv'][1]})")
+    del bsr
+    # the gate's tile budget at the next Wathen size: nx=ny=384 needs
+    # more than MAX_TILE_BYTES of tiles, so its mxv takes the dense-x
+    # engine (reckoned from the triplets; nothing is built)
+    I, J, _, n384 = gt.wathen_coo(384, 384, seed=1)
+    ncb384 = -(-n384 // T)
+    nt384 = len(np.unique((I // T) * ncb384 + J // T))
+    assert nt384 * T * T * 4 > cs.MAX_TILE_BYTES, nt384
+    print(f"{tag} phase11 Wathen 384 (n {n384}): {nt384} tiles, "
+          f"{nt384 * T * T * 4} B of tiles > MAX_TILE_BYTES "
+          f"{cs.MAX_TILE_BYTES}: the gate refuses it")
+    del I, J
+    sync()
+
+    # ---- SpMV path: 12-13, counted ----
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+
+    # 12. Wathen 256: mxv through the tile kernel, checked two ways; the
+    # first call builds the BSR plan anew (phase 11's is dropped)
+    del plan, xpad
+    for key in [k for k in W._options if isinstance(k, tuple)
+                and k[0] in ("_bsr_spmv_plan", "_bsr_spmv_ok")]:
+        del W._options[key]
+    u = gt.Vector.from_dense(xw)
+    w0 = gt.Vector.new(gt.FP32, n, device="cuda")
+
+    def mxv_w():
+        return gt.mxv(w0, None, None, "plus_times", W, u)
+
+    wv, first = timed(mxv_w)
+    engine = gt.last_axb_method()
+    _, warm = timed(mxv_w)
+    assert engine == "cuda:bsr_spmv", engine
+    assert _build.launches["bsr_spmv"] > 0, "mxv did not launch K5"
+    y = wv.to_dense()
+    werr, tol = scipy_check(y, wv.pattern_np(), W, xw)
+    srf = gt.semiring.plus_times[gt.FP32]
+    k5_engine_ms = cuda_ms(lambda: gt.csr_mxv(srf, W, xw), 20)
+    k5_mxv_ms = cuda_ms(mxv_w, 20)
+    W._options["bsr_spmv"] = False
+    wd, dfirst = timed(mxv_w)
+    dengine = gt.last_axb_method()
+    assert dengine == "spmv:dense_x", dengine
+    assert np.array_equal(wd.pattern_np(), wv.pattern_np())
+    dd = np.abs(wd.to_dense().astype(np.float64) - y)
+    assert (dd <= 2 * tol).all(), f"K5 vs dense-x: {dd.max()}"
+    dx_engine_ms = cuda_ms(lambda: gt.csr_mxv(srf, W, xw), 20)
+    dx_mxv_ms = cuda_ms(mxv_w, 20)
+    W._options["bsr_spmv"] = None
+    wt, vsecs = timed(lambda: gt.vxm(w0, None, None, "plus_times", u, W,
+                                     gt.TRAN1))
+    vengine = gt.last_axb_method()
+    verr, _ = scipy_check(wt.to_dense(), wt.pattern_np(), W, xw)
+    # a u with one inf: the tile kernel is refused, and only the rows
+    # that read the inf entry leave the finite range
+    xinf = xw.clone()
+    xinf[n // 2] = float("inf")
+    wi = gt.mxv(w0, None, None, "plus_times", W, gt.Vector.from_dense(xinf))
+    iengine = gt.last_axb_method()
+    assert iengine == "spmv:dense_x", iengine
+    hpW = W._options["host_pattern"]
+    reads = np.zeros(n, bool)
+    reads[hpW[0][:W.nvals][hpW[1][:W.nvals] == n // 2]] = True
+    yi = wi.to_dense()
+    assert np.isfinite(yi[~reads]).all() and not np.isfinite(yi[reads]).any()
+    print(f"{tag} phase12 Wathen 256 mxv plus_times FP32 via {engine}: "
+          f"first {first:.6f} s, warm {warm:.6f} s; max_abs_err vs scipy "
+          f"float64 {werr} (within bound); CUDA events per call: engine "
+          f"(csr_mxv) K5 {k5_engine_ms:.4f} ms vs dense-x "
+          f"{dx_engine_ms:.4f} ms, whole mxv {k5_mxv_ms:.4f} ms vs "
+          f"{dx_mxv_ms:.4f} ms; dense-x ({dengine}) first {dfirst:.6f} s, "
+          f"max |K5 - dense-x| {dd.max()} (within 2x bound); vxm TRAN1 via "
+          f"{vengine} {vsecs:.6f} s, max_abs_err vs scipy {verr}; u with "
+          f"one inf via {iengine}: {int(reads.sum())} rows non-finite, the "
+          f"rest finite")
+
+    # 13. R-MAT 18: dense mxv, one frontier step, BFS, PageRank
+    A18 = graphs[18][3]
+    n18 = A18.nrows
+    x18 = torch.from_numpy(np.random.default_rng(13).random(n18)
+                           .astype(np.float32)).to("cuda")
+    u18 = gt.Vector.from_dense(x18)
+    w18 = gt.Vector.new(gt.FP32, n18, device="cuda")
+
+    def mxv_r():
+        return gt.mxv(w18, None, None, "plus_times_fp32", A18, u18)
+
+    r18, rfirst = timed(mxv_r)
+    rengine = gt.last_axb_method()
+    _, rwarm = timed(mxv_r)
+    assert rengine == "spmv:dense_x", rengine
+    rerr, _ = scipy_check(r18.to_dense(), r18.pattern_np(), A18, x18)
+    q = gt.Vector.from_coo([0], [True], n18, type=gt.BOOL, device="cuda")
+    # A18 is symmetric, so u'A' (TRAN1, no host resort) is u'A
+    step_desc = gt.Descriptor(mask_scmp=True, replace=True, tran1=True)
+
+    def frontier_step():
+        return gt.vxm(gt.Vector.new(gt.BOOL, n18, device="cuda"), q, None,
+                      "lor_land", q, A18, step_desc)
+
+    wq, qfirst = timed(frontier_step)
+    qengine = gt.last_axb_method()
+    _, qwarm = timed(frontier_step)
+    assert qengine == "spmv:sparse_x", qengine
+    hp = A18._options["host_pattern"]
+    nbrs = hp[1][:A18.nvals][hp[0][:A18.nvals] == 0]
+    nbrs = np.unique(nbrs[nbrs != 0])
+    assert np.array_equal(np.nonzero(wq.pattern_np())[0], nbrs)
+    assert wq.to_dense()[nbrs].all()
+    lev, bfs_first = timed(lambda: gt.bfs_csr(A18, 0))
+    _, bfs_warm = timed(lambda: gt.bfs_csr(A18, 0))
+    vals, cnts = np.unique(lev, return_counts=True)
+    levels = dict(zip(vals.tolist(), cnts.tolist()))
+    assert levels == RMAT18_BFS_LEVELS, levels
+    pr, pr_first = timed(lambda: gt.pagerank_csr(A18, iters=20))
+    _, pr_warm = timed(lambda: gt.pagerank_csr(A18, iters=20))
+    top = np.argsort(-pr, kind="stable")[:10].tolist()
+    assert top == RMAT18_PAGERANK_TOP10, top
+    assert np.isfinite(pr).all() and abs(float(pr.sum()) - 1.0) < 1e-5
+    # PageRank's split: set-up and read-back alone (0 steps), 20 steps
+    pr0_ms = cuda_ms(lambda: gt.pagerank_csr(A18, iters=0), 3)
+    pr20_ms = cuda_ms(lambda: gt.pagerank_csr(A18, iters=20), 3)
+    sync()
+    print(f"{tag} phase13 R-MAT 18 (n {n18}, nnz {A18.nvals}): mxv "
+          f"plus_times FP32 via {rengine} first {rfirst:.6f} s, warm "
+          f"{rwarm:.6f} s, max_abs_err vs scipy {rerr} (within bound); "
+          f"frontier vxm lor_land via {qengine}: {len(nbrs)} neighbours, "
+          f"first {qfirst:.6f} s, warm {qwarm:.6f} s; bfs_csr levels "
+          f"{levels} ({n18 - levels[0]} reached) first {bfs_first:.4f} s, "
+          f"warm {bfs_warm:.4f} s; pagerank_csr(20) top-10 {top} first "
+          f"{pr_first:.4f} s, warm {pr_warm:.4f} s (CUDA events: 0 steps "
+          f"{pr0_ms:.4f} ms, 20 steps {pr20_ms:.4f} ms); peak device memory "
+          f"{torch.cuda.max_memory_allocated()} B")
+    spmv_launches = {k: _build.launches[k] for k in SPMV_PATH}
+    print(f"spmv-path launches: {json.dumps(spmv_launches)}")
+    missing = [k for k, v in spmv_launches.items() if v == 0]
+    assert not missing, f"kernels not launched on the SpMV path: {missing}"
+    launches.update(spmv_launches)
+
     sources = {
         "tri_band_ring": ("graphblas_tpu_torch/csrc/window.cu",
                           "graphblas_tpu/sparse/pallas_window.py:160"),
@@ -573,6 +835,8 @@ def main() -> None:
                             "graphblas_tpu/sparse/bitdot.py:401"),
         "valdot_gatherdot": ("graphblas_tpu_torch/csrc/valdot.cu",
                              "graphblas_tpu/sparse/valdot.py:481"),
+        "bsr_spmv": ("graphblas_tpu_torch/csrc/spmv.cu",
+                     "graphblas_tpu/sparse/pallas_spmv.py:103"),
     }
     kernels = []
     for name, (src, repl) in sources.items():

@@ -2,7 +2,7 @@
 
 The JAX package ``graphblas_tpu`` is the reference; this package keeps
 its module paths and function names so each counterpart is easy to find,
-and imports no JAX.  Two slices so far:
+and imports no JAX.  Three slices so far:
 
 * masked structural SpGEMM triangle counting on CSR containers
   (SandiaDot ``ntri = sum (L·U') .* L``) with three hand-written CUDA
@@ -12,7 +12,11 @@ and imports no JAX.  Two slices so far:
 * the masked valued product ``mxm(C, M, None, semiring, A, B)`` on CSR
   containers for any builtin semiring (the algebra in :mod:`core`, the
   ESC engine, the sparse accum/mask epilogue, and the value-panel engine
-  :mod:`sparse.valdot` with its hand-written gather-dot kernel).
+  :mod:`sparse.valdot` with its hand-written gather-dot kernel);
+* SpMV: ``mxv``/``vxm`` on ``Vector`` outputs with CSR, CSC or bitmap
+  matrices (:mod:`sparse.spmv`, the BSR tile kernel of
+  :mod:`sparse.cuda_spmv`) and the whole-loop ``bfs_csr`` /
+  ``pagerank_csr``.
 
 The kernels are built with ``nvcc`` on first use, never at import.
 
@@ -28,7 +32,7 @@ from .core.errors import (DimensionMismatch, DomainMismatch,
                           InvalidValue)
 from .core.descriptor import (NULL_DESC, REPLACE, RST, RT, SCMP, ST,
                               TRAN0, TRAN1, TT, Descriptor)
-from .core.matrix import Matrix
+from .core.matrix import Matrix, Vector
 from .core.monoids import monoid
 from .core.ops import binary
 from .core.resolve import UnsupportedOp
@@ -40,7 +44,7 @@ from .models.generate import wathen_coo
 from .models.rmat import rmat_edges, symmetrize_pattern
 from .ops.containers import UnsupportedContainer
 from .ops.flopcount import jax_engine_name, last_axb_method
-from .ops.mxm import mxm, semiring_mm
+from .ops.mxm import mxm, mxv, semiring_mm, vxm
 from .sparse import *  # noqa: F401,F403
 from .sparse import __all__ as _sparse_all
 
@@ -50,8 +54,9 @@ __all__ = [
     "BOOL", "FP32", "FP64", "INT8", "INT16", "INT32", "INT64", "UINT8",
     "UINT16", "UINT32", "UINT64", "Type", "type_of_dtype",
     "Descriptor", "NULL_DESC", "REPLACE", "SCMP", "TRAN0", "TRAN1", "RT",
-    "ST", "RST", "TT", "Matrix", "monoid", "binary", "semiring",
-    "UnsupportedOp", "UnsupportedContainer", "mxm", "semiring_mm",
+    "ST", "RST", "TT", "Matrix", "Vector", "monoid", "binary", "semiring",
+    "UnsupportedOp", "UnsupportedContainer", "mxm", "mxv", "vxm",
+    "semiring_mm",
     "wathen_coo", "rmat_edges", "symmetrize_pattern",
     "jax_engine_name", "last_axb_method", *_sparse_all,
 ]

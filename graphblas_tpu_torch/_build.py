@@ -48,6 +48,8 @@ _SIGNATURES = {
                         _L, _L, _I, _I, _I, _I, _I, _P),
     # Av, Bv, ai, bj, out, nlive, na, nb, S, is_int, stream
     "valdot_gatherdot": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
+    # rbptr, cb, slot, valid, tiles, x, y, nrb, stream
+    "bsr_spmv": (_P, _P, _P, _P, _P, _P, _P, _I, _P),
 }
 
 #: kernel launches per launcher since the last :func:`reset_launches`;

@@ -6,8 +6,9 @@ both packages can compute on exactly the same containers, plans and
 semirings — the parity tests' "weights".  Each ``*_from_arrays``
 function takes plain arrays and metadata; :func:`from_jax` reads them
 off a JAX package ``CsrMatrix`` (pattern-only or valued: FP32, INT32,
-FP64, BOOL and the other builtin types), ``BandPlan``, ``WindowPlan`` or
-``Semiring`` (by its operator names and type).
+FP64, BOOL and the other builtin types), ``CscMatrix``, ``Vector``,
+``BandPlan``, ``WindowPlan``, ``Semiring`` (by its operator names and
+type) or BSR SpMV plan (the 8-tuple ``bsr_spmv_plan`` returns).
 """
 
 from __future__ import annotations
@@ -15,13 +16,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.matrix import Vector
 from .core.semirings import Semiring, semiring
 from .core.types import type_by_name
-from .sparse.container import CsrMatrix, resolve_device
+from .sparse.container import CscMatrix, CsrMatrix, resolve_device
+from .sparse.cuda_spmv import BsrSpmvPlan
 from .sparse.window import BandPlan, WindowPlan
 
-__all__ = ["csr_from_arrays", "band_plan_from_arrays",
-           "window_plan_from_arrays", "semiring_by_name", "from_jax"]
+__all__ = ["csr_from_arrays", "vector_from_arrays", "band_plan_from_arrays",
+           "window_plan_from_arrays", "bsr_spmv_plan_from_arrays",
+           "semiring_by_name", "from_jax"]
 
 
 def _dev(a, device) -> torch.Tensor:
@@ -43,6 +47,31 @@ def csr_from_arrays(indptr, indices, rowids, values, nvals: int,
         A._options["host_pattern"] = (np.asarray(host_pattern[0]),
                                       np.asarray(host_pattern[1]))
     return A
+
+
+def vector_from_arrays(values, pattern, type_name: str,
+                       device=None) -> Vector:
+    """Bitmap Vector from its values and pattern."""
+    device = resolve_device(device)
+    t = type_by_name(type_name)
+    return Vector(_dev(t.to_storage(values), device),
+                  _dev(np.asarray(pattern, bool), device), t)
+
+
+def bsr_spmv_plan_from_arrays(rb, cb, slot, valid, tiles, nrb: int,
+                              ncb: int, ntiles: int,
+                              device=None) -> BsrSpmvPlan:
+    """BSR SpMV plan from the JAX package's arrays (``rbptr``, the first
+    triple of each row-block, is derived from the sorted ``rb``)."""
+    device = resolve_device(device)
+    rb = np.asarray(rb, np.int32)
+    rbptr = np.searchsorted(rb, np.arange(nrb + 1)).astype(np.int32)
+    return BsrSpmvPlan(
+        _dev(rb, device), _dev(np.asarray(cb, np.int32), device),
+        _dev(np.asarray(slot, np.int32), device),
+        _dev(np.asarray(valid, np.int32), device),
+        _dev(np.asarray(tiles, np.float32), device), int(nrb), int(ncb),
+        int(ntiles), _dev(rbptr, device))
 
 
 def band_plan_from_arrays(P, Ut, nI: int, Wb: int, ntriples: int,
@@ -73,9 +102,13 @@ def semiring_by_name(add_name: str, mult_name: str,
 
 
 def from_jax(obj, device=None):
-    """The port's counterpart of a JAX package CsrMatrix, BandPlan,
-    WindowPlan (read through numpy) or builtin Semiring (by name)."""
+    """The port's counterpart of a JAX package CsrMatrix, CscMatrix,
+    Vector, BandPlan, WindowPlan, BSR SpMV plan (read through numpy) or
+    builtin Semiring (by name)."""
     kind = type(obj).__name__
+    if kind == "tuple" and len(obj) == 8:
+        return bsr_spmv_plan_from_arrays(*(np.asarray(a) for a in obj[:5]),
+                                         *obj[5:], device=device)
     if kind == "Semiring":
         sr = semiring_by_name(obj.add.op.name, obj.mult.name,
                               obj.mult.xtype.name)
@@ -88,6 +121,12 @@ def from_jax(obj, device=None):
             np.asarray(obj.indptr), np.asarray(obj.indices),
             np.asarray(obj.rowids), np.asarray(obj.values), obj.nvals,
             obj.nrows, obj.ncols, obj.type.name, hp, device)
+    if kind == "CscMatrix":
+        return CscMatrix(from_jax(obj.tr, device))
+    if kind == "Vector":
+        return vector_from_arrays(np.asarray(obj.values),
+                                  np.asarray(obj.pattern), obj.type.name,
+                                  device)
     if kind == "BandPlan":
         return band_plan_from_arrays(
             np.asarray(obj.P), np.asarray(obj.Ut), obj.nI, obj.Wb,

@@ -1,0 +1,94 @@
+"""The accumulate/mask epilogue for bitmap outputs: C<M> = accum(C, T).
+
+Counterpart of ``graphblas_tpu/core/mask.py``, with the semantics of the
+reference's executable specs ``Test/GB_spec_accum.m`` and
+``Test/GB_spec_mask.m``: on the bitmap layout the whole epilogue is a
+few elementwise selects over ``values`` and ``pattern``.  It serves the
+``Vector`` outputs of ``mxv``/``vxm`` (a bitmap ``Matrix`` output comes
+with the dense ``mxm`` slice); the CSR epilogue is
+:mod:`graphblas_tpu_torch.sparse.mask`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .descriptor import Descriptor, desc_of
+from .errors import DimensionMismatch
+from .ops import BinaryOp
+from .types import BOOL, cast
+
+__all__ = ["accum_values", "effective_mask", "apply_mask", "accum_mask"]
+
+
+def _like(C, values: torch.Tensor, pattern: torch.Tensor):
+    """A container of C's class and type holding ``values`` where
+    ``pattern`` is set and 0 elsewhere (the canonical invariant)."""
+    zero = torch.zeros((), dtype=values.dtype, device=values.device)
+    return type(C)(torch.where(pattern, values, zero), pattern, C.type)
+
+
+def accum_values(C, T, accum: Optional[BinaryOp]):
+    """Z = accum(C, T) per GB_spec_accum: returns (zvals, zpat).
+
+    - no accum: Z = T (cast to C's type)
+    - accum:    intersection -> accum(c, t); C-only -> c; T-only -> cast(t)
+    """
+    ct = C.type
+    if accum is None:
+        return cast(T.values, ct, T.type), T.pattern
+    both = C.pattern & T.pattern
+    cvals = cast(C.values, accum.xtype, ct)
+    tvals = cast(T.values, accum.ytype, T.type)
+    z_both = cast(accum(cvals, tvals), ct, accum.ztype)
+    t_in_c = cast(T.values, ct, T.type)
+    zvals = torch.where(both, z_both,
+                        torch.where(C.pattern, C.values, t_in_c))
+    return zvals, C.pattern | T.pattern
+
+
+def effective_mask(M, scmp: bool, structural: bool):
+    """Boolean mask array of a mask container (GB_spec_mask: Mask ~= 0,
+    restricted to the mask's pattern; explicit zeros count as false)."""
+    if M is None:
+        return None
+    mk = M.pattern if structural else M.pattern & cast(M.values, BOOL,
+                                                       M.type)
+    return ~mk if scmp else mk
+
+
+def apply_mask(C, M, zvals, zpat, desc: Descriptor):
+    """R = C<M> = Z per GB_spec_mask, with REPLACE / SCMP handling."""
+    if M is not None and M.shape != C.shape:
+        raise DimensionMismatch(
+            f"mask shape {M.shape} != output shape {C.shape}")
+    if M is None:
+        if desc.mask_scmp:
+            # complemented empty mask: C unchanged unless replace clears it
+            return C.clear() if desc.replace else C
+        return _like(C, zvals, zpat)
+    mk = effective_mask(M, desc.mask_scmp, desc.mask_structure)
+    if desc.replace:
+        cvals, cpat = torch.zeros_like(C.values), torch.zeros_like(C.pattern)
+    else:
+        cvals, cpat = C.values, C.pattern
+    return _like(C, torch.where(mk, zvals, cvals),
+                 torch.where(mk, zpat, cpat))
+
+
+def accum_mask(C, M, T, accum: Optional[BinaryOp],
+               desc: Optional[Descriptor]):
+    """Full epilogue C<M> = accum(C, T) (reference ``GB_accum_mask.c``)."""
+    desc = desc_of(desc)
+    C = C.wait()
+    if M is not None:
+        M = M.wait()
+    if T.shape != C.shape:
+        raise DimensionMismatch(f"T shape {T.shape} != C shape {C.shape}")
+    if M is None and desc.mask_scmp:
+        # Z never needs computing (GB_spec_mask: R = C)
+        return C.clear() if desc.replace else C
+    zvals, zpat = accum_values(C, T, accum)
+    return apply_mask(C, M, zvals, zpat, desc)

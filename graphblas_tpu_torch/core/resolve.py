@@ -36,7 +36,8 @@ class UnsupportedOp(GraphBLASError):
 
 def operand_type(*operands) -> Optional[Type]:
     """First usable element Type among the operands (for inferring the
-    type family of a bare catalog name like ``"plus"``)."""
+    type family of a bare catalog name like ``"plus"``): the ``type`` of
+    any container (CsrMatrix, CscMatrix, Matrix or Vector)."""
     for x in operands:
         t = getattr(x, "type", None)
         if isinstance(t, Type):

@@ -1,19 +1,21 @@
 """Container canonicalization for the op orchestrators.
 
 Counterpart of ``graphblas_tpu/ops/containers.py`` for the containers
-this slice carries: the CSR ``CsrMatrix`` and the bitmap ``Matrix``.
-The reference canonicalizes every operand internally
+the port carries: the CSR ``CsrMatrix``, its by-column twin
+``CscMatrix``, the bitmap ``Matrix`` and the bitmap ``Vector``.  The
+reference canonicalizes every operand internally
 (``GB_AxB_meta.c:86-185``); here the OUTPUT container decides the
-compute representation and operands convert toward it.  The CSC,
-hypersparse and vector containers come with later slices.
+compute representation and operands convert toward it.  The hypersparse
+containers (``HyperMatrix``, ``SparseVec``) come with a later slice.
 """
 
 from __future__ import annotations
 
 from ..core.errors import GraphBLASError
-from ..core.matrix import Matrix
+from ..core.matrix import Matrix, Vector
 
-__all__ = ["UnsupportedContainer", "require_container", "to_csr_operand"]
+__all__ = ["UnsupportedContainer", "require_container", "to_csr_operand",
+           "to_bitmap_operand"]
 
 
 class UnsupportedContainer(GraphBLASError):
@@ -28,22 +30,37 @@ def require_container(X, what: str = "operand",
     object raises :class:`UnsupportedContainer`."""
     if X is None and none_ok:
         return
-    from ..sparse.container import CsrMatrix
-    if not isinstance(X, (Matrix, CsrMatrix)):
+    from ..sparse.container import CscMatrix, CsrMatrix
+    if not isinstance(X, (Matrix, Vector, CsrMatrix, CscMatrix)):
         raise UnsupportedContainer(
             f"{what}: expected a GraphBLAS container of this port "
-            f"(CsrMatrix or Matrix), got {type(X).__name__}; CSC, "
-            f"hypersparse and vector containers come with later slices")
+            f"(CsrMatrix, CscMatrix, Matrix or Vector), got "
+            f"{type(X).__name__}; the hypersparse containers come with a "
+            f"later slice")
 
 
 def to_csr_operand(X, tran: bool = False, what: str = "operand"):
-    """A CsrMatrix or bitmap Matrix -> CsrMatrix, optionally
-    transposed."""
-    from ..sparse.container import CsrMatrix
+    """A CsrMatrix, CscMatrix or bitmap Matrix -> CsrMatrix, optionally
+    transposed (a CscMatrix transposes for free)."""
+    from ..sparse.container import CscMatrix, CsrMatrix
     if isinstance(X, CsrMatrix):
         return X.T() if tran else X
+    if isinstance(X, CscMatrix):
+        return X.T() if tran else X.to_csr()
     if isinstance(X, Matrix):
         A = CsrMatrix.from_matrix(X)
         return A.T() if tran else A
+    raise UnsupportedContainer(
+        f"{what}: expected a matrix container, got {type(X).__name__}")
+
+
+def to_bitmap_operand(X, what: str = "operand") -> Matrix:
+    """A CsrMatrix, CscMatrix or bitmap Matrix -> bitmap Matrix (small
+    dimensions only: the bitmap is dense)."""
+    from ..sparse.container import CscMatrix, CsrMatrix
+    if isinstance(X, (CsrMatrix, CscMatrix)):
+        return X.to_matrix()
+    if isinstance(X, Matrix):
+        return X
     raise UnsupportedContainer(
         f"{what}: expected a matrix container, got {type(X).__name__}")

@@ -25,13 +25,20 @@ recombined in int64, wrapped to the output width; float products are
 tropical Pallas path of the JAX package is never taken off the TPU; the
 generic path gives the same output.
 
-A bitmap, hypersparse or CSC output, the SpMM fast path and
-``mxv``/``vxm`` come with later slices; those calls raise
-:class:`UnsupportedContainer` naming the slice.
+``mxv``/``vxm`` (the SpMV slice) take a bitmap ``Vector`` output: a CSR
+or CSC ``A`` runs the edge-parallel SpMV engines of
+:mod:`graphblas_tpu_torch.sparse.spmv` (the BSR tile kernel, K5, for a
+dense f32 ``plus_times`` product on dense-enough tiles), a bitmap ``A``
+runs ``semiring_mm``; the bitmap epilogue (:mod:`core.mask`) finishes.
+
+A bitmap, hypersparse or CSC ``mxm`` output, the SpMM fast path and a
+hypersparse ``SparseVec`` output come with later slices; those calls
+raise :class:`UnsupportedContainer` naming the slice.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -39,16 +46,17 @@ import torch
 
 from ..core.descriptor import Descriptor, desc_of
 from ..core.errors import DimensionMismatch
-from ..core.matrix import Matrix
+from ..core.mask import accum_mask
+from ..core.matrix import Matrix, Vector
 from ..core.ops import BinaryOp
 from ..core.semirings import Semiring
 from ..core.types import BOOL, INT64, Type, cast, type_of_storage
 from ..utils import counters
 from .containers import (UnsupportedContainer, require_container,
-                         to_csr_operand)
+                         to_bitmap_operand, to_csr_operand)
 from .flopcount import choose_axb_method, record_axb_method
 
-__all__ = ["mxm", "semiring_mm"]
+__all__ = ["mxm", "mxv", "vxm", "semiring_mm"]
 
 #: max elements of one [m, kc, n] broadcast block of the generic path
 _GENERIC_BUDGET = 1 << 23
@@ -300,3 +308,117 @@ def mxm(C, M, accum: Optional[BinaryOp], semiring: Semiring, A, B,
             "the SpMM fast path) comes with a later slice of the port "
             "(ROADMAP.md queue 1); pass a CsrMatrix C")
     return _mxm_sparse(C, M, accum, semiring, A, B, d)
+
+
+def _vector_args(op: str, w, m, u) -> None:
+    """The SpMV slice's containers: a bitmap Vector output, mask and
+    input."""
+    if not isinstance(w, Vector):
+        raise UnsupportedContainer(
+            f"{op} output w: a hypersparse SparseVec output (the product "
+            f"as a 1-column hypersparse SpGEMM) comes with the hypersparse "
+            f"slice of the port (ROADMAP.md queue 1, item 10); pass a "
+            f"Vector, got {type(w).__name__}")
+    for what, x in (("mask", m), ("input u", u)):
+        if x is not None and not isinstance(x, Vector):
+            raise UnsupportedContainer(f"{op} {what}: expected a Vector, "
+                                       f"got {type(x).__name__}")
+
+
+def _csr_spmv(sr: Semiring, A, u: Vector):
+    """csr_mxv on u's values, with no pattern when every entry of u is
+    present (the dense-x engines) and u's pattern otherwise.  (The JAX
+    package's ``mxv`` always passes the pattern, so it never reaches
+    the dense-x engines; their output is the sparse-x engine's.)"""
+    from ..sparse.spmv import csr_mxv
+    xp = None if u.all_present() else u.pattern
+    return csr_mxv(sr, A, u.values, xp, x_type=u.type)
+
+
+def _flipped(sr: Semiring) -> Semiring:
+    """The semiring with its multiply's operands swapped, so that
+    (u' A)' = A' (x) u keeps the operand order of non-commutative
+    multiplies (FIRST, MINUS, DIV, ...)."""
+    mult = sr.mult
+    return Semiring(sr.add, BinaryOp(mult.name + "_FLIP",
+                                     lambda x, y: mult.fn(y, x),
+                                     mult.ztype, mult.ytype, mult.xtype))
+
+
+@counters.counted("mxv")
+def mxv(w, m, accum: Optional[BinaryOp], semiring: Semiring, A, u,
+        desc: Optional[Descriptor] = None):
+    """w<m> = accum(w, A*u) (reference ``GrB_mxv``).  A CsrMatrix (or
+    CscMatrix) ``A`` runs the edge-parallel SpMV engines; a bitmap
+    Matrix ``A`` runs ``semiring_mm``.  ``semiring`` and ``accum`` may
+    be objects or catalog names, typed by the operands."""
+    require_container(w, "mxv output w")
+    require_container(m, "mxv mask", none_ok=True)
+    require_container(A, "mxv input A")
+    require_container(u, "mxv input u")
+    from ..core.resolve import resolve_accum, resolve_semiring
+    semiring = resolve_semiring(semiring, "mxv semiring", None, A, u, w)
+    accum = resolve_accum(accum, "mxv accum", None, w, A)
+    _vector_args("mxv", w, m, u)
+    from ..sparse.container import CscMatrix, CsrMatrix
+    d = desc_of(desc)
+    if isinstance(A, CscMatrix):
+        # by-col orientation: A'*u is free (the stored arrays ARE A' in
+        # CSR); plain A*u pays one resort
+        A, d = ((A.T(), dataclasses.replace(d, tran0=False)) if d.tran0
+                else (A.to_csr(), d))
+    if isinstance(A, CsrMatrix):
+        if d.tran0:
+            A = A.T()  # host resort; large callers should cache A'
+        if u.size != A.ncols:
+            raise DimensionMismatch(
+                f"A is {A.nrows}x{A.ncols}, u has size {u.size}")
+        yv, yp = _csr_spmv(semiring, A, u)
+        return accum_mask(w, m, Vector(yv, yp, semiring.ztype), accum, d)
+    A = to_bitmap_operand(A, "mxv input A")
+    Av, Ap = (A.values.T, A.pattern.T) if d.tran0 else (A.values, A.pattern)
+    tvals, tpat, _ = semiring_mm(semiring, Av, Ap, u.values[:, None],
+                                 u.pattern[:, None],
+                                 method_hint=d.axb_method, atype=A.type,
+                                 btype=u.type)
+    T = Vector(tvals[:, 0], tpat[:, 0], semiring.ztype)
+    return accum_mask(w, m, T, accum, d)
+
+
+@counters.counted("vxm")
+def vxm(w, m, accum: Optional[BinaryOp], semiring: Semiring, u, A,
+        desc: Optional[Descriptor] = None):
+    """w<m> = accum(w, u'*A) (reference ``GrB_vxm``; INP1 transposes A).
+    On CSR the product runs as A' (x) u with the multiply flipped; a
+    CscMatrix ``A`` gives A' with no resort."""
+    require_container(w, "vxm output w")
+    require_container(m, "vxm mask", none_ok=True)
+    require_container(u, "vxm input u")
+    require_container(A, "vxm input A")
+    from ..core.resolve import resolve_accum, resolve_semiring
+    semiring = resolve_semiring(semiring, "vxm semiring", None, u, A, w)
+    accum = resolve_accum(accum, "vxm accum", None, w, A)
+    _vector_args("vxm", w, m, u)
+    from ..sparse.container import CscMatrix, CsrMatrix
+    d = desc_of(desc)
+    if isinstance(A, CscMatrix):
+        # by-col orientation: u'*A runs on the stored arrays (A' in CSR)
+        # with no conversion; u'*A' pays the resort instead
+        A, d = ((A.to_csr(), d) if d.tran1
+                else (A.T(), dataclasses.replace(d, tran1=True)))
+    if isinstance(A, CsrMatrix):
+        if not d.tran1:
+            A = A.T()  # host resort; large callers should cache A'
+        if u.size != A.ncols:
+            raise DimensionMismatch(
+                f"A' is {A.ncols}x{A.nrows}, u has size {u.size}")
+        yv, yp = _csr_spmv(_flipped(semiring), A, u)
+        return accum_mask(w, m, Vector(yv, yp, semiring.ztype), accum, d)
+    A = to_bitmap_operand(A, "vxm input A")
+    Av, Ap = (A.values.T, A.pattern.T) if d.tran1 else (A.values, A.pattern)
+    tvals, tpat, _ = semiring_mm(semiring, u.values[None, :],
+                                 u.pattern[None, :], Av, Ap,
+                                 method_hint=d.axb_method, atype=u.type,
+                                 btype=A.type)
+    T = Vector(tvals[0, :], tpat[0, :], semiring.ztype)
+    return accum_mask(w, m, T, accum, d)

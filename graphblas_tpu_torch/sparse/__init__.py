@@ -1,13 +1,17 @@
-"""Sparse containers, the triangle-counting engines and the masked
-SpGEMM engines (PyTorch)."""
+"""Sparse containers, the triangle-counting engines, the masked SpGEMM
+engines, the SpMV engines and the whole-loop graph algorithms
+(PyTorch)."""
 
+from .algorithms import bfs_csr, pagerank_csr
 from .bitdot import (BitdotPlan, PackLevel, bitdot_counts,
                      bitdot_popcount, build_bitdot_plan,
                      masked_pair_counts_auto)
-from .container import CsrMatrix, csr_from_coo, default_device
+from .container import CscMatrix, CsrMatrix, csr_from_coo, default_device
+from .cuda_spmv import bsr_spmv, bsr_spmv_ok, bsr_spmv_plan
 from .cuda_window import tricount_band_partials, window_count_partials
 from .esc import csr_spgemm
 from .mask import csr_accum_mask, csr_clear
+from .spmv import csr_mxv, csr_vxm
 from .tri import (csr_filter_lanes, csr_tril, csr_triu, masked_pair_counts,
                   tricount_auto, tricount_device, tricount_esc,
                   tricount_prep_csr)
@@ -18,7 +22,7 @@ from .window import (BandPlan, WindowPlan, build_band_plan,
                      window_masked_count_sum)
 
 __all__ = [
-    "CsrMatrix", "csr_from_coo", "default_device",
+    "CsrMatrix", "CscMatrix", "csr_from_coo", "default_device",
     "BandPlan", "WindowPlan", "build_band_plan", "build_window_plan",
     "tricount_window", "window_masked_count_sum",
     "tricount_band_partials", "window_count_partials",
@@ -28,5 +32,6 @@ __all__ = [
     "tricount_auto", "tricount_prep_csr", "csr_filter_lanes", "csr_tril",
     "csr_triu", "csr_spgemm", "csr_accum_mask", "csr_clear",
     "ValdotPlan", "build_valdot_plan", "valdot_gatherdot",
-    "valdot_masked_spgemm",
+    "valdot_masked_spgemm", "csr_mxv", "csr_vxm", "bsr_spmv",
+    "bsr_spmv_ok", "bsr_spmv_plan", "bfs_csr", "pagerank_csr",
 ]

@@ -13,8 +13,8 @@ planners read it instead of copying the device arrays back.
 The default device is the CUDA card: a constructor called without
 ``device`` on a machine with no card raises (pass ``device="cpu"`` to
 work on the CPU); helpers that make tensors from a container's take its
-device.  Pending tuples and ``CscMatrix`` come with the containers
-slice.
+device.  ``CscMatrix`` is the by-column twin (the stored transpose).
+Pending tuples come with the containers slice.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from ..core.matrix import Matrix
 from ..core.types import Type, type_of_dtype
 from ..io.native import sort_dedup_native, sort_pairs_native
 
-__all__ = ["CsrMatrix", "csr_from_coo", "default_device",
+__all__ = ["CsrMatrix", "CscMatrix", "csr_from_coo", "default_device",
            "resolve_device"]
 
 
@@ -137,6 +137,84 @@ class CsrMatrix:
     def __repr__(self):  # pragma: no cover
         return (f"CsrMatrix<{self.type.name}> {self.nrows}x{self.ncols}, "
                 f"{self.nvals}/{self.nzmax} entries on {self.device}")
+
+
+class CscMatrix:
+    """By-column twin of :class:`CsrMatrix` (the reference's
+    ``GxB_BY_COL`` format, ``GB_matrix.h:394`` ``is_csc``): it stores the
+    transpose's padded-CSR arrays in ``tr``, so ``T()`` is free and
+    ``vxm`` (u'A) runs on the stored arrays with no conversion; the
+    row-oriented ops convert through :meth:`to_csr` (one resort)."""
+
+    __slots__ = ("tr", "_options")
+
+    def __init__(self, tr: CsrMatrix):
+        self.tr = tr
+        self._options = {"format": "by_col"}
+
+    @property
+    def nrows(self) -> int:
+        return self.tr.ncols
+
+    @property
+    def ncols(self) -> int:
+        return self.tr.nrows
+
+    @property
+    def shape(self):
+        return (self.tr.ncols, self.tr.nrows)
+
+    @property
+    def nvals(self) -> int:
+        return self.tr.nvals
+
+    @property
+    def nzmax(self) -> int:
+        return self.tr.nzmax
+
+    @property
+    def type(self) -> Type:
+        return self.tr.type
+
+    @property
+    def device(self) -> torch.device:
+        return self.tr.device
+
+    @staticmethod
+    def from_coo(I, J, X, nrows: int, ncols: int,
+                 type: Optional[Type] = None, nzmax: Optional[int] = None,
+                 sum_duplicates: bool = True, device=None) -> "CscMatrix":
+        return CscMatrix(csr_from_coo(J, I, X, ncols, nrows, type=type,
+                                      nzmax=nzmax,
+                                      sum_duplicates=sum_duplicates,
+                                      device=device))
+
+    @staticmethod
+    def from_csr(A: CsrMatrix) -> "CscMatrix":
+        """CSR -> CSC (one transpose resort)."""
+        return CscMatrix(A.T())
+
+    def to_csr(self) -> CsrMatrix:
+        return self.tr.T()
+
+    def T(self) -> CsrMatrix:
+        """Transpose, free: A' in CSR is exactly the stored arrays."""
+        return self.tr
+
+    def to_matrix(self) -> Matrix:
+        M = self.tr.to_matrix()
+        return Matrix(M.values.T.contiguous(), M.pattern.T.contiguous(),
+                      self.type)
+
+    def extractTuples(self):
+        """(I, J, X) in column order (the CSC storage order)."""
+        J, I, X = self.tr.extractTuples()
+        return I, J, X
+
+    def __repr__(self):  # pragma: no cover
+        return (f"CscMatrix<{self.type.name}> {self.nrows}x{self.ncols}, "
+                f"{self.nvals}/{self.nzmax} entries (by_col) on "
+                f"{self.device}")
 
 
 def _sort_tuples(I, J, X, nrows: int, ncols: int, sum_duplicates: bool):

@@ -1,24 +1,59 @@
-"""Segment reductions over semiring monoids (the SpMV helpers).
+"""Sparse matrix-vector multiply over semirings: gather + segment-reduce.
 
-Counterpart of ``graphblas_tpu/sparse/spmv.py:32-100``: the monoid ->
-segment-reduce map (the ``GB_assoc_template.c`` switch-factory analogue)
-and the generic segmented fold for any associative op.  The SpMV itself
-comes with the SpMV slice.
+Counterpart of ``graphblas_tpu/sparse/spmv.py``.  The reference's SpMV
+is a CSR row walk inside the generated semiring workers; here it is
+edge-parallel: one gather of x at the column indices, one vectorized
+multiply, one reduction per row.  Padded lanes read the identity slot
+appended to x (the containers' sentinel convention).
 
-Named monoids scatter into an identity-filled output: PLUS and TIMES
-(integers in int64, wrapped back to the storage width: congruent), MIN
-and MAX over the type's own order (unsigned read as unsigned), LOR/LAND
-as any/all, LXOR/EQ as parity counts.  An empty segment holds the
-identity.
+Engines, as the JAX package chooses them in :func:`csr_mxv`:
+
+* dense and finite x, f32 ``plus_times`` and tiles dense enough
+  (:func:`cuda_spmv.bsr_spmv_ok`): the BSR tile kernel (K5);
+* dense x otherwise: :func:`_csr_mxv_dense_x` (rows reduced by the
+  named segment reductions or the segmented fold, the pattern from the
+  row degrees);
+* sparse x: :func:`_csr_mxv_sparse_x` (absent-x and padded lanes take
+  the add identity; the pattern is the rows with a live lane).
+
+Two TPU workarounds of the JAX package are left out, since both exist
+only because per-lane gathers and segment sums were slow on the TPU:
+the sort-routed dense-x engine (``spmv_plan``, ``_csr_mxv_sorted_jit``;
+where the JAX package takes it the port takes the dense-x engine) and
+the dense-x engine's row sums by a global widened cumulative sum, whose
+rounding is relative to the whole prefix (one non-finite lane poisons
+every later row, a large prefix cancels a small row).  The port's row
+sums are row-local, as the JAX package's sparse-x engine's are: the
+output is the same (integers and booleans exactly, floats within
+reassociation).
+
+Segment reductions (the ``GB_assoc_template.c`` switch-factory
+analogue): named monoids scatter into an identity-filled output: PLUS
+and TIMES (integers in int64, wrapped back to the storage width:
+congruent), MIN and MAX over the type's own order (unsigned read as
+unsigned), LOR/LAND as any/all, LXOR/EQ as parity counts.  An empty
+segment holds the identity.  Any other monoid takes the generic
+segmented fold.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 
-from ..core.types import Type, from_ordered, ordered, type_of_storage
+from ..core.semirings import Semiring
+from ..core.types import (Type, cast, from_ordered, ordered, type_of_dtype,
+                          type_of_storage)
+from ..ops.flopcount import record_axb_method
+from . import cuda_spmv
+from .container import CsrMatrix
 
-__all__ = ["segment_reduce", "segment_reduce_sorted"]
+__all__ = ["csr_mxv", "csr_vxm", "segment_reduce", "segment_reduce_sorted"]
+
+#: monoids with a named segment reduction
+_NAMED = ("PLUS", "TIMES", "MIN", "MAX", "LOR", "LAND", "LXOR", "EQ")
 
 
 def segment_reduce_sorted(op_fn, identity, vals: torch.Tensor,
@@ -92,3 +127,124 @@ def segment_reduce(monoid_name: str, vals: torch.Tensor,
         par = cnt % 2 != 0 if nm == "LXOR" else cnt % 2 == 0
         return par.to(vals.dtype)
     raise NotImplementedError(f"segment monoid {nm}")
+
+
+def _mult_apply(sr: Semiring, avals: torch.Tensor,
+                xvals: torch.Tensor) -> torch.Tensor:
+    """z = mult(a, x) elementwise on the gathered lanes (operands in the
+    semiring's domains)."""
+    nm = sr.mult.name
+    if nm in ("TIMES", "LAND") and avals.dtype == torch.bool:
+        return avals & (xvals if xvals.dtype == torch.bool else xvals != 0)
+    if nm == "FIRST":
+        return avals
+    if nm == "SECOND":
+        return xvals
+    if nm == "PAIR":
+        return torch.ones_like(avals)
+    return sr.mult(avals, xvals)
+
+
+def _reduce_rows(sr: Semiring, z: torch.Tensor, seg: torch.Tensor,
+                 nrows: int, ident) -> torch.Tensor:
+    """Row reduction of the lanes ``z`` (rows ``seg``, ascending; padded
+    lanes in row ``nrows``) with the add monoid: the named segment
+    reduction, or the segmented fold for any other monoid."""
+    nm = sr.add.op.name
+    if nm in _NAMED:
+        return segment_reduce(nm, z, seg, nrows + 1, ident,
+                              sr.ztype)[:nrows]
+    return segment_reduce_sorted(sr.add.op, ident, z, seg, nrows + 1)[:nrows]
+
+
+def _off_pattern_zero(y: torch.Tensor, ypat: torch.Tensor) -> torch.Tensor:
+    return torch.where(ypat, y, torch.zeros((), dtype=y.dtype,
+                                            device=y.device))
+
+
+def _csr_mxv_sparse_x(sr: Semiring, A: CsrMatrix, avals: torch.Tensor,
+                      x_ext: torch.Tensor, xp_ext: torch.Tensor):
+    """Sparse-x engine: absent-x and padded lanes contribute the add
+    identity (which keeps it right for every semiring, not only those
+    where mult(a, 0) is the identity); the pattern is the rows with at
+    least one live lane."""
+    nrows = A.nrows
+    zt = sr.ztype
+    cols = A.indices.long()
+    ident = sr.add.identity_value()
+    z = _mult_apply(sr, avals, x_ext[cols]).to(zt.storage)
+    live = xp_ext[cols] & (A.rowids < nrows)
+    z = torch.where(live, z, torch.full((), ident, dtype=zt.storage,
+                                        device=z.device))
+    seg = A.rowids.clamp(max=nrows)
+    y = _reduce_rows(sr, z, seg, nrows, ident)
+    hits = torch.zeros(nrows + 1, dtype=torch.int32, device=z.device)
+    hits.index_add_(0, seg.long(), live.to(torch.int32))
+    ypat = hits[:nrows] > 0
+    record_axb_method("spmv:sparse_x")
+    return _off_pattern_zero(y, ypat), ypat
+
+
+def _csr_mxv_dense_x(sr: Semiring, A: CsrMatrix, avals: torch.Tensor,
+                     x_ext: torch.Tensor):
+    """Dense-x engine: one gather of x, the rows reduced by the named
+    segment reductions or the segmented fold; the pattern from the row
+    degrees."""
+    nrows = A.nrows
+    zt = sr.ztype
+    ident = sr.add.identity_value()
+    z = _mult_apply(sr, avals, x_ext[A.indices.long()]).to(zt.storage)
+    z = torch.where(A.rowids < nrows, z,
+                    torch.full((), ident, dtype=zt.storage, device=z.device))
+    ip = A.indptr.long()
+    ypat = ip[1:] > ip[:-1]
+    y = _reduce_rows(sr, z, A.rowids.clamp(max=nrows), nrows, ident)
+    record_axb_method("spmv:dense_x")
+    return _off_pattern_zero(y, ypat), ypat
+
+
+def _as_storage(x, x_type: Optional[Type], device) -> tuple:
+    """(tensor on ``device``, its Type) of a numpy array or tensor."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device), x_type or type_of_storage(x.dtype)
+    a = np.asarray(x)
+    t = x_type or type_of_dtype(a.dtype)
+    return torch.from_numpy(np.array(t.to_storage(a))).to(device), t
+
+
+def csr_mxv(sr: Semiring, A: CsrMatrix, x, x_pattern=None,
+            x_type: Optional[Type] = None):
+    """(yvals, ypat) = A *.sr* x.  ``x``: dense [ncols] values (numpy or
+    a tensor; ``x_type`` names its type, default the one its dtype
+    names); ``x_pattern`` marks the present entries (None = all
+    present).  Operands are cast into the semiring's domains first.
+
+    Dense-x f32 PLUS_TIMES takes the BSR tile kernel only when every x
+    entry is finite: its dense tiles would give 0*inf = NaN in every row
+    sharing a column block with an inf/NaN entry.  (The JAX package's
+    ``csr_mxv`` takes the tiles regardless; ``A._options['bsr_spmv'] =
+    False`` opts a matrix out.)"""
+    from .esc import _check_builtin
+    _check_builtin(sr.ztype, sr.xtype, sr.ytype, A.type)
+    dev = A.device
+    x, xt = _as_storage(x, x_type, dev)
+    x = cast(x, sr.ytype, xt)
+    if (x_pattern is None and cuda_spmv.bsr_spmv_ok(sr, A)
+            and bool(torch.isfinite(x).all())):
+        # dense finite x, dense-enough tiles: the BSR tile kernel
+        return cuda_spmv.bsr_spmv(sr, A, x)
+    avals = cast(A.values, sr.xtype, A.type)
+    # identity slot for padded column indices (sentinel = ncols)
+    x_ext = torch.cat([x, torch.zeros(1, dtype=x.dtype, device=dev)])
+    if x_pattern is None:
+        return _csr_mxv_dense_x(sr, A, avals, x_ext)
+    xp = torch.as_tensor(x_pattern).to(dev, torch.bool)
+    xp_ext = torch.cat([xp, torch.zeros(1, dtype=torch.bool, device=dev)])
+    return _csr_mxv_sparse_x(sr, A, avals, x_ext, xp_ext)
+
+
+def csr_vxm(sr: Semiring, x, AT: CsrMatrix, x_pattern=None,
+            x_type: Optional[Type] = None):
+    """w = x' *.sr* A given AT = A' in CSR (i.e. A in CSC): the same
+    edge-parallel engines; the caller caches the transpose."""
+    return csr_mxv(sr, AT, x, x_pattern, x_type)

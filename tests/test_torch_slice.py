@@ -11,7 +11,11 @@ engine the port records must map to the JAX package's through
 The second slice, the masked valued product, runs ``mxm(C0, M, None,
 "plus_times", L, U)`` on the prepped R-MAT graphs with bench.py's value
 recipe in both packages: nnzC and the pattern must be equal, values
-within rtol=2e-5, atol=2e-6 (reassociation)."""
+within rtol=2e-5, atol=2e-6 (reassociation).
+
+The third slice, SpMV, runs ``mxv``/``vxm`` on Wathen (through the BSR
+tile engine) and the whole-loop BFS / PageRank and a frontier step on
+R-MAT, with the tolerances stated per test."""
 
 import numpy as np
 import pytest
@@ -173,3 +177,89 @@ def test_rmat_valdot_matches_jax(monkeypatch, scale):
     assert np.array_equal(It, np.asarray(Ij))
     assert np.array_equal(Jt, np.asarray(Jj))
     np.testing.assert_allclose(Xt, np.asarray(Xj), rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("nx", [8, 16])
+def test_wathen_spmv_slice_matches_jax(nx):
+    """The SpMV slice on a Wathen FEM matrix (duplicates summed, FP32):
+    ``mxv`` with a dense u through the BSR tile engine (forced on the
+    CPU in both packages), against the JAX package's ``bsr_spmv``:
+    pattern equal, values within 2 * K * 2^-24 * sum |a x| per row;
+    ``vxm`` with TRAN1 (the dense-x engine) against the JAX package's
+    ``vxm`` (its sparse-x engine, a float32 segment sum), within the same
+    bound (the FEM rows cancel, so a relative tolerance does not fit)."""
+    import jax.numpy as jnp
+    from graphblas_tpu.sparse import pallas_spmv as jps
+    from graphblas_tpu_torch import convert
+    I, J, X, n = gt.wathen_coo(nx, nx, seed=1)
+    Aj = jsp.CsrMatrix.from_coo(I, J, X.astype(np.float32), n, n,
+                                type=gb.FP32)
+    At = convert.from_jax(Aj, device="cpu")
+    Aj._options["bsr_spmv"] = At._options["bsr_spmv"] = True
+    x = np.random.default_rng(11).standard_normal(n).astype(np.float32)
+    w = gt.mxv(gt.Vector.new(gt.FP32, n, device="cpu"), None, None,
+               "plus_times", At, gt.Vector.from_dense(x, device="cpu"))
+    engine = gt.last_axb_method()
+    yj, pj = jps.bsr_spmv(gb.semiring.plus_times[gb.FP32], Aj,
+                          jnp.asarray(x), interpret=True)
+    assert engine == "torch:bsr_spmv"
+    _check_engine(engine)
+    assert np.array_equal(w.pattern_np(), np.asarray(pj))
+    It, Jt, Xt = At.extractTuples()
+    mag = np.zeros(n)
+    np.add.at(mag, It, np.abs(Xt.astype(np.float64) * x[Jt]))
+    bound = 2 * np.bincount(It, minlength=n) * 2.0 ** -24 * mag
+    assert np.all(np.abs(w.to_dense() - np.asarray(yj)) <= bound)
+    uj = gb.Vector.from_dense(x, gb.FP32)
+    wt = gt.vxm(gt.Vector.new(gt.FP32, n, device="cpu"), None, None,
+                "plus_times", gt.Vector.from_dense(x, device="cpu"), At,
+                gt.TRAN1)
+    wj = gb.vxm(gb.Vector.new(gb.FP32, n), None, None,
+                gb.semiring.plus_times[gb.FP32], uj, Aj, gb.TRAN1)
+    assert np.array_equal(wt.pattern_np(), wj.pattern_np())
+    # u' A' = (A u)': the same rows' terms
+    assert np.all(np.abs(wt.to_dense() - wj.to_dense()) <= bound)
+
+
+@pytest.mark.parametrize("scale", [10, 12])
+def test_rmat_spmv_slice_matches_jax(scale):
+    """The SpMV slice on the symmetrized R-MAT graph: BFS levels and the
+    PageRank top-10 exactly, PageRank within 1e-5 relative, one frontier
+    step (vxm lor_land, complemented mask, REPLACE) exactly, and a dense
+    plus_times[FP32] mxv within rtol=1e-5, atol=1e-6."""
+    n = 1 << scale
+    I, J = gt.rmat_edges(scale, 16, seed=7)
+    I, J = gt.symmetrize_pattern(I, J, n)
+    X = np.ones(len(I), bool)
+    At = gt.csr_from_coo(I, J, X, n, n, type=gt.BOOL, sum_duplicates=False,
+                         device="cpu")
+    Aj = jsp.CsrMatrix.from_coo(I, J, X, n, n, type=gb.BOOL,
+                                sum_duplicates=False)
+    assert np.array_equal(gt.bfs_csr(At, 0), jsp.bfs_csr(Aj, 0))
+    rt, rj = gt.pagerank_csr(At, iters=20), jsp.pagerank_csr(Aj, iters=20)
+    np.testing.assert_allclose(rt, rj, rtol=1e-5)
+    assert np.array_equal(np.argsort(-rt, kind="stable")[:10],
+                          np.argsort(-rj, kind="stable")[:10])
+    q = np.zeros(n, bool)
+    q[0] = True
+    qt = gt.Vector.from_dense(q, gt.BOOL, pattern=q, device="cpu")
+    qj = gb.Vector.from_dense(q, gb.BOOL, pattern=q)
+    wt = gt.vxm(gt.Vector.new(gt.BOOL, n, device="cpu"), qt, None,
+                "lor_land", qt, At,
+                gt.Descriptor(mask_scmp=True, replace=True, tran1=True))
+    assert gt.last_axb_method() == "spmv:sparse_x"
+    wj = gb.vxm(gb.Vector.new(gb.BOOL, n), qj, None,
+                gb.semiring.lor_land[gb.BOOL], qj, Aj,
+                gb.Descriptor(mask_scmp=True, replace=True, tran1=True))
+    assert np.array_equal(wt.pattern_np(), wj.pattern_np())
+    assert np.array_equal(wt.to_dense(), wj.to_dense())
+    x = np.random.default_rng(5).random(n).astype(np.float32)
+    yt = gt.mxv(gt.Vector.new(gt.FP32, n, device="cpu"), None, None,
+                "plus_times_fp32", At, gt.Vector.from_dense(x, device="cpu"))
+    assert gt.last_axb_method() == "spmv:dense_x"
+    yj = gb.mxv(gb.Vector.new(gb.FP32, n), None, None,
+                gb.semiring.plus_times[gb.FP32], Aj,
+                gb.Vector.from_dense(x, gb.FP32))
+    assert np.array_equal(yt.pattern_np(), yj.pattern_np())
+    np.testing.assert_allclose(yt.to_dense(), yj.to_dense(), rtol=1e-5,
+                               atol=1e-6)

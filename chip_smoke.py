@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one CUDA card (triangle
-counting, the masked valued product ``mxm``, and SpMV with BFS and
-PageRank), and check each hand-written kernel against its plain
-PyTorch version.
+counting, the masked valued product ``mxm``, SpMV with BFS and
+PageRank, and ``mxm`` into a bitmap ``Matrix``: all-pairs shortest paths
+by min-plus squaring and an SpMM), and check each hand-written kernel
+against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -57,12 +58,31 @@ uncaught exception and a nonzero exit):
    frontier step ``vxm(lor_land)`` from vertex 0 with the complemented
    mask and REPLACE (sparse-x engine), ``bfs_csr`` from vertex 0 (level
    counts exact) and ``pagerank_csr(iters=20)`` (top-10 vertices exact),
-   anchors taken from the JAX package on the CPU.
+   anchors taken from the JAX package on the CPU;
+14. the tropical kernel (K6) against its plain version, all six pairs at
+   (1000 x 1100) . (1100 x 900) with about 1 % +-inf and NaN values:
+   equal bit for bit up to the sign of zero, NaN where NaN; then
+   min-plus at 4096^3 timed in turns (kernel, plain once, kernel);
+15. the window product kernel (K3) against its plain version on the
+   Wathen 128 window plan, exact, timed in turns with ``torch.bmm`` of
+   the panels in float16 (the unmasked product, exact at these counts;
+   timed only here);
+16. the bitmap ``mxm`` path: all-pairs shortest paths on R-MAT 12 (edge
+   factor 16, seed 7, symmetrized; weights U[1, 10) float32 from
+   ``default_rng(5)`` on the upper triangle, mirrored; a 0 diagonal) by
+   ``D = mxm(D, None, binary.min[FP32], "min_plus", D, D)`` until D stops
+   changing, each product through ``cuda:tropical_min_plus``, against
+   scipy's float64 Dijkstra (reachability exact, distances within
+   rtol=1e-5); one SpMM, ``mxm`` of the R-MAT 18 graph by a dense
+   float32 X (n, 32) into a bitmap C through ``spmm:ell``, per row within
+   K * 2^-24 * sum |a * x| of scipy float64; ``window_masked_mm_pallas``
+   on the Wathen 128 window plan, whose panels sum to 884,992.
 
 Launch counters are zeroed just before each path and read just after
 it: before phase 3 and after phase 9 (triangle counting and ``mxm``:
-the first four kernels), before phase 12 and after phase 13 (SpMV: K5);
-every kernel of a path must have launched there.  The line before the
+the first four kernels), before phase 12 and after phase 13 (SpMV: K5),
+before and after phase 16 (the bitmap ``mxm`` path: K6 and K3); every
+kernel of a path must have launched there.  The line before the
 last is the per-kernel JSON summary, with each kernel's bound (the
 larger of its compulsory bytes over 3.35 TB/s and its operations over
 the card's peak for their type); the last line is
@@ -93,6 +113,7 @@ RMAT18_PAGERANK_TOP10 = [0, 32, 16384, 1024, 512, 2048, 2, 16, 8192, 4]
 MXM_PATH = ("tri_band_ring", "window_count", "bitdot_popcount",
             "valdot_gatherdot")
 SPMV_PATH = ("bsr_spmv",)
+BITMAP_PATH = ("tropical_mm", "window_mm")
 
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes/s,
 # int8 tensor-core ops/s, and the CUDA cores' 32-bit ops/s (the float32
@@ -227,22 +248,25 @@ def spmv_error(got: torch.Tensor, plan, xpad: torch.Tensor,
 
 
 def scipy_check(y: np.ndarray, pat: np.ndarray, A, x: torch.Tensor):
-    """(max |error|, per-row bound) of an SpMV result y against the
-    float64 scipy CSR product of A's stored values: each row within
-    K * 2^-24 * sum |a * x| (K the row's term count), and the pattern
-    the rows with entries."""
+    """(max |error|, per-row bound) of an SpMV result y = A x, or an SpMM
+    result y = A X (x of shape (n, k)), against the float64 scipy CSR
+    product of A's stored values: each entry within K * 2^-24 *
+    sum |a * x| (K the row's term count), and the pattern the rows with
+    entries, in every column."""
     import scipy.sparse as ssp
     hp = A._options["host_pattern"]
     S = ssp.csr_matrix((A.values[:A.nvals].double().cpu().numpy(),
                         (hp[0][:A.nvals], hp[1][:A.nvals])), shape=A.shape)
     x64 = x.double().cpu().numpy()
-    deg = np.diff(S.indptr)
+    deg = np.diff(S.indptr).reshape((-1,) + (1,) * (x64.ndim - 1))
     ref = S @ x64
     tol = np.maximum(deg, 1) * 2.0 ** -24 * (abs(S) @ np.abs(x64))
     err = np.abs(y.astype(np.float64) - ref)
-    assert np.array_equal(pat, deg > 0), "SpMV pattern != rows with entries"
+    assert np.array_equal(pat, np.broadcast_to(deg > 0, pat.shape)), \
+        "pattern != rows with entries"
     if not (err <= tol).all():
-        raise AssertionError(f"SpMV beyond the bound: max err {err.max()}")
+        raise AssertionError(f"beyond the per-row bound: max err "
+                             f"{err.max()}")
     return float(err.max()), tol
 
 
@@ -323,6 +347,67 @@ def random_popcount_case(rng, W: int, maps: bool):
     cols = rng.integers(0, n if maps else nb, nzmax).astype(np.int32)
     return tuple(None if x is None else torch.as_tensor(x).to(dev)
                  for x in (Ap, Bp, amap, bmap, rows, cols)) + (nvals,)
+
+
+def tropical_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """0.0 when the tropical kernel's output equals the plain version's
+    bit for bit up to the sign of zero (``==``) and NaN where NaN;
+    raises otherwise."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"kernel gave {got.dtype} {tuple(got.shape)}, "
+                             f"plain {want.dtype} {tuple(want.shape)}")
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    if not bool(same.all()):
+        raise AssertionError(f"tropical kernel differs from its plain "
+                             f"version in {int((~same).sum())} entries")
+    return 0.0
+
+
+def with_specials(rng, shape) -> torch.Tensor:
+    """float32 values in [-4, 4) with about 0.4 % +inf, 0.3 % -inf and
+    0.3 % NaN, on the card."""
+    x = rng.random(shape, np.float32) * 8 - 4
+    u = rng.random(shape)
+    x[u < 0.004] = np.inf
+    x[(u >= 0.004) & (u < 0.007)] = -np.inf
+    x[(u >= 0.007) & (u < 0.01)] = np.nan
+    return torch.from_numpy(x).to("cuda")
+
+
+def cuda_once(fn):
+    """(result, device milliseconds) of one call."""
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def apsp_d0(gt, scale: int):
+    """The all-pairs shortest-path start on R-MAT ``scale`` (edge factor
+    16, seed 7, symmetrized): weights U[1, 10) float32 from
+    ``default_rng(5)`` on the upper triangle, mirrored, and a 0 diagonal,
+    as a bitmap FP32 Matrix on the card; also the scipy float64 graph
+    without the diagonal."""
+    import scipy.sparse as ssp
+    n = 1 << scale
+    I, J = gt.rmat_edges(scale, 16, seed=7)
+    I, J = gt.symmetrize_pattern(I, J, n)
+    up = I < J
+    w = (1 + 9 * np.random.default_rng(5).random(int(up.sum()))
+         ).astype(np.float32)
+    d = np.arange(n)
+    D0 = gt.Matrix.from_coo(np.concatenate([I[up], J[up], d]),
+                            np.concatenate([J[up], I[up], d]),
+                            np.concatenate([w, w, np.zeros(n, np.float32)]),
+                            n, n, type=gt.FP32, device="cuda")
+    G = ssp.csr_matrix((np.concatenate([w, w]).astype(np.float64),
+                        (np.concatenate([I[up], J[up]]),
+                         np.concatenate([J[up], I[up]]))), shape=(n, n))
+    return D0, G
 
 
 def main() -> None:
@@ -826,6 +911,143 @@ def main() -> None:
     assert not missing, f"kernels not launched on the SpMV path: {missing}"
     launches.update(spmv_launches)
 
+    # ---- 14. the tropical kernel (K6) against its plain version ----
+    from graphblas_tpu_torch.sparse import cuda_tropical as ct
+    rng = np.random.default_rng(14)
+    a, b = with_specials(rng, (1000, 1100)), with_specials(rng, (1100, 900))
+    for add, mult in ct.TROPICAL_PAIRS:
+        tropical_err(ct.tropical_mm(a, b, add, mult),
+                     ct._tropical_mm_plain(a, b, add, mult))
+    sync()
+    print(f"{tag} phase14 tropical_mm: all six pairs at (1000x1100).(1100x"
+          f"900) with +-inf and NaN values equal their plain version (up to "
+          f"the sign of zero, NaN where NaN)")
+    N = 4096
+    a = torch.from_numpy(1 + 9 * rng.random((N, N), np.float32)).to("cuda")
+    b = torch.from_numpy(1 + 9 * rng.random((N, N), np.float32)).to("cuda")
+
+    def k6():
+        return ct.tropical_mm(a, b, "MIN", "PLUS")
+
+    k1 = cuda_ms(k6, 5)
+    want, pms = cuda_once(lambda: ct._tropical_mm_plain(a, b, "MIN", "PLUS"))
+    k2 = cuda_ms(k6, 5)
+    err = tropical_err(k6(), want)
+    summary["tropical_mm"] = (err, min(k1, k2), pms)
+    bounds["tropical_mm"] = bound(3 * N * N * 4, 2 * N ** 3, CUDA32_OPS)
+    print(f"{tag} phase14 tropical_mm min-plus at {N}^3: equal to plain; "
+          f"kernel {k1:.4f} / {k2:.4f} ms, plain (once) {pms:.4f} ms, bound "
+          f"{bounds['tropical_mm'][0]:.4f} ms "
+          f"({bounds['tropical_mm'][1]}; counts an add and a min at the "
+          f"float32 FMA rate, so optimistic), "
+          f"{2 * N ** 3 / (min(k1, k2) * 1e-3) / 1e12:.3f} T ops/s")
+    del a, b, want
+
+    # ---- 15. the window product kernel (K3) against its plain version ----
+    L, U, _, _ = wathen_lu(gt, 128)
+    win = gt.build_window_plan(L, U, L)
+    assert win is not None, "Wathen 128 window plan refused"
+    Ph, Qh = win.P.half(), win.Q.half()
+
+    def bmm_library():
+        return torch.bmm(Ph, Qh)
+
+    got = gt.window_masked_mm_pallas(win)
+    lib_masked = bmm_library().to(torch.int32) * win.M
+    assert torch.equal(lib_masked, got), "float16 bmm (masked) != K3"
+    err = max_abs_err(got, cw._window_mm_plain(win.P, win.Q, win.M))
+    assert err == 0, f"K3 differs from its plain version by {err}"
+    ms, pms, lms = turns(lambda: gt.window_masked_mm_pallas(win),
+                         lambda: cw._window_mm_plain(win.P, win.Q, win.M),
+                         10, 3, bmm_library)
+    summary["window_mm"] = (err, ms, pms)
+    library_ms["window_mm"] = lms
+    nI, _, W = win.P.shape
+    nJ = win.Q.shape[2]
+    bounds["window_mm"] = bound(
+        win.P.numel() + win.Q.numel() + win.M.numel() + 4 * got.numel(),
+        2 * nI * 128 * W * nJ, INT8_OPS)
+    print(f"{tag} phase15 window_mm at Wathen 128 (P {tuple(win.P.shape)}, "
+          f"Q {tuple(win.Q.shape)}): exact; kernel {ms:.4f} ms, plain "
+          f"{pms:.4f} ms, torch.bmm float16 (unmasked) {lms:.4f} ms, bound "
+          f"{bounds['window_mm'][0]:.4f} ms ({bounds['window_mm'][1]})")
+    del L, U, win, Ph, Qh, got, lib_masked
+    sync()
+
+    # ---- bitmap mxm path: 16, counted ----
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+
+    # 16a. all-pairs shortest paths on R-MAT 12 by min-plus squaring
+    from scipy.sparse.csgraph import shortest_path
+    D, G = apsp_d0(gt, 12)
+    n12 = D.nrows
+    minf = gt.binary.min[gt.FP32]
+    secs = []
+    for products in range(1, 13):
+        Dn, sec = timed(lambda: gt.mxm(D, None, minf, "min_plus", D, D))
+        engine = gt.last_axb_method()
+        assert engine == "cuda:tropical_min_plus", engine
+        secs.append(sec)
+        same = (torch.equal(Dn.pattern, D.pattern)
+                and torch.equal(Dn.values, D.values))
+        D = Dn
+        if same:
+            break
+    assert same, "min-plus squaring did not converge in 12 products"
+    ref = shortest_path(G, method="D", directed=False)
+    pat = D.pattern_np()
+    assert np.array_equal(pat, np.isfinite(ref)), "APSP reachability"
+    dist = D.to_dense()
+    np.testing.assert_allclose(dist[pat], ref[pat], rtol=1e-5)
+    derr = float(np.abs(dist[pat] - ref[pat]).max())
+    print(f"{tag} phase16 APSP R-MAT 12 (n {n12}, {G.nnz} edges): "
+          f"{products} min-plus products via {engine} (the last one "
+          f"changes nothing), first {secs[0]:.4f} s, warm "
+          f"{min(secs[1:]):.4f}-{max(secs[1:]):.4f} s per product; "
+          f"{int(pat.sum())} reachable pairs == scipy, max |error| "
+          f"{derr:.3g} (rtol 1e-5)")
+    del D, Dn, G, ref, dist, pat
+
+    # 16b. one SpMM on the R-MAT 18 graph: C = A X into a bitmap
+    X = torch.from_numpy(np.random.default_rng(16).random((n18, 32),
+                                                          np.float32))
+    X = X.to("cuda")
+    B = gt.Matrix.from_dense(X)
+    C0 = gt.Matrix.new(gt.FP32, n18, 32, device="cuda")
+    srf = gt.semiring.plus_times[gt.FP32]
+    C, sfirst = timed(lambda: gt.mxm(C0, None, None, srf, A18, B))
+    sengine = gt.last_axb_method()
+    assert sengine == "spmm:ell", sengine
+    _, swarm = timed(lambda: gt.mxm(C0, None, None, srf, A18, B))
+    smm_ms = cuda_ms(lambda: gt.mxm(C0, None, None, srf, A18, B), 3)
+    serr, _ = scipy_check(C.to_dense(), C.pattern_np(), A18, X)
+    print(f"{tag} phase16 SpMM R-MAT 18 (n {n18}, nnz {A18.nvals}) x X "
+          f"({n18}, 32) plus_times FP32 via {sengine}: first {sfirst:.4f} s "
+          f"(plan built), warm {swarm:.6f} s ({smm_ms:.4f} ms CUDA events); "
+          f"max_abs_err vs scipy {serr:.3g} (within bound)")
+    del X, B, C0, C
+
+    # 16c. the window product panels on the Wathen 128 window plan
+    L, U, _, _ = wathen_lu(gt, 128)
+    win = gt.build_window_plan(L, U, L)
+    panels, wsecs = timed(lambda: gt.window_masked_mm_pallas(win))
+    wengine = gt.last_axb_method()
+    wtotal = int(panels.sum(dtype=torch.int64))
+    assert wengine == "cuda:window_mm", wengine
+    assert wtotal == WATHEN_128_NTRI, wtotal
+    print(f"{tag} phase16 window_masked_mm_pallas Wathen 128 via {wengine}: "
+          f"panels {tuple(panels.shape)} sum to {wtotal} in {wsecs:.4f} s; "
+          f"peak device memory {torch.cuda.max_memory_allocated()} B")
+    del L, U, win, panels
+    sync()
+    bitmap_launches = {k: _build.launches[k] for k in BITMAP_PATH}
+    print(f"bitmap-mxm-path launches: {json.dumps(bitmap_launches)}")
+    missing = [k for k, v in bitmap_launches.items() if v == 0]
+    assert not missing, \
+        f"kernels not launched on the bitmap mxm path: {missing}"
+    launches.update(bitmap_launches)
+
     sources = {
         "tri_band_ring": ("graphblas_tpu_torch/csrc/window.cu",
                           "graphblas_tpu/sparse/pallas_window.py:160"),
@@ -837,13 +1059,18 @@ def main() -> None:
                              "graphblas_tpu/sparse/valdot.py:481"),
         "bsr_spmv": ("graphblas_tpu_torch/csrc/spmv.cu",
                      "graphblas_tpu/sparse/pallas_spmv.py:103"),
+        "window_mm": ("graphblas_tpu_torch/csrc/window.cu",
+                      "graphblas_tpu/sparse/pallas_window.py:101"),
+        "tropical_mm": ("graphblas_tpu_torch/csrc/tropical.cu",
+                        "graphblas_tpu/sparse/pallas_tropical.py:116"),
     }
     kernels = []
     for name, (src, repl) in sources.items():
         err, ms, pms = summary[name]
         bms, by = bounds[name]
-        # no single PyTorch call computes the first three (no torch
-        # popcount, no single-call masked reduce)
+        # no single PyTorch call computes K1, K2, the popcount pass (no
+        # torch popcount, no single-call masked reduce) or K6 (torch has
+        # no min-plus product)
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": repl, "launches": launches[name],
                         "max_abs_err": err, "ms": ms, "plain_ms": pms,

@@ -2,7 +2,7 @@
 
 The JAX package ``graphblas_tpu`` is the reference; this package keeps
 its module paths and function names so each counterpart is easy to find,
-and imports no JAX.  Three slices so far:
+and imports no JAX.  Four slices so far:
 
 * masked structural SpGEMM triangle counting on CSR containers
   (SandiaDot ``ntri = sum (L·U') .* L``) with three hand-written CUDA
@@ -16,7 +16,13 @@ and imports no JAX.  Three slices so far:
 * SpMV: ``mxv``/``vxm`` on ``Vector`` outputs with CSR, CSC or bitmap
   matrices (:mod:`sparse.spmv`, the BSR tile kernel of
   :mod:`sparse.cuda_spmv`) and the whole-loop ``bfs_csr`` /
-  ``pagerank_csr``.
+  ``pagerank_csr``;
+* ``mxm`` into a bitmap ``Matrix`` for every builtin semiring: the dense
+  engines of ``semiring_mm`` with the hand-written tropical kernel for
+  FP32 MIN_PLUS, MAX_PLUS, MIN_MAX and MAX_MIN (:mod:`sparse.cuda_tropical`),
+  the SpMM fast path for a CSR/CSC ``A`` (:mod:`sparse.spmm`), and the
+  window masked-product kernel ``window_masked_mm_pallas``
+  (:mod:`sparse.cuda_window`).
 
 The kernels are built with ``nvcc`` on first use, never at import.
 

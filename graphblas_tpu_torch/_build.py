@@ -50,6 +50,10 @@ _SIGNATURES = {
     "valdot_gatherdot": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
     # rbptr, cb, slot, valid, tiles, x, y, nrb, stream
     "bsr_spmv": (_P, _P, _P, _P, _P, _P, _P, _I, _P),
+    # P, Q, M, out, nI, W, nJ, stream
+    "window_mm": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # a, b, c, m, k, n, add_max, mult, stream
+    "tropical_mm": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 #: kernel launches per launcher since the last :func:`reset_launches`;

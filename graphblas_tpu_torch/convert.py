@@ -6,9 +6,10 @@ both packages can compute on exactly the same containers, plans and
 semirings — the parity tests' "weights".  Each ``*_from_arrays``
 function takes plain arrays and metadata; :func:`from_jax` reads them
 off a JAX package ``CsrMatrix`` (pattern-only or valued: FP32, INT32,
-FP64, BOOL and the other builtin types), ``CscMatrix``, ``Vector``,
-``BandPlan``, ``WindowPlan``, ``Semiring`` (by its operator names and
-type) or BSR SpMV plan (the 8-tuple ``bsr_spmv_plan`` returns).
+FP64, BOOL and the other builtin types), ``CscMatrix``, bitmap
+``Matrix``, ``Vector``, ``BandPlan``, ``WindowPlan``, ``Semiring`` (by
+its operator names and type) or BSR SpMV plan (the 8-tuple
+``bsr_spmv_plan`` returns).
 """
 
 from __future__ import annotations
@@ -16,16 +17,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core.matrix import Vector
+from .core.matrix import Matrix, Vector
 from .core.semirings import Semiring, semiring
 from .core.types import type_by_name
 from .sparse.container import CscMatrix, CsrMatrix, resolve_device
 from .sparse.cuda_spmv import BsrSpmvPlan
 from .sparse.window import BandPlan, WindowPlan
 
-__all__ = ["csr_from_arrays", "vector_from_arrays", "band_plan_from_arrays",
-           "window_plan_from_arrays", "bsr_spmv_plan_from_arrays",
-           "semiring_by_name", "from_jax"]
+__all__ = ["csr_from_arrays", "matrix_from_arrays", "vector_from_arrays",
+           "band_plan_from_arrays", "window_plan_from_arrays",
+           "bsr_spmv_plan_from_arrays", "semiring_by_name", "from_jax"]
 
 
 def _dev(a, device) -> torch.Tensor:
@@ -47,6 +48,15 @@ def csr_from_arrays(indptr, indices, rowids, values, nvals: int,
         A._options["host_pattern"] = (np.asarray(host_pattern[0]),
                                       np.asarray(host_pattern[1]))
     return A
+
+
+def matrix_from_arrays(values, pattern, type_name: str,
+                       device=None) -> Matrix:
+    """Bitmap Matrix from its values and pattern."""
+    device = resolve_device(device)
+    t = type_by_name(type_name)
+    return Matrix(_dev(t.to_storage(values), device),
+                  _dev(np.asarray(pattern, bool), device), t)
 
 
 def vector_from_arrays(values, pattern, type_name: str,
@@ -103,8 +113,9 @@ def semiring_by_name(add_name: str, mult_name: str,
 
 def from_jax(obj, device=None):
     """The port's counterpart of a JAX package CsrMatrix, CscMatrix,
-    Vector, BandPlan, WindowPlan, BSR SpMV plan (read through numpy) or
-    builtin Semiring (by name)."""
+    bitmap Matrix (its pending tuples folded first), Vector, BandPlan,
+    WindowPlan, BSR SpMV plan (read through numpy) or builtin Semiring
+    (by name)."""
     kind = type(obj).__name__
     if kind == "tuple" and len(obj) == 8:
         return bsr_spmv_plan_from_arrays(*(np.asarray(a) for a in obj[:5]),
@@ -123,6 +134,11 @@ def from_jax(obj, device=None):
             obj.nrows, obj.ncols, obj.type.name, hp, device)
     if kind == "CscMatrix":
         return CscMatrix(from_jax(obj.tr, device))
+    if kind == "Matrix":
+        obj = obj.wait()
+        return matrix_from_arrays(np.asarray(obj.values),
+                                  np.asarray(obj.pattern), obj.type.name,
+                                  device)
     if kind == "Vector":
         return vector_from_arrays(np.asarray(obj.values),
                                   np.asarray(obj.pattern), obj.type.name,

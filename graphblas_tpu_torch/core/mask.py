@@ -4,9 +4,10 @@ Counterpart of ``graphblas_tpu/core/mask.py``, with the semantics of the
 reference's executable specs ``Test/GB_spec_accum.m`` and
 ``Test/GB_spec_mask.m``: on the bitmap layout the whole epilogue is a
 few elementwise selects over ``values`` and ``pattern``.  It serves the
-``Vector`` outputs of ``mxv``/``vxm`` (a bitmap ``Matrix`` output comes
-with the dense ``mxm`` slice); the CSR epilogue is
-:mod:`graphblas_tpu_torch.sparse.mask`.
+bitmap ``Matrix`` outputs of ``mxm`` and the ``Vector`` outputs of
+``mxv``/``vxm`` alike (the mask's shape must be the output's; the
+result is a new container of the output's class and type); the CSR
+epilogue is :mod:`graphblas_tpu_torch.sparse.mask`.
 """
 
 from __future__ import annotations

@@ -3,13 +3,16 @@
 
 Counterpart of ``graphblas_tpu/core/matrix.py``: values in the type's
 storage dtype and a bool pattern of the same shape, with absent values
-0 (the canonical invariant).  ``Matrix`` is reduced to what the small
-dense branch of the sparse ``mxm`` needs; ``Vector`` carries the SpMV
-slice (``mxv``/``vxm`` inputs, masks and outputs).  Pending tuples and
-element access come with the containers slice, so ``Vector.wait()``
-returns the vector itself.
+0 (the canonical invariant).  ``Matrix`` is the output and operand of
+the bitmap ``mxm`` (the dense engines, the tropical kernel and the SpMM
+fast path); ``Vector`` carries SpMV (``mxv``/``vxm`` inputs, masks and
+outputs).  Both are functional: every method returns a new container.
+Pending tuples (``setElement`` folded by ``wait``) come with the
+containers slice, so ``wait()`` returns the container itself.
+User-defined types come with a later slice too: a type that is not a
+builtin ``Type`` raises.
 
-Like the sparse containers, a ``Vector`` lives on the CUDA card unless
+Like the sparse containers, a container lives on the CUDA card unless
 the caller passes ``device`` (a constructor without it raises when no
 card is present); one built from a tensor keeps the tensor's device.
 """
@@ -26,55 +29,6 @@ from .ops import BinaryOp, binary
 from .types import Type, cast, type_of_dtype, type_of_storage
 
 __all__ = ["Matrix", "Vector"]
-
-
-class Matrix:
-    """Bitmap matrix: ``values`` (m, n) in ``type.storage`` and
-    ``pattern`` (m, n) bool, on one device."""
-
-    __slots__ = ("values", "pattern", "type")
-
-    def __init__(self, values: torch.Tensor, pattern: torch.Tensor,
-                 type: Type):
-        if values.shape != pattern.shape:
-            raise ValueError(f"values {tuple(values.shape)} and pattern "
-                             f"{tuple(pattern.shape)} differ in shape")
-        self.values = values
-        self.pattern = pattern
-        self.type = type
-
-    @property
-    def shape(self):
-        return tuple(self.pattern.shape)
-
-    @property
-    def nrows(self) -> int:
-        return self.shape[0]
-
-    @property
-    def ncols(self) -> int:
-        return self.shape[1]
-
-    @property
-    def device(self) -> torch.device:
-        return self.pattern.device
-
-    def nvals(self) -> int:
-        return int(self.pattern.sum())
-
-    def extractTuples(self):
-        """(I, J, X) of the entries in row-major order as host arrays, X
-        in the type's numpy dtype."""
-        I, J = torch.nonzero(self.pattern, as_tuple=True)
-        X = self.values[I, J].cpu().numpy()
-        if self.type.is_unsigned:
-            X = X.view(self.type.dtype)
-        return (I.cpu().numpy().astype(np.int64),
-                J.cpu().numpy().astype(np.int64), X)
-
-    def __repr__(self):  # pragma: no cover
-        return (f"Matrix<{self.type.name}> {self.nrows}x{self.ncols} on "
-                f"{self.device}")
 
 
 # sorted-run duplicate assembly (the JAX package's ``_REDUCEAT_OPS``):
@@ -117,95 +71,79 @@ def _resolve(device) -> torch.device:
     return resolve_device(device)
 
 
-class Vector:
-    """A GrB_Vector in bitmap form: ``values`` (n,) in ``type.storage``
-    and ``pattern`` (n,) bool, on one device.  (Reference: a vlen x 1
-    CSC matrix.)"""
+def _builtin(t) -> Optional[Type]:
+    """``t`` itself when it is None or a builtin Type; raise otherwise."""
+    if t is not None and not isinstance(t, Type):
+        raise NotImplementedError(
+            f"user-defined types come with a later slice of the port "
+            f"(got {t!r}); use a builtin Type")
+    return t
+
+
+def _dense_parts(arr, type: Optional[Type], pattern, device):
+    """(values in ``type``'s storage, bool pattern, type) of a numpy
+    array or tensor, every entry present unless ``pattern`` says."""
+    _builtin(type)
+    if isinstance(arr, dict):
+        raise NotImplementedError("user-defined (struct) values come with "
+                                  "a later slice of the port")
+    if isinstance(arr, torch.Tensor):
+        src = type_of_storage(arr.dtype)
+        dev = arr.device if device is None else torch.device(device)
+        x = arr.to(dev)
+    else:
+        a = np.asarray(arr)
+        src = type_of_dtype(a.dtype)
+        dev = _resolve(device)
+        x = torch.from_numpy(np.array(src.to_storage(a))).to(dev)
+    t = type or src
+    x = cast(x, t, src)
+    if pattern is None:
+        pat = torch.ones(x.shape, dtype=torch.bool, device=dev)
+    else:
+        pat = torch.as_tensor(pattern).to(dev, torch.bool)
+    if tuple(pat.shape) != tuple(x.shape):
+        raise DimensionMismatch(f"pattern shape {tuple(pat.shape)} != "
+                                f"values shape {tuple(x.shape)}")
+    return x, pat, t
+
+
+def _assemble(key: np.ndarray, X, size: int, type: Optional[Type],
+              dup: Optional[BinaryOp]):
+    """Host (values, pattern, type) of ``size`` flat slots from tuples
+    at the linear positions ``key``: duplicates fold in input order with
+    ``dup`` (default PLUS), as the reference's ``GB_builder``."""
+    X = np.asarray(X)
+    t = _builtin(type) or type_of_dtype(X.dtype)
+    dup = dup or binary.plus[t]
+    vals = np.zeros(size, dtype=t.dtype)
+    pat = np.zeros(size, dtype=bool)
+    if key.size:
+        order = np.argsort(key, kind="stable")
+        ks, Xs = key[order], X[order]
+        if Xs.dtype != t.dtype:
+            src = type_of_dtype(Xs.dtype)
+            c = cast(torch.from_numpy(np.array(src.to_storage(Xs))), t,
+                     src).numpy()
+            Xs = c.view(t.dtype) if t.is_unsigned else c
+        first = np.ones(len(ks), dtype=bool)
+        first[1:] = ks[1:] != ks[:-1]
+        starts = np.nonzero(first)[0]
+        vals[ks[starts]] = _fold_duplicates(dup, Xs, starts, t)
+        pat[ks[starts]] = True
+    return vals, pat, t
+
+
+class _Bitmap:
+    """What ``Matrix`` and ``Vector`` share: ``values`` in
+    ``type.storage`` and a bool ``pattern`` of one shape, on one
+    device."""
 
     __slots__ = ("values", "pattern", "type")
 
-    def __init__(self, values: torch.Tensor, pattern: torch.Tensor,
-                 type: Type):
-        if values.dim() != 1 or values.shape != pattern.shape:
-            raise ValueError(f"a Vector needs 1-D values and pattern of "
-                             f"one shape, got {tuple(values.shape)} and "
-                             f"{tuple(pattern.shape)}")
-        self.values = values
-        self.pattern = pattern
-        self.type = type
-
-    # -- constructors -------------------------------------------------------
-    @staticmethod
-    def new(type: Type, n: int, device=None) -> "Vector":
-        dev = _resolve(device)
-        return Vector(torch.zeros(n, dtype=type.storage, device=dev),
-                      torch.zeros(n, dtype=torch.bool, device=dev), type)
-
-    @staticmethod
-    def from_dense(arr, type: Optional[Type] = None, pattern=None,
-                   device=None) -> "Vector":
-        """Every entry of ``arr`` (numpy or torch, cast to ``type``)
-        present, or those ``pattern`` marks."""
-        if isinstance(arr, torch.Tensor):
-            src = type_of_storage(arr.dtype)
-            dev = arr.device if device is None else torch.device(device)
-            x = arr.to(dev)
-        else:
-            a = np.asarray(arr)
-            src = type_of_dtype(a.dtype)
-            dev = _resolve(device)
-            x = torch.from_numpy(np.array(src.to_storage(a))).to(dev)
-        t = type or src
-        x = cast(x, t, src)
-        if pattern is None:
-            pat = torch.ones(x.shape, dtype=torch.bool, device=dev)
-        else:
-            pat = torch.as_tensor(pattern).to(dev, torch.bool)
-        if tuple(pat.shape) != tuple(x.shape):
-            raise DimensionMismatch(f"pattern shape {tuple(pat.shape)} != "
-                                    f"values shape {tuple(x.shape)}")
-        return Vector(x, pat, t).canonical()
-
-    @staticmethod
-    def from_coo(I, X, n: int, type: Optional[Type] = None,
-                 dup: Optional[BinaryOp] = None, device=None) -> "Vector":
-        """Build from (index, value) tuples; duplicates fold in input
-        order with ``dup`` (default PLUS), as the reference's
-        ``GrB_Vector_build``."""
-        I = np.asarray(I, dtype=np.int64)
-        X = np.asarray(X)
-        t = type or type_of_dtype(X.dtype)
-        if I.size and (I.min() < 0 or I.max() >= n):
-            raise IndexOutOfBounds(f"tuple index out of range for a vector "
-                                   f"of size {n}")
-        dup = dup or binary.plus[t]
-        vals = np.zeros(n, dtype=t.dtype)
-        pat = np.zeros(n, dtype=bool)
-        if I.size:
-            order = np.argsort(I, kind="stable")
-            Is, Xs = I[order], X[order]
-            if Xs.dtype != t.dtype:
-                src = type_of_dtype(Xs.dtype)
-                c = cast(torch.from_numpy(np.array(src.to_storage(Xs))), t,
-                         src).numpy()
-                Xs = c.view(t.dtype) if t.is_unsigned else c
-            first = np.ones(len(Is), dtype=bool)
-            first[1:] = Is[1:] != Is[:-1]
-            starts = np.nonzero(first)[0]
-            vals[Is[starts]] = _fold_duplicates(dup, Xs, starts, t)
-            pat[Is[starts]] = True
-        dev = _resolve(device)
-        return Vector(torch.from_numpy(t.to_storage(vals)).to(dev),
-                      torch.from_numpy(pat).to(dev), t)
-
-    # -- shape / introspection ----------------------------------------------
     @property
     def shape(self):
         return tuple(self.pattern.shape)
-
-    @property
-    def size(self) -> int:
-        return self.shape[0]
 
     @property
     def device(self) -> torch.device:
@@ -214,38 +152,52 @@ class Vector:
     def nvals(self) -> int:
         return int(self.pattern.sum())
 
-    def all_present(self) -> bool:
-        """Whether every entry is present (read from the pattern)."""
-        return bool(self.pattern.all())
-
-    def wait(self) -> "Vector":
-        """No pending tuples yet: the vector itself."""
+    def wait(self):
+        """No pending tuples yet: the container itself."""
         return self
 
-    def canonical(self) -> "Vector":
+    def canonical(self):
         """Zero the values at absent positions (the storage invariant)."""
         zero = torch.zeros((), dtype=self.values.dtype, device=self.device)
-        return Vector(torch.where(self.pattern, self.values, zero),
-                      self.pattern, self.type)
+        return type(self)(torch.where(self.pattern, self.values, zero),
+                          self.pattern, self.type)
 
-    def dup(self) -> "Vector":
-        return Vector(self.values, self.pattern, self.type)
+    def dup(self):
+        return type(self)(self.values, self.pattern, self.type)
 
-    def clear(self) -> "Vector":
-        return Vector(torch.zeros_like(self.values),
-                      torch.zeros_like(self.pattern), self.type)
+    def clear(self):
+        """Every entry removed; shape and type kept (``GrB_*_clear``)."""
+        return type(self)(torch.zeros_like(self.values),
+                          torch.zeros_like(self.pattern), self.type)
+
+    def _index(self, index) -> tuple:
+        """``index`` as a tuple of ints, checked against the shape
+        (``GrB_INVALID_INDEX``)."""
+        idx = tuple(int(i) for i in index)
+        if len(idx) != len(self.shape) or not all(
+                0 <= i < d for i, d in zip(idx, self.shape)):
+            raise IndexOutOfBounds(f"index {idx} out of range for shape "
+                                   f"{self.shape}")
+        return idx
+
+    def extractElement(self, *index):
+        """The entry's value as a numpy scalar of the type, or None when
+        it is absent (``GrB_NO_VALUE``)."""
+        idx = self._index(index)
+        if not bool(self.pattern[idx]):
+            return None
+        return self._host(self.values[idx].reshape(1))[0]
+
+    def removeElement(self, *index):
+        idx = self._index(index)
+        pat = self.pattern.clone()
+        pat[idx] = False
+        return type(self)(self.values, pat, self.type).canonical()
 
     # -- conversion ---------------------------------------------------------
     def _host(self, x: torch.Tensor) -> np.ndarray:
         a = x.cpu().numpy()
         return a.view(self.type.dtype) if self.type.is_unsigned else a
-
-    def extractTuples(self):
-        """(I, X) of the entries in index order as host arrays, X in the
-        type's numpy dtype."""
-        (I,) = torch.nonzero(self.pattern, as_tuple=True)
-        return (I.cpu().numpy().astype(np.int64),
-                self._host(self.values[I]))
 
     def to_dense(self, fill=None) -> np.ndarray:
         """Host values; absent entries hold 0, or ``fill``."""
@@ -257,6 +209,181 @@ class Vector:
 
     def pattern_np(self) -> np.ndarray:
         return self.pattern.cpu().numpy()
+
+
+class Matrix(_Bitmap):
+    """A GrB_Matrix in bitmap form: ``values`` (m, n) in ``type.storage``
+    and ``pattern`` (m, n) bool, on one device."""
+
+    __slots__ = ()
+
+    def __init__(self, values: torch.Tensor, pattern: torch.Tensor,
+                 type: Type):
+        if values.dim() != 2 or values.shape != pattern.shape:
+            raise ValueError(f"a Matrix needs 2-D values and pattern of "
+                             f"one shape, got {tuple(values.shape)} and "
+                             f"{tuple(pattern.shape)}")
+        self.values = values
+        self.pattern = pattern
+        self.type = _builtin(type)
+
+    # -- constructors -------------------------------------------------------
+    @staticmethod
+    def new(type: Type, nrows: int, ncols: int, device=None) -> "Matrix":
+        _builtin(type)
+        dev = _resolve(device)
+        return Matrix(torch.zeros((nrows, ncols), dtype=type.storage,
+                                  device=dev),
+                      torch.zeros((nrows, ncols), dtype=torch.bool,
+                                  device=dev), type)
+
+    @staticmethod
+    def from_dense(arr, type: Optional[Type] = None, pattern=None,
+                   device=None) -> "Matrix":
+        """Every entry of the 2-D ``arr`` (numpy or torch, cast to
+        ``type``) present, or those ``pattern`` marks."""
+        return Matrix(*_dense_parts(arr, type, pattern, device)).canonical()
+
+    @staticmethod
+    def from_coo(I, J, X, nrows: int, ncols: int,
+                 type: Optional[Type] = None,
+                 dup: Optional[BinaryOp] = None, device=None) -> "Matrix":
+        """Build from (i, j, value) tuples; duplicates fold in input
+        order with ``dup`` (default PLUS), as the reference's
+        ``GrB_Matrix_build``."""
+        I = np.asarray(I, dtype=np.int64)
+        J = np.asarray(J, dtype=np.int64)
+        if I.size and (I.min() < 0 or I.max() >= nrows or J.min() < 0
+                       or J.max() >= ncols):
+            raise IndexOutOfBounds(f"tuple index out of range for "
+                                   f"{nrows}x{ncols} matrix")
+        vals, pat, t = _assemble(I * ncols + J, X, nrows * ncols, type, dup)
+        dev = _resolve(device)
+        return Matrix(
+            torch.from_numpy(t.to_storage(vals).reshape(nrows, ncols)).to(dev),
+            torch.from_numpy(pat.reshape(nrows, ncols)).to(dev), t)
+
+    @staticmethod
+    def from_scipy(sp, type: Optional[Type] = None,
+                   device=None) -> "Matrix":
+        coo = sp.tocoo()
+        return Matrix.from_coo(coo.row, coo.col, coo.data, *sp.shape,
+                               type=type, device=device)
+
+    # -- shape ----------------------------------------------------------------
+    @property
+    def nrows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def ncols(self) -> int:
+        return self.shape[1]
+
+    def resize(self, nrows: int, ncols: int) -> "Matrix":
+        """``GxB_Matrix_resize``: grow with empties, shrink pruning."""
+        vals = torch.zeros((nrows, ncols), dtype=self.values.dtype,
+                           device=self.device)
+        pat = torch.zeros((nrows, ncols), dtype=torch.bool,
+                          device=self.device)
+        r, c = min(nrows, self.nrows), min(ncols, self.ncols)
+        vals[:r, :c] = self.values[:r, :c]
+        pat[:r, :c] = self.pattern[:r, :c]
+        return Matrix(vals, pat, self.type)
+
+    def T(self) -> "Matrix":
+        """Structural transpose (no mask or accum)."""
+        return Matrix(self.values.T.contiguous(),
+                      self.pattern.T.contiguous(), self.type)
+
+    # -- tuples and iteration -------------------------------------------------
+    def extractTuples(self):
+        """(I, J, X) of the entries in row-major order as host arrays, X
+        in the type's numpy dtype."""
+        I, J = torch.nonzero(self.pattern, as_tuple=True)
+        return (I.cpu().numpy().astype(np.int64),
+                J.cpu().numpy().astype(np.int64),
+                self._host(self.values[I, J]))
+
+    def rows(self):
+        """Iterate (i, cols, vals) over the nonempty rows (the
+        ``GBI_for_each_vector`` iterator)."""
+        pat = self.pattern_np()
+        vals = self.to_dense()
+        for i in np.nonzero(pat.any(axis=1))[0]:
+            cols = np.nonzero(pat[i])[0]
+            yield int(i), cols, vals[i][cols]
+
+    def cols(self):
+        """Iterate (j, rows, vals) over the nonempty columns."""
+        return self.T().rows()
+
+    def __repr__(self):  # pragma: no cover
+        return (f"Matrix<{self.type.name}> {self.nrows}x{self.ncols} on "
+                f"{self.device}")
+
+
+class Vector(_Bitmap):
+    """A GrB_Vector in bitmap form: ``values`` (n,) in ``type.storage``
+    and ``pattern`` (n,) bool, on one device.  (Reference: a vlen x 1
+    CSC matrix.)"""
+
+    __slots__ = ()
+
+    def __init__(self, values: torch.Tensor, pattern: torch.Tensor,
+                 type: Type):
+        if values.dim() != 1 or values.shape != pattern.shape:
+            raise ValueError(f"a Vector needs 1-D values and pattern of "
+                             f"one shape, got {tuple(values.shape)} and "
+                             f"{tuple(pattern.shape)}")
+        self.values = values
+        self.pattern = pattern
+        self.type = _builtin(type)
+
+    # -- constructors -------------------------------------------------------
+    @staticmethod
+    def new(type: Type, n: int, device=None) -> "Vector":
+        _builtin(type)
+        dev = _resolve(device)
+        return Vector(torch.zeros(n, dtype=type.storage, device=dev),
+                      torch.zeros(n, dtype=torch.bool, device=dev), type)
+
+    @staticmethod
+    def from_dense(arr, type: Optional[Type] = None, pattern=None,
+                   device=None) -> "Vector":
+        """Every entry of ``arr`` (numpy or torch, cast to ``type``)
+        present, or those ``pattern`` marks."""
+        return Vector(*_dense_parts(arr, type, pattern, device)).canonical()
+
+    @staticmethod
+    def from_coo(I, X, n: int, type: Optional[Type] = None,
+                 dup: Optional[BinaryOp] = None, device=None) -> "Vector":
+        """Build from (index, value) tuples; duplicates fold in input
+        order with ``dup`` (default PLUS), as the reference's
+        ``GrB_Vector_build``."""
+        I = np.asarray(I, dtype=np.int64)
+        if I.size and (I.min() < 0 or I.max() >= n):
+            raise IndexOutOfBounds(f"tuple index out of range for a vector "
+                                   f"of size {n}")
+        vals, pat, t = _assemble(I, X, n, type, dup)
+        dev = _resolve(device)
+        return Vector(torch.from_numpy(t.to_storage(vals)).to(dev),
+                      torch.from_numpy(pat).to(dev), t)
+
+    # -- shape / introspection ----------------------------------------------
+    @property
+    def size(self) -> int:
+        return self.shape[0]
+
+    def all_present(self) -> bool:
+        """Whether every entry is present (read from the pattern)."""
+        return bool(self.pattern.all())
+
+    def extractTuples(self):
+        """(I, X) of the entries in index order as host arrays, X in the
+        type's numpy dtype."""
+        (I,) = torch.nonzero(self.pattern, as_tuple=True)
+        return (I.cpu().numpy().astype(np.int64),
+                self._host(self.values[I]))
 
     def __repr__(self):  # pragma: no cover
         return f"Vector<{self.type.name}> n={self.size} on {self.device}"

@@ -1,10 +1,11 @@
-// Masked int8 panel products for SandiaDot triangle counting on banded
-// graphs: per 128-row block i, the masked count sum_{r,c} (A.B)[r,c] * M[r,c]
-// as an int32 partial.
+// Masked int8 panel products on banded graphs: per 128-row block i, the
+// masked count sum_{r,c} (A.B)[r,c] * M[r,c] as an int32 partial (SandiaDot
+// triangle counting), or the masked product panel (A.B) * M itself.
 //
 // Replaces the TPU kernels of graphblas_tpu/sparse/pallas_window.py:
 //   gb_tri_band_ring  <- _tri_ring_launch / _make_tri_ring_kernel (band-ring)
 //   gb_window_count   <- _count_launch / _count_kernel (window-panel count)
+//   gb_window_mm      <- _mm_launch / _mm_kernel (window-panel product, K3)
 //
 // What bounds it on the card: int8 multiply-accumulate work on the padded
 // band, (Wb*(Wb+1)/2) * 128^3 MACs per block-row for the band ring; the
@@ -13,13 +14,15 @@
 //
 // What this simple design does about it: one CUDA block per (block-row,
 // band offset, 64-column half) for the band ring and per (block-row,
-// 64-column tile) for the window count, so blocks run in parallel where the
-// TPU walked its grid in order; the TPU's VMEM ring that streamed U once
-// becomes direct reads of Ut[J] (L2-resident).  Each block stages 32-byte
-// slices of both operands through shared memory packed as 4-byte words and
-// accumulates a 128x64 int32 tile with __dp4a (4 int8 MACs per
-// instruction), multiplies it by the mask tile, reduces it in the block and
-// atomically adds it to partials[i].  Integer sums are exact in any order.
+// 64-column tile) for the window count and product, so blocks run in
+// parallel where the TPU walked its grid in order; the TPU's VMEM ring that
+// streamed U once becomes direct reads of Ut[J] (L2-resident).  Each block
+// stages 32-byte slices of both operands through shared memory packed as
+// 4-byte words and accumulates a 128x64 int32 tile with __dp4a (4 int8 MACs
+// per instruction), multiplies it by the mask tile and either reduces it in
+// the block and atomically adds it to partials[i] or writes it to the
+// panel.  Integer sums are exact in any order.  The product panel is 4 bytes
+// an entry against the operands' 1, so K3 is bound by writing it.
 // Tensor-core mma/wgmma and TMA staging are later work.
 
 #include <cuda_runtime.h>
@@ -33,26 +36,23 @@ constexpr int KC = 32;        // contraction bytes per shared-memory stage
 constexpr int KW = KC / 4;    // packed 4-byte words per stage
 constexpr int NT = 256;       // threads: 16 x 16, each 8 rows x 4 columns
 
-// Block-wide sum over r < 128, c < 64 of (A.B)[r,c] * Msk[r,c], contraction
-// length K (a multiple of KC).  A: row r at A + r*lda (k contiguous).
-// B: row k at B + k*ldb (c contiguous).  Msk: row r at Msk + r*ldm.
-// A, lda and every stage offset are multiples of 4, so A reads as words.
-// The result is valid in thread 0.
-__device__ int masked_tile_sum(const int8_t* __restrict__ A, long lda,
-                               const int8_t* __restrict__ B, long ldb,
-                               const int8_t* __restrict__ Msk, long ldm,
-                               int K) {
+// The block's 128x64 int32 tile of A.B, contraction length K (a multiple of
+// KC): thread (tx, ty) = (t % 16, t / 16) holds acc[i][j] = (A.B)[ty + 16*i,
+// tx + 16*j].  A: row r at A + r*lda (k contiguous).  B: row k at B + k*ldb
+// (c contiguous).  A, lda and every stage offset are multiples of 4, so A
+// reads as words.
+__device__ void tile_product(const int8_t* __restrict__ A, long lda,
+                             const int8_t* __restrict__ B, long ldb, int K,
+                             int (&acc)[8][4]) {
   // As[kw][r]: 4 consecutive k of row r; the +4 pad spreads the
   // transposing stores over all banks.  Bs[kw][c]: 4 consecutive k of
   // column c.
   __shared__ int As[KW][T + 4];
   __shared__ int Bs[KW][TN];
-  __shared__ int red[NT / 32];
 
   const int t = threadIdx.x;
   const int tx = t % 16;      // columns tx + 16*j
   const int ty = t / 16;      // rows ty + 16*i
-  int acc[8][4];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -91,7 +91,20 @@ __device__ int masked_tile_sum(const int8_t* __restrict__ A, long lda,
     }
     __syncthreads();
   }
+}
 
+// Block-wide sum over r < 128, c < 64 of (A.B)[r,c] * Msk[r,c] (operands as
+// for tile_product; Msk: row r at Msk + r*ldm).  The result is valid in
+// thread 0.
+__device__ int masked_tile_sum(const int8_t* __restrict__ A, long lda,
+                               const int8_t* __restrict__ B, long ldb,
+                               const int8_t* __restrict__ Msk, long ldm,
+                               int K) {
+  __shared__ int red[NT / 32];
+  const int t = threadIdx.x;
+  const int tx = t % 16, ty = t / 16;
+  int acc[8][4];
+  tile_product(A, lda, B, ldb, K, acc);
   int s = 0;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
@@ -149,6 +162,29 @@ window_count_kernel(const int8_t* __restrict__ P,
   if (threadIdx.x == 0 && sum != 0) atomicAdd(partials + i, sum);
 }
 
+// Grid (nI, nJ/TN): block-row i, output column tile c.  Same operands as
+// window_count_kernel; out (nI, T, nJ) int32 gets (P[i].Q[i]) * M[i].
+__global__ void __launch_bounds__(NT)
+window_mm_kernel(const int8_t* __restrict__ P, const int8_t* __restrict__ Q,
+                 const int8_t* __restrict__ M, int* __restrict__ out, int W,
+                 int nJ) {
+  const int i = blockIdx.x;
+  const long c0 = (long)blockIdx.y * TN;
+  int acc[8][4];
+  tile_product(P + (long)i * T * W, W, Q + (long)i * W * nJ + c0, nJ, W,
+               acc);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int8_t* Mi = M + (long)i * T * nJ + c0;
+  int* Oi = out + (long)i * T * nJ + c0;
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const long e = (long)(ty + 16 * r) * nJ + tx + 16 * j;
+      Oi[e] = acc[r][j] * (int)Mi[e];
+    }
+}
+
 }  // namespace
 
 // partials (nI,) int32 must be zeroed by the caller.  Wb*T and T are the
@@ -171,6 +207,18 @@ extern "C" int gb_window_count(const void* P, const void* Q, const void* M,
     window_count_kernel<<<dim3(nI, nJ / TN), NT, 0, (cudaStream_t)stream>>>(
         (const int8_t*)P, (const int8_t*)Q, (const int8_t*)M, (int*)partials,
         W, nJ);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Same panels as gb_window_count; out (nI, T, nJ) int32, every element
+// written.
+extern "C" int gb_window_mm(const void* P, const void* Q, const void* M,
+                            void* out, int nI, int W, int nJ, void* stream) {
+  if (nI > 0 && W > 0 && nJ > 0) {
+    window_mm_kernel<<<dim3(nI, nJ / TN), NT, 0, (cudaStream_t)stream>>>(
+        (const int8_t*)P, (const int8_t*)Q, (const int8_t*)M, (int*)out, W,
+        nJ);
   }
   return (int)cudaGetLastError();
 }

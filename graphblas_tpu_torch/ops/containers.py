@@ -35,8 +35,9 @@ def require_container(X, what: str = "operand",
         raise UnsupportedContainer(
             f"{what}: expected a GraphBLAS container of this port "
             f"(CsrMatrix, CscMatrix, Matrix or Vector), got "
-            f"{type(X).__name__}; the hypersparse containers come with a "
-            f"later slice")
+            f"{type(X).__name__}; the hypersparse containers (HyperMatrix, "
+            f"HyperCscMatrix, SparseVec) come with a later slice of the "
+            f"port (ROADMAP.md queue 1, item 10)")
 
 
 def to_csr_operand(X, tran: bool = False, what: str = "operand"):

@@ -1,9 +1,9 @@
-"""Masked semiring matrix multiply on sparse (CSR) outputs.
+"""Masked semiring matrix multiply: mxm / mxv / vxm.
 
-Counterpart of ``graphblas_tpu/ops/mxm.py`` for a ``CsrMatrix`` output.
-Reference call stack (``SURVEY.md`` 3.1): GrB_mxm -> GB_mxm ->
-GB_AxB_meta (engine selection) -> the generated semiring worker ->
-GB_accum_mask.
+Counterpart of ``graphblas_tpu/ops/mxm.py``.  Reference call stack
+(``SURVEY.md`` 3.1): GrB_mxm -> GB_mxm -> GB_AxB_meta (engine selection)
+-> the generated semiring worker -> GB_accum_mask.  The output container
+picks the engines.
 
 ``mxm`` with a CSR output runs ``_mxm_sparse``: the flop cost model
 (``choose_axb_method``) picks the engine.  At small dense scale the
@@ -13,17 +13,24 @@ otherwise a masked numeric product tries the value-panel engine
 ESC engine (``sparse.esc``); the sparse accum/mask epilogue
 (``sparse.mask``) finishes.
 
-``semiring_mm`` has the JAX package's two value paths, chosen by
+``mxm`` with a bitmap ``Matrix`` output runs ``semiring_mm`` on the
+bitmap operands, or, for a CSR/CSC ``A`` and a bitmap ``B``, the SpMM
+fast path (:mod:`graphblas_tpu_torch.sparse.spmm`); the bitmap epilogue
+(:mod:`core.mask`) finishes.
+
+``semiring_mm`` has the JAX package's three value paths, chosen by
 (add monoid, mult op): one matrix product for the semirings whose
 reduction is a dot product (``_mxu_path``; the name is the JAX
-package's engine name), and a k-blocked broadcast-multiply + monoid
-reduce for any other (``_generic_path``).  Torch has no integer or bool
-matmul on CUDA, so integer and boolean products take an exact route:
-16-bit limbs multiplied as float64 matmuls (exact below 2^53) and
-recombined in int64, wrapped to the output width; float products are
-``torch.matmul`` in full precision.  The
-tropical Pallas path of the JAX package is never taken off the TPU; the
-generic path gives the same output.
+package's engine name), the tropical kernel K6 for FP32 MIN_PLUS,
+MAX_PLUS, MIN_MAX and MAX_MIN on the card (``_tropical_path``,
+:mod:`graphblas_tpu_torch.sparse.cuda_tropical`), and a k-blocked
+broadcast-multiply + monoid reduce for any other (``_generic_path``).
+Torch has no integer or bool matmul on CUDA, so integer and boolean
+products take an exact route: 16-bit limbs multiplied as float64
+matmuls (exact below 2^53) and recombined in int64, wrapped to the
+output width; float products are ``torch.matmul`` in full precision.
+On CPU operands the tropical route bows out, as the JAX package's does
+on its CPU backend, and the generic path gives the same output.
 
 ``mxv``/``vxm`` (the SpMV slice) take a bitmap ``Vector`` output: a CSR
 or CSC ``A`` runs the edge-parallel SpMV engines of
@@ -31,9 +38,10 @@ or CSC ``A`` runs the edge-parallel SpMV engines of
 dense f32 ``plus_times`` product on dense-enough tiles), a bitmap ``A``
 runs ``semiring_mm``; the bitmap epilogue (:mod:`core.mask`) finishes.
 
-A bitmap, hypersparse or CSC ``mxm`` output, the SpMM fast path and a
-hypersparse ``SparseVec`` output come with later slices; those calls
-raise :class:`UnsupportedContainer` naming the slice.
+The hypersparse outputs (``HyperMatrix``, ``HyperCscMatrix``,
+``SparseVec``) come with a later slice (ROADMAP.md queue 1, item 10);
+those calls, and an ``mxm`` into a ``CscMatrix`` or ``Vector``, raise
+:class:`UnsupportedContainer`.
 """
 
 from __future__ import annotations
@@ -117,9 +125,14 @@ def _dot(a: torch.Tensor, b: torch.Tensor, out: Type) -> torch.Tensor:
     if out.is_integer:
         return _int_mm(a, b, out.nbits).to(out.storage)
     acc = torch.float64 if out.name == "FP64" else torch.float32
-    # the product must be full float32, as the JAX package's HIGHEST
+    # the product must be full float32, as the JAX package's HIGHEST; the
+    # caller's TF32 setting is restored after it
+    allow = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.matmul(a.to(acc), b.to(acc)).to(out.storage)
+    try:
+        return torch.matmul(a.to(acc), b.to(acc)).to(out.storage)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
 
 
 def _as_num(x: torch.Tensor, t: Type) -> torch.Tensor:
@@ -176,6 +189,43 @@ def _mxu_path(sr: Semiring, Av, Ap, Bv, Bp, at: Type, bt: Type):
     return None
 
 
+#: mults for which an absent entry filled with the add identity gives
+#: the identity or NaN (which the kernel's fmin/fmax ignore): not TIMES,
+#: where 0 * inf is NaN but -1 * inf flips the identity's sign
+_TROPICAL_SAFE_MULTS = ("PLUS", "MIN", "MAX")
+
+
+def _tropical_path(sr: Semiring, Av, Ap, Bv, Bp, at: Type, bt: Type):
+    """(values, method) through the tropical kernel K6 for FP32
+    MIN/MAX-monoid semirings over PLUS, MIN or MAX on CUDA operands;
+    None otherwise (CPU operands take the generic path, as the JAX
+    package's CPU backend does)."""
+    from ..sparse.cuda_tropical import TROPICAL_PAIRS
+    add, mult = sr.add.op.name, sr.mult.name
+    zt = sr.ztype
+    if (zt.is_udt or (add, mult) not in TROPICAL_PAIRS
+            or mult not in _TROPICAL_SAFE_MULTS or zt.name != "FP32"):
+        return None
+    if Ap.device.type == "cpu":
+        return None
+    return _tropical_values(sr, Av, Ap, Bv, Bp, at, bt)
+
+
+def _tropical_values(sr: Semiring, Av, Ap, Bv, Bp, at: Type, bt: Type):
+    """The route's product: absent entries filled with the add identity,
+    then ``tropical_mm`` (the kernel on CUDA, its plain version on the
+    CPU); returns (values, method)."""
+    from ..sparse.cuda_tropical import tropical_mm
+    add, mult = sr.add.op.name, sr.mult.name
+    zt = sr.ztype
+    ident = float(sr.add.identity)
+    a = torch.where(Ap, cast(Av, zt, at), ident)
+    b = torch.where(Bp, cast(Bv, zt, bt), ident)
+    out = tropical_mm(a, b, add, mult)
+    route = "cuda" if out.is_cuda else "torch"
+    return out, f"{route}:tropical_{add.lower()}_{mult.lower()}"
+
+
 def _generic_path(sr: Semiring, Av, Ap, Bv, Bp, at: Type, bt: Type):
     """Any (monoid, mult): k blocks of broadcast multiply [m, kc, n],
     absent pairs set to the add identity, monoid-reduced over kc and
@@ -204,6 +254,7 @@ def semiring_mm(sr: Semiring, Av, Ap, Bv, Bp, method_hint=None,
     Returns (Tvals, Tpat, method_used); ``method_used`` is the
     reference's ``AxB_method_used`` (``GB_matrix.h:351``).
     ``method_hint``: 'gustavson'/'heap' force the generic path.
+    FP32 tropical semirings on CUDA operands take the kernel K6.
     ``atype``/``btype``: the value types (default: the types the storage
     dtypes name, signed)."""
     if Ap.shape[1] != Bp.shape[0]:
@@ -212,8 +263,10 @@ def semiring_mm(sr: Semiring, Av, Ap, Bv, Bp, method_hint=None,
     atype = atype or type_of_storage(Av.dtype)
     btype = btype or type_of_storage(Bv.dtype)
     tpat = _pattern_mm(Ap, Bp)
-    fast = (None if method_hint in ("gustavson", "heap")
-            else _mxu_path(sr, Av, Ap, Bv, Bp, atype, btype))
+    fast = None
+    if method_hint not in ("gustavson", "heap"):
+        fast = (_mxu_path(sr, Av, Ap, Bv, Bp, atype, btype)
+                or _tropical_path(sr, Av, Ap, Bv, Bp, atype, btype))
     if fast is not None:
         vals, method = fast
     else:
@@ -285,13 +338,49 @@ def _mxm_sparse(C, M, accum, sr: Semiring, A, B, d: Descriptor):
     return csr_accum_mask(C, Mc, T, accum, d)
 
 
+def _mxm_spmm(C: Matrix, M, accum, sr: Semiring, A, B: Matrix,
+              d: Descriptor):
+    """The SpMM fast path: CSR/CSC ``A`` times a bitmap ``B`` into a
+    bitmap ``C``, one k-wide row gather per entry of A.  Whether B is
+    all present is read from its pattern on every call."""
+    from ..sparse.spmm import csr_spmm_dense
+    Ac = to_csr_operand(A, tran=d.tran0, what="mxm input A")
+    Bv, Bp = (B.values.T, B.pattern.T) if d.tran1 else (B.values, B.pattern)
+    if Ac.ncols != Bv.shape[0]:
+        raise DimensionMismatch(f"A is {Ac.shape}, B is {tuple(Bv.shape)}")
+    allp = bool(Bp.all())
+    tvals, tpat = csr_spmm_dense(sr, Ac, Bv, None if allp else Bp,
+                                 x_type=B.type)
+    T = Matrix(tvals, tpat, sr.ztype)
+    M = to_bitmap_operand(M, "mxm mask") if M is not None else None
+    return accum_mask(C, M, T, accum, d)
+
+
+def _mxm_bitmap(C: Matrix, M, accum, sr: Semiring, A, B, d: Descriptor):
+    """Bitmap-output mxm: ``semiring_mm`` on the bitmap operands, then
+    the bitmap epilogue."""
+    A = to_bitmap_operand(A, "mxm input A")
+    B = to_bitmap_operand(B, "mxm input B")
+    M = to_bitmap_operand(M, "mxm mask") if M is not None else None
+    Av, Ap = (A.values.T, A.pattern.T) if d.tran0 else (A.values, A.pattern)
+    Bv, Bp = (B.values.T, B.pattern.T) if d.tran1 else (B.values, B.pattern)
+    tvals, tpat, _ = semiring_mm(sr, Av, Ap, Bv, Bp,
+                                 method_hint=d.axb_method, atype=A.type,
+                                 btype=B.type)
+    return accum_mask(C, M, Matrix(tvals, tpat, sr.ztype), accum, d)
+
+
 @counters.counted("mxm")
 def mxm(C, M, accum: Optional[BinaryOp], semiring: Semiring, A, B,
         desc: Optional[Descriptor] = None):
-    """C<M> = accum(C, A*B) (reference ``GrB_mxm`` -> ``GB_mxm.c``) for a
-    CsrMatrix ``C``: the sparse-output engines, engine choice by the
-    flop cost model (``choose_axb_method``).  ``semiring`` and ``accum``
-    may be objects or catalog names (``"plus_times"``, typed by the
+    """C<M> = accum(C, A*B) (reference ``GrB_mxm`` -> ``GB_mxm.c``).
+
+    Container dispatch: a CsrMatrix ``C`` takes the sparse-output
+    engines (engine choice by the flop cost model,
+    ``choose_axb_method``); a bitmap ``Matrix`` ``C`` takes the SpMM fast
+    path for a CSR/CSC ``A`` and a bitmap ``B``, and the dense engines
+    of ``semiring_mm`` otherwise.  ``semiring`` and ``accum`` may be
+    objects or catalog names (``"plus_times"``, typed by the
     operands)."""
     require_container(C, "mxm output C")
     require_container(M, "mxm mask", none_ok=True)
@@ -301,13 +390,16 @@ def mxm(C, M, accum: Optional[BinaryOp], semiring: Semiring, A, B,
     semiring = resolve_semiring(semiring, "mxm semiring", None, A, B, C)
     accum = resolve_accum(accum, "mxm accum", None, C, A)
     d = desc_of(desc)
-    from ..sparse.container import CsrMatrix
-    if not isinstance(C, CsrMatrix):
+    from ..sparse.container import CscMatrix, CsrMatrix
+    if isinstance(C, CsrMatrix):
+        return _mxm_sparse(C, M, accum, semiring, A, B, d)
+    if not isinstance(C, Matrix):
         raise UnsupportedContainer(
-            "mxm output C: a bitmap Matrix output (the dense engines and "
-            "the SpMM fast path) comes with a later slice of the port "
-            "(ROADMAP.md queue 1); pass a CsrMatrix C")
-    return _mxm_sparse(C, M, accum, semiring, A, B, d)
+            f"mxm output C: expected a CsrMatrix or a bitmap Matrix, got "
+            f"{type(C).__name__}")
+    if isinstance(A, (CsrMatrix, CscMatrix)) and isinstance(B, Matrix):
+        return _mxm_spmm(C, M, accum, semiring, A, B, d)
+    return _mxm_bitmap(C, M, accum, semiring, A, B, d)
 
 
 def _vector_args(op: str, w, m, u) -> None:

@@ -1,6 +1,8 @@
 """Sparse containers, the triangle-counting engines, the masked SpGEMM
 engines, the SpMV engines and the whole-loop graph algorithms
-(PyTorch)."""
+(PyTorch); the SpMM engine (:mod:`spmm`) and the tropical kernel
+(:mod:`cuda_tropical`) are reached through ``mxm``, as in the JAX
+package."""
 
 from .algorithms import bfs_csr, pagerank_csr
 from .bitdot import (BitdotPlan, PackLevel, bitdot_counts,
@@ -8,7 +10,8 @@ from .bitdot import (BitdotPlan, PackLevel, bitdot_counts,
                      masked_pair_counts_auto)
 from .container import CscMatrix, CsrMatrix, csr_from_coo, default_device
 from .cuda_spmv import bsr_spmv, bsr_spmv_ok, bsr_spmv_plan
-from .cuda_window import tricount_band_partials, window_count_partials
+from .cuda_window import (tricount_band_partials, window_count_partials,
+                          window_masked_mm_pallas)
 from .esc import csr_spgemm
 from .mask import csr_accum_mask, csr_clear
 from .spmv import csr_mxv, csr_vxm
@@ -19,13 +22,14 @@ from .valdot import (ValdotPlan, build_valdot_plan, valdot_gatherdot,
                      valdot_masked_spgemm)
 from .window import (BandPlan, WindowPlan, build_band_plan,
                      build_window_plan, tricount_window,
-                     window_masked_count_sum)
+                     window_masked_count_sum, window_masked_mm)
 
 __all__ = [
     "CsrMatrix", "CscMatrix", "csr_from_coo", "default_device",
     "BandPlan", "WindowPlan", "build_band_plan", "build_window_plan",
-    "tricount_window", "window_masked_count_sum",
+    "tricount_window", "window_masked_count_sum", "window_masked_mm",
     "tricount_band_partials", "window_count_partials",
+    "window_masked_mm_pallas",
     "BitdotPlan", "PackLevel", "build_bitdot_plan", "bitdot_counts",
     "bitdot_popcount", "masked_pair_counts_auto",
     "masked_pair_counts", "tricount_esc", "tricount_device",

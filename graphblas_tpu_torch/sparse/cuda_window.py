@@ -1,4 +1,4 @@
-"""Fused window-panel masked counts: hand-written CUDA kernels.
+"""Fused window-panel masked products: hand-written CUDA kernels.
 
 Counterpart of ``graphblas_tpu/sparse/pallas_window.py``: the Pallas TPU
 kernels become CUDA C++ kernels for Hopper (``csrc/window.cu``), built
@@ -6,17 +6,16 @@ with ``nvcc`` on first use and called through ctypes on PyTorch's
 current stream.
 
 Each wrapper takes the plan's int8 panels and returns per-block-row
-int32 partials; the caller sums them in int64.  On a CUDA tensor it
-launches the kernel (or raises); on a CPU tensor it runs the kernel's
-plain PyTorch version, defined here beside it.
+int32 partials (the caller sums them in int64) or, for
+``window_masked_mm_pallas``, the masked int32 product panels.  On a CUDA
+tensor it launches the kernel (or raises); on a CPU tensor it runs the
+kernel's plain PyTorch version, defined here beside it.
 
 Engine names (``last_axb_method``), port <-> JAX package:
 
     cuda:tri_band_ring / torch:tri_band_ring  <->  pallas:tri_band_ring
     cuda:window_count  / torch:window_count   <->  pallas:window_count
-
-The unreduced masked product (``window_masked_mm_pallas``) is still to
-be ported.
+    cuda:window_mm     / torch:window_mm      <->  pallas:window_mm
 """
 
 from __future__ import annotations
@@ -27,7 +26,8 @@ from .. import _build
 from ..ops.flopcount import record_axb_method
 from .window import T, BandPlan, WindowPlan
 
-__all__ = ["tricount_band_partials", "window_count_partials"]
+__all__ = ["tricount_band_partials", "window_count_partials",
+           "window_masked_mm_pallas"]
 
 
 def _check_panels(*named) -> torch.device:
@@ -86,19 +86,23 @@ def tricount_band_partials(plan: BandPlan) -> torch.Tensor:
     return out
 
 
+def _window_mm_plain(P: torch.Tensor, Q: torch.Tensor,
+                     M: torch.Tensor) -> torch.Tensor:
+    """Plain version of the window-product kernel: (P[i] @ Q[i]) * M[i]
+    per block-row as int32 (the product in float64, exact at these
+    counts)."""
+    return (torch.bmm(P.double(), Q.double()) * M).to(torch.int32)
+
+
 def _window_count_plain(P: torch.Tensor, Q: torch.Tensor,
                         M: torch.Tensor) -> torch.Tensor:
     """Plain version of the window-count kernel: per block-row i,
-    sum((P[i] @ Q[i]) * M[i]) as int32 (the product in float64, exact at
-    these sums)."""
-    C = torch.bmm(P.double(), Q.double())
-    return (C * M).sum((1, 2)).to(torch.int32)
+    sum((P[i] @ Q[i]) * M[i]) as int32."""
+    return _window_mm_plain(P, Q, M).sum((1, 2)).to(torch.int32)
 
 
-def window_count_partials(plan: WindowPlan) -> torch.Tensor:
-    """Per-block-row masked-count partials (nI,) int32 of a window plan.
-    Each partial is bounded by 128 * (16*128)^2 < 2^31, so int32 is safe;
-    callers take the total in int64."""
+def _check_window(plan: WindowPlan):
+    """(P, Q, M, device) of a window plan whose panels fit together."""
     P, Q, M = plan.P, plan.Q, plan.M
     dev = _check_panels(("P", P), ("Q", Q), ("M", M))
     nI, rows, W = P.shape
@@ -108,11 +112,38 @@ def window_count_partials(plan: WindowPlan) -> torch.Tensor:
         raise ValueError(f"window panels P {tuple(P.shape)}, Q "
                          f"{tuple(Q.shape)}, M {tuple(M.shape)} do not "
                          f"form a window plan")
+    return P, Q, M, dev
+
+
+def window_count_partials(plan: WindowPlan) -> torch.Tensor:
+    """Per-block-row masked-count partials (nI,) int32 of a window plan.
+    Each partial is bounded by 128 * (16*128)^2 < 2^31, so int32 is safe;
+    callers take the total in int64."""
+    P, Q, M, dev = _check_window(plan)
     if dev.type == "cpu":
         record_axb_method("torch:window_count")
         return _window_count_plain(P, Q, M)
+    nI, _, W = P.shape
     out = torch.zeros(nI, dtype=torch.int32, device=dev)
     _build.launch("window_count", P, P.data_ptr(), Q.data_ptr(),
-                  M.data_ptr(), out.data_ptr(), nI, W, nJ)
+                  M.data_ptr(), out.data_ptr(), nI, W, M.shape[2])
     record_axb_method("cuda:window_count")
+    return out
+
+
+def window_masked_mm_pallas(plan: WindowPlan) -> torch.Tensor:
+    """Masked count panels (nI, 128, nJmax*128) int32, (P[i] @ Q[i]) *
+    M[i]: the general window engine's output, in the layout of
+    :func:`window.window_masked_mm` (panel (I, r, c) is the global entry
+    (I*128 + r, j0[I]*128 + c)).  The name is the JAX package's."""
+    P, Q, M, dev = _check_window(plan)
+    if dev.type == "cpu":
+        record_axb_method("torch:window_mm")
+        return _window_mm_plain(P, Q, M)
+    nI, _, W = P.shape
+    nJ = M.shape[2]
+    out = torch.empty((nI, T, nJ), dtype=torch.int32, device=dev)
+    _build.launch("window_mm", P, P.data_ptr(), Q.data_ptr(), M.data_ptr(),
+                  out.data_ptr(), nI, W, nJ)
+    record_axb_method("cuda:window_mm")
     return out

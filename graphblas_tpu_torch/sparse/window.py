@@ -13,9 +13,10 @@ then moved to the device of the operands.  ``build_window_plan`` and
 ``build_band_plan`` return None when the structure is too wide to pay
 (power-law graphs); callers then fall back to the counting engines.
 
-The per-block partial sums are computed by the kernels of
-:mod:`cuda_window`; :func:`window_masked_count_sum` is the plain
-PyTorch product.
+The per-block partial sums and the masked product panels are computed
+by the kernels of :mod:`cuda_window`; :func:`window_masked_count_sum`
+and :func:`window_masked_mm` are the plain PyTorch product (the JAX
+package's XLA versions).
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ import torch
 from ..ops.flopcount import record_axb_method
 
 __all__ = ["WindowPlan", "BandPlan", "build_window_plan",
-           "build_band_plan", "window_masked_count_sum", "tricount_window"]
+           "build_band_plan", "window_masked_count_sum", "window_masked_mm",
+           "tricount_window"]
 
 T = 128
 
@@ -214,6 +216,15 @@ def window_masked_count_sum(plan: WindowPlan) -> torch.Tensor:
     record_axb_method("window:count_sum")
     return _window_count_plain(plan.P, plan.Q, plan.M).sum(
         dtype=torch.int64)
+
+
+def window_masked_mm(plan: WindowPlan) -> torch.Tensor:
+    """Masked product panels (nI, T, nJmax*T) int32: C_I = (P_I @ Q_I) ⊙
+    M_I, by the plain PyTorch product.  Host assembly maps panel
+    (I, r, c) -> global (I*T + r, j0[I]*T + c)."""
+    from .cuda_window import _window_mm_plain
+    record_axb_method("window:masked_mm")
+    return _window_mm_plain(plan.P, plan.Q, plan.M)
 
 
 def tricount_window(L, U) -> Optional[int]:

@@ -263,3 +263,59 @@ def test_rmat_spmv_slice_matches_jax(scale):
     assert np.array_equal(yt.pattern_np(), yj.pattern_np())
     np.testing.assert_allclose(yt.to_dense(), yj.to_dense(), rtol=1e-5,
                                atol=1e-6)
+
+
+def _apsp_d0(pkg, scale, device_kw):
+    """The min-plus squaring start of the fourth slice: R-MAT ``scale``
+    (edge factor 16, seed 7, symmetrized), weights U[1, 10) float32 from
+    ``default_rng(5)`` on the upper triangle, mirrored, and a 0
+    diagonal, as a bitmap FP32 Matrix of package ``pkg``."""
+    n = 1 << scale
+    I, J = gt.rmat_edges(scale, 16, seed=7)
+    I, J = gt.symmetrize_pattern(I, J, n)
+    up = I < J
+    w = (1 + 9 * np.random.default_rng(5).random(int(up.sum()))
+         ).astype(np.float32)
+    d = np.arange(n)
+    Iw = np.concatenate([I[up], J[up], d])
+    Jw = np.concatenate([J[up], I[up], d])
+    Xw = np.concatenate([w, w, np.zeros(n, np.float32)])
+    return pkg.Matrix.from_coo(Iw, Jw, Xw, n, n, type=pkg.FP32, **device_kw)
+
+
+def test_rmat_min_plus_squaring_matches_jax():
+    """The fourth slice on R-MAT scale 7: all-pairs shortest paths by
+    ``D = mxm(D, None, min, "min_plus", D, D)`` until D stops changing,
+    port against JAX after every product, exact (min is exact and each
+    float32 add correctly rounded, in both packages' generic path on the
+    CPU); the fixed point against scipy's float64 Dijkstra, the
+    reachability exactly and distances within rtol=1e-5."""
+    from scipy.sparse.csgraph import shortest_path
+    Dt = _apsp_d0(gt, 7, {"device": "cpu"})
+    Dj = _apsp_d0(gb, 7, {})
+    assert np.array_equal(Dt.to_dense(), Dj.to_dense())
+    for products in range(1, 13):
+        Nt = gt.mxm(Dt, None, gt.binary.min[gt.FP32], "min_plus", Dt, Dt)
+        engine = gt.last_axb_method()
+        Nj = gb.mxm(Dj, None, gb.binary.min[gb.FP32], "min_plus", Dj, Dj)
+        _check_engine(engine)
+        assert engine == "vpu:generic"
+        assert np.array_equal(Nt.pattern_np(), Nj.pattern_np())
+        assert np.array_equal(Nt.to_dense(), Nj.to_dense())
+        same = (np.array_equal(Nt.pattern_np(), Dt.pattern_np())
+                and np.array_equal(Nt.to_dense(), Dt.to_dense()))
+        Dt, Dj = Nt, Nj
+        if same:
+            break
+    assert same and products >= 3
+    I, J, X = Dt.extractTuples()
+    n = Dt.nrows
+    A0 = _apsp_d0(gt, 7, {"device": "cpu"})
+    Ia, Ja, Xa = A0.extractTuples()
+    off = Ia != Ja
+    import scipy.sparse as ssp
+    G = ssp.csr_matrix((Xa[off].astype(np.float64), (Ia[off], Ja[off])),
+                       shape=(n, n))
+    ref = shortest_path(G, method="D", directed=False)
+    assert np.array_equal(Dt.pattern_np(), np.isfinite(ref))
+    np.testing.assert_allclose(X, ref[I, J], rtol=1e-5)

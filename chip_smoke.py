@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one CUDA card (triangle
 counting, the masked valued product ``mxm``, SpMV with BFS and
-PageRank, and ``mxm`` into a bitmap ``Matrix``: all-pairs shortest paths
-by min-plus squaring and an SpMM), and check each hand-written kernel
-against its plain PyTorch version.
+PageRank, ``mxm`` into a bitmap ``Matrix``: all-pairs shortest paths
+by min-plus squaring and an SpMM, and the BSR tile engine with k-truss
+and the gather probes), and check each hand-written kernel against its
+plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -76,13 +77,46 @@ uncaught exception and a nonzero exit):
    rtol=1e-5); one SpMM, ``mxm`` of the R-MAT 18 graph by a dense
    float32 X (n, 32) into a bitmap C through ``spmm:ell``, per row within
    K * 2^-24 * sum |a * x| of scipy float64; ``window_masked_mm_pallas``
-   on the Wathen 128 window plan, whose panels sum to 884,992.
+   on the Wathen 128 window plan, whose panels sum to 884,992;
+17. the BSR tile-triple kernel (K7) against its plain version: counting
+   at the Wathen 128 schedule (M = A = L, B = Uᵀ from COO tiles; 5,151
+   triples) exactly; values at Wathen 64 with bench.py's values (L, then
+   U, from ``default_rng(3)``) within K * 2^-24 * sum |a * b| per entry
+   of the float64 plain result (K = 128 * the output's triple count),
+   and once more with one +inf value (NaN where NaN, the same infinities,
+   the rest within the bound); then timed at Wathen 384 (52,820 triples)
+   in turns with its plain version and the gathered-tile float16
+   ``torch.bmm`` + ``index_add_`` on the same triples (the library
+   formulation, unmasked; timed only here), and the values form timed on
+   the same schedule with 0/1 float32 tiles (equal to the counts);
+18. the probes' kernels: the row-window gather (P1) against
+   ``torch.take_along_dim`` at the TPU probe's shape (2^15 rows x 128),
+   exactly, timed beside it, with ``torch.take``'s flat gather rate; the
+   ``cp.async`` gather-dot (P2) against ``(A[ai] * B[bj]).sum(1)`` and
+   the gather-dot kernel K4 at the TPU probe's tables (32,768 x 1,024
+   float32, 65,536 pairs), each within S * 2^-24 * sum a * b of the
+   float64 sum, timed in turns with ``torch.sparse.sampled_addmm`` over
+   the distinct pairs (the library call, timed only here);
+19. the tile engine, k-truss and the probes through their entry points:
+   ``bsr_masked_count_pallas`` on Wathen 128 from COO tiles (884,992)
+   and Wathen 384 (equal to phase 4's count); ``tricount_bsr_pallas`` on
+   the Wathen 16 patterns (the phase-3 oracle); ``masked_mxm(L, L, U)``
+   on Wathen 64 with bench.py's values in its four modes against
+   ``mxm`` into a bitmap with the same mask (counts and patterns exact,
+   the structural counts summing to ``tricount_auto``'s; values within
+   rtol=1e-5, atol=1e-4); ``ktruss_esc`` on the symmetrized R-MAT 16
+   (k=5: 726,973 edges, 10 sweeps) and 18 (k=10: 2,292,950 edges, 13
+   sweeps), edges being half the symmetric truss's entries, through
+   ``bitdot:ktruss_incremental``; ``allktruss_esc`` on R-MAT 16 to k=5;
+   and both probes' ``run()``.
 
 Launch counters are zeroed just before each path and read just after
 it: before phase 3 and after phase 9 (triangle counting and ``mxm``:
 the first four kernels), before phase 12 and after phase 13 (SpMV: K5),
-before and after phase 16 (the bitmap ``mxm`` path: K6 and K3); every
-kernel of a path must have launched there.  The line before the
+before and after phase 16 (the bitmap ``mxm`` path: K6 and K3), before
+and after phase 19 (the tile engine, k-truss and the probes: K7, the
+popcount pass and both probe kernels); every kernel of a path must have
+launched there.  The line before the
 last is the per-kernel JSON summary, with each kernel's bound (the
 larger of its compulsory bytes over 3.35 TB/s and its operations over
 the card's peak for their type); the last line is
@@ -114,6 +148,11 @@ MXM_PATH = ("tri_band_ring", "window_count", "bitdot_popcount",
             "valdot_gatherdot")
 SPMV_PATH = ("bsr_spmv",)
 BITMAP_PATH = ("tropical_mm", "window_mm")
+BSR_PATH = ("bsr_masked_mm", "bitdot_popcount", "row_gather",
+            "gatherdot_async")
+# k-truss of the symmetrized R-MAT graphs (ef 16, seed 7): scale -> (k,
+# undirected edges = half the truss's entries, sweeps), ROADMAP.md anchors
+KTRUSS_ANCHORS = {16: (5, 726_973, 10), 18: (10, 2_292_950, 13)}
 
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes/s,
 # int8 tensor-core ops/s, and the CUDA cores' 32-bit ops/s (the float32
@@ -410,6 +449,64 @@ def apsp_d0(gt, scale: int):
     return D0, G
 
 
+def wathen_tiles(gt, nx: int):
+    """Wathen nx x nx (assembled as in ``wathen_lu``) as the tile
+    patterns of L and of Uᵀ, built from COO on the card: M = A = L and
+    B = Uᵀ give C = (L · U) .* L.  Also the off-diagonal (i, j) and n."""
+    I, J, _, n = gt.wathen_coo(nx, nx, seed=1)
+    ku = np.unique(I * n + J)
+    iu, ju = ku // n, ku % n
+    off = iu != ju
+    iu, ju = iu[off], ju[off]
+    lo, up = iu > ju, iu < ju
+    Lt = gt.tile_pattern_from_coo(iu[lo], ju[lo], (n, n), device="cuda")
+    Bt = gt.tile_pattern_from_coo(ju[up], iu[up], (n, n), device="cuda")
+    return Lt, Bt, iu, ju, n
+
+
+def k7_schedule(tcb, Mp, Ap, Bp):
+    """(schedule tensors (starts, ta, tb, mslot) on the card, the numpy
+    schedule) of C<M> = A · B'."""
+    sched = tcb._schedule(Mp, Ap, Bp)
+    return [torch.from_numpy(a).to("cuda") for a in sched[:4]], sched
+
+
+def k7_bound(sched, in_bytes: int, out_bytes: int, ops_rate=INT8_OPS,
+             a_is_m: bool = False):
+    """K7's bound on a schedule: each distinct A, B and M tile read once
+    (``in_bytes`` per A/B element, 1 per M element; a tile of one stack
+    that serves as both A and M, ``a_is_m``, once), each output tile
+    written once, the schedule read once; 2 * 128^3 operations per
+    triple at ``ops_rate`` (int8 tensor-core peak for the counting form,
+    the CUDA cores' float32 rate for the values form)."""
+    starts, ta, tb, mslot, _, _ = sched
+    t2 = 128 * 128
+    if a_is_m:
+        am = len(np.union1d(ta, mslot)) * t2 * in_bytes
+    else:
+        am = len(np.unique(ta)) * t2 * in_bytes + len(np.unique(mslot)) * t2
+    nbytes = (am + len(np.unique(tb)) * t2 * in_bytes
+              + len(mslot) * t2 * out_bytes
+              + 4 * (len(starts) + len(ta) + len(tb) + len(mslot)))
+    return bound(nbytes, 2 * 128 ** 3 * len(ta), ops_rate)
+
+
+def values_err(got, want, mag, K):
+    """Max |error| of a float32 K7 result against the float64 plain
+    version: NaN where NaN, the same infinities, every finite entry
+    within K * 2^-24 * mag (``mag``: the plain product of |tiles|)."""
+    g = got.double()
+    nan_w, inf_w = torch.isnan(want), torch.isinf(want)
+    if not (torch.equal(torch.isnan(g), nan_w)
+            and torch.equal(g[inf_w], want[inf_w])):
+        raise AssertionError("K7 values differ in NaN or infinities")
+    fin = ~(nan_w | inf_w)
+    err = (g[fin] - want[fin]).abs()
+    if bool((err > K * 2.0 ** -24 * mag[fin]).any()):
+        raise AssertionError(f"K7 values beyond the bound: {err.max()}")
+    return float(err.max()) if err.numel() else 0.0
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; the port's kernels need one")
@@ -532,6 +629,7 @@ def main() -> None:
     esc_engine = gt.last_axb_method()
     _, esc_warm = timed(lambda: gt.tricount_esc(L, U))
     assert ntri == esc, f"Wathen 384: band ring {ntri} != esc {esc}"
+    ntri384 = ntri
     print(f"{tag} phase4 Wathen 384: n {n}, {nnz} entries, Wb {band.Wb}, "
           f"panels {band.panel_bytes} B; {ntri} triangles via {engine} "
           f"(first {first:.4f} s, warm {warm:.6f} s) == tricount_esc via "
@@ -627,6 +725,7 @@ def main() -> None:
     print(f"main-path launches: {json.dumps(launches)}")
     missing = [k for k, v in launches.items() if v == 0]
     assert not missing, f"kernels not launched on the main path: {missing}"
+    path_launches = {"mxm": launches}
 
     # ---- 7. popcount at the main path's shapes ----
     if not isinstance(plan18, bd.BitdotPlan):
@@ -909,7 +1008,7 @@ def main() -> None:
     print(f"spmv-path launches: {json.dumps(spmv_launches)}")
     missing = [k for k, v in spmv_launches.items() if v == 0]
     assert not missing, f"kernels not launched on the SpMV path: {missing}"
-    launches.update(spmv_launches)
+    path_launches["spmv"] = spmv_launches
 
     # ---- 14. the tropical kernel (K6) against its plain version ----
     from graphblas_tpu_torch.sparse import cuda_tropical as ct
@@ -1046,7 +1145,292 @@ def main() -> None:
     missing = [k for k, v in bitmap_launches.items() if v == 0]
     assert not missing, \
         f"kernels not launched on the bitmap mxm path: {missing}"
-    launches.update(bitmap_launches)
+    path_launches["bitmap_mxm"] = bitmap_launches
+
+    # ---- 17. the BSR tile-triple kernel (K7) against its plain version ----
+    from graphblas_tpu_torch.sparse import bsr as bsr_mod
+    from graphblas_tpu_torch.sparse import cuda_bsr as tcb
+    Lt, Bt, _, _, _ = wathen_tiles(gt, 128)
+    args, sched = k7_schedule(tcb, Lt, Lt, Bt)
+    got = tcb.bsr_tiles_mm(*args, Lt.tiles, Bt.tiles, Lt.tiles, torch.int32)
+    k7_err = max_abs_err(got, tcb._bsr_mm_plain(*args, Lt.tiles, Bt.tiles,
+                                                Lt.tiles, torch.int32))
+    assert k7_err == 0, \
+        f"K7 counting differs from its plain version by {k7_err}"
+    assert int(got.sum(dtype=torch.int64)) == WATHEN_128_NTRI
+    sync()
+    print(f"{tag} phase17 bsr_masked_mm counting at Wathen 128 ({Lt.ntiles} "
+          f"L tiles, {len(sched[1])} triples, kmax {sched[4]}): exact, "
+          f"sum {WATHEN_128_NTRI}")
+    # values at Wathen 64: bench.py's values, L then U
+    Lt64, _, iu, ju, n64 = wathen_tiles(gt, 64)
+    lo, up = iu > ju, iu < ju
+    rng3 = np.random.default_rng(3)
+    dense = {}
+    for name, sel in (("L", lo), ("U", up)):
+        v = torch.zeros((n64, n64), device="cuda")
+        p = torch.zeros((n64, n64), dtype=torch.bool, device="cuda")
+        ii = torch.from_numpy(iu[sel]).to("cuda")
+        jj = torch.from_numpy(ju[sel]).to("cuda")
+        v[ii, jj] = torch.from_numpy(
+            rng3.random(int(sel.sum())).astype(np.float32) + 0.5).to("cuda")
+        p[ii, jj] = True
+        dense[name] = (v, p)
+    Av = gt.tile_matrix(*dense["L"])
+    Bv = gt.tile_matrix(dense["U"][0].T, dense["U"][1].T)
+    del dense
+    vargs, vsched = k7_schedule(tcb, Lt64, Av, Bv)
+    K = 128 * vsched[4]
+
+    def k7_values(at):
+        got = tcb.bsr_tiles_mm(*vargs, at, Bv.tiles, Lt64.tiles,
+                               torch.float32)
+        want = tcb._bsr_mm_plain(*vargs, at.double(), Bv.tiles.double(),
+                                 Lt64.tiles, torch.float64)
+        fin = torch.where(torch.isfinite(at), at, 0).double().abs()
+        mag = tcb._bsr_mm_plain(*vargs, fin, Bv.tiles.double().abs(),
+                                Lt64.tiles, torch.float64)
+        return values_err(got, want, mag, K), got
+
+    verr, _ = k7_values(Av.tiles)
+    ainf = Av.tiles.clone()
+    first = torch.nonzero(ainf[0])[0]
+    ainf[0, first[0], first[1]] = float("inf")
+    ierr, gi = k7_values(ainf)
+    values_err_of = {"bsr_masked_mm": max(verr, ierr)}
+    sync()
+    print(f"{tag} phase17 bsr_masked_mm values at Wathen 64 ({Av.ntiles} "
+          f"tiles, {len(vsched[1])} triples): max_abs_err {verr} (within "
+          f"K 2^-24 sum|ab|, K = {K}); with one +inf: "
+          f"{int(torch.isinf(gi).sum())} inf, {int(torch.isnan(gi).sum())} "
+          f"NaN entries as in the plain version, the rest within bound "
+          f"(max_abs_err {ierr})")
+    del Av, Bv, ainf, gi, Lt64
+    # timing at Wathen 384 (the phase-4 graph)
+    Lt, Bt, _, _, _ = wathen_tiles(gt, 384)
+    args, sched = k7_schedule(tcb, Lt, Lt, Bt)
+    nout = len(sched[3])
+    counts = torch.from_numpy(np.diff(sched[0]).astype(np.int64)).cuda()
+    oid = torch.repeat_interleave(torch.arange(nout, device="cuda"), counts)
+    ta_l, tb_l = args[1].long(), args[2].long()
+
+    def k7():
+        return tcb.bsr_tiles_mm(*args, Lt.tiles, Bt.tiles, Lt.tiles,
+                                torch.int32)
+
+    def k7_library():
+        return bsr_mod._product_counts(Lt.tiles, Bt.tiles, ta_l, tb_l, oid,
+                                       nout)
+
+    def k7_plain():
+        return tcb._bsr_mm_plain(*args, Lt.tiles, Bt.tiles, Lt.tiles,
+                                 torch.int32)
+
+    got = k7()
+    assert int(got.sum(dtype=torch.int64)) == ntri384
+    k7_err = max(k7_err, max_abs_err(got, k7_plain()))
+    assert k7_err == 0, \
+        f"K7 counting differs from its plain version by {k7_err}"
+    masked = k7_library() * (Lt.tiles[args[3].long()] != 0)
+    assert torch.equal(masked, got), "float16 bmm (masked) != K7"
+    del masked
+    ms, pms, lms = turns(k7, k7_plain, 20, 2, k7_library)
+    summary["bsr_masked_mm"] = (k7_err, ms, pms)
+    library_ms["bsr_masked_mm"] = lms
+    # A and M are one stack here (L's tiles): each is read once
+    bounds["bsr_masked_mm"] = k7_bound(sched, 1, 4, a_is_m=True)
+    print(f"{tag} phase17 bsr_masked_mm at Wathen 384 ({Lt.ntiles} L tiles, "
+          f"{nout} outputs, {len(sched[1])} triples, kmax {sched[4]}): "
+          f"exact against its plain version and equal to phase 4's count; "
+          f"kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+          f"float16 bmm + index_add_ {lms:.4f} ms (equal to K7 once "
+          f"masked), bound {bounds['bsr_masked_mm'][0]:.4f} ms "
+          f"({bounds['bsr_masked_mm'][1]})")
+    # the values form on the same schedule: 0/1 float32 tiles sum exactly
+    Af, Bf = Lt.tiles.float(), Bt.tiles.float()
+
+    def k7f():
+        return tcb.bsr_tiles_mm(*args, Af, Bf, Lt.tiles, torch.float32)
+
+    assert torch.equal(k7f(), got.float()), "K7 values form != counts"
+    fms = min(cuda_ms(k7f, 10), cuda_ms(k7f, 10))
+    fbound = k7_bound(sched, 4, 4, CUDA32_OPS)
+    print(f"{tag} phase17 bsr_masked_mm values form at Wathen 384 (0/1 "
+          f"float32 tiles, equal to the counts): kernel {fms:.4f} ms, bound "
+          f"{fbound[0]:.4f} ms ({fbound[1]}, float32 FMAs at "
+          f"{CUDA32_OPS / 1e12:.0f} T/s)")
+    del Lt, Bt, Af, Bf, args, got, oid
+    sync()
+
+    # ---- 18. the probes' kernels against their plain versions ----
+    from graphblas_tpu_torch.tools import gather_probe as gp
+    from graphblas_tpu_torch.tools import gatherdot_probe as gdp
+    R, Wx = 1 << 15, 128
+    x, idx = gp._case(R, Wx, Wx)
+    err = max_abs_err(gp.row_gather(x, idx), gp._row_gather_plain(x, idx))
+    assert err == 0, f"row_gather differs from take_along_dim by {err}"
+    idx_l = idx.long()
+    ms, pms, lms = turns(lambda: gp.row_gather(x, idx),
+                         lambda: gp._row_gather_plain(x, idx), 50, 50,
+                         lambda: torch.take_along_dim(x, idx_l, 1))
+    summary["row_gather"] = (err, ms, pms)
+    library_ms["row_gather"] = lms
+    bounds["row_gather"] = bound(3 * R * Wx * 4, R * Wx, CUDA32_OPS)
+    take = gp.probe_scalar_gather()
+    print(f"{tag} phase18 row_gather (P1) at {R} rows x {Wx}: exact; kernel "
+          f"{ms:.4f} ms ({R * Wx / (ms * 1e6):.2f} G gathers/s, "
+          f"{3 * R * Wx * 4 / (ms * 1e6):.1f} GB/s), plain {pms:.4f} ms, "
+          f"torch.take_along_dim {lms:.4f} ms, bound "
+          f"{bounds['row_gather'][0]:.4f} ms ({bounds['row_gather'][1]}); "
+          f"torch.take {take['E']} of {take['n']}: {take['ms']:.4f} ms "
+          f"({take['g_per_s']:.2f} G gathers/s)")
+    del x, idx, idx_l
+    A, B, ai, bj = gdp.make_tables("cuda")
+    ref = gdp._gatherdot_async_plain(A.double(), B.double(), ai, bj)
+    tol = gdp.S * 2.0 ** -24 * ref
+    errs = {}
+    # the library call: cuSPARSE's SDDMM over the distinct pairs as a CSR
+    # pattern (sorted by row), read back in pair order
+    key, inv = torch.unique(ai.long() * gdp.NA + bj.long(),
+                            return_inverse=True)
+    crow = torch.searchsorted(key // gdp.NA,
+                              torch.arange(gdp.NA + 1, device="cuda"))
+    pairs = torch.sparse_csr_tensor(
+        crow, key % gdp.NA, torch.ones(key.numel(), device="cuda"),
+        (gdp.NA, gdp.NA), check_invariants=True)
+    Bt_ = B.t()
+    forms = {"gatherdot_async": lambda: gdp.gatherdot_async(A, B, ai, bj),
+             "plain": lambda: gdp._gatherdot_async_plain(A, B, ai, bj),
+             "valdot_k4": lambda: gt.valdot_gatherdot(A, B, ai, bj, gdp.E),
+             "sampled_addmm": lambda: torch.sparse.sampled_addmm(
+                 pairs, A, Bt_, beta=0.0)}
+    for name, fn in forms.items():
+        got = fn()
+        if name == "sampled_addmm":
+            got = got.values()[inv]
+        e = (got.double() - ref).abs()
+        if bool((e > tol).any()):
+            raise AssertionError(f"{name} beyond the bound: {e.max()}")
+        errs[name] = float(e.max())
+    k4a = cuda_ms(forms["valdot_k4"], 20)
+    ms, pms, lms = turns(forms["gatherdot_async"], forms["plain"], 20, 5,
+                         forms["sampled_addmm"])
+    k4ms = min(k4a, cuda_ms(forms["valdot_k4"], 20))
+    summary["gatherdot_async"] = (errs["gatherdot_async"], ms, pms)
+    library_ms["gatherdot_async"] = lms
+    rows = 2 * gdp.E * gdp.S * 4
+    bounds["gatherdot_async"] = bound(
+        (distinct(ai) + distinct(bj)) * gdp.S * 4 + gdp.E * 12,
+        2 * gdp.S * gdp.E, CUDA32_OPS)
+    print(f"{tag} phase18 gatherdot_async (P2) at NA {gdp.NA}, S {gdp.S}, "
+          f"E {gdp.E}: within bound (max_abs_err "
+          f"{errs['gatherdot_async']}); cp.async ring {ms:.4f} ms "
+          f"({rows / (ms * 1e6):.1f} GB/s of gathered rows), K4 "
+          f"(synchronous loads) {k4ms:.4f} ms ({rows / (k4ms * 1e6):.1f} "
+          f"GB/s), plain {pms:.4f} ms ({rows / (pms * 1e6):.1f} GB/s), "
+          f"sampled_addmm {lms:.4f} ms ({key.numel()} distinct pairs), bound "
+          f"{bounds['gatherdot_async'][0]:.4f} ms "
+          f"({bounds['gatherdot_async'][1]})")
+    del A, B, Bt_, ai, bj, ref, tol, pairs, key, inv
+    sync()
+
+    # ---- the tile engine, k-truss and the probes: 19, counted ----
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+
+    # 19a. the count through bsr_masked_count_pallas from COO tiles
+    for nx, want in ((128, WATHEN_128_NTRI), (384, ntri384)):
+        (Lt, Bt, _, _, _), tsecs = timed(lambda: wathen_tiles(gt, nx))
+        (C, _), first = timed(lambda: gt.bsr_masked_count_pallas(Lt, Lt, Bt))
+        got = int(C.sum(dtype=torch.int64))
+        _, warm = timed(lambda: gt.bsr_masked_count_pallas(Lt, Lt, Bt))
+        dev_ms = cuda_ms(lambda: gt.bsr_masked_count_pallas(Lt, Lt, Bt), 3)
+        assert got == want, f"Wathen {nx} through K7: {got} != {want}"
+        print(f"{tag} phase19 bsr_masked_count_pallas Wathen {nx}: {got} "
+              f"triangles; graph + tiles from COO {tsecs:.4f} s, first "
+              f"{first:.4f} "
+              f"s, warm {warm:.4f} s ({dev_ms:.4f} ms CUDA events, the "
+              f"host schedule included)")
+        del Lt, Bt, C
+    # 19b. tricount_bsr_pallas on the Wathen 16 patterns
+    L, U, n, _ = wathen_lu(gt, 16)
+    P = np.zeros((n, n), bool)
+    P[Ih, Jh] = True
+    got = gt.tricount_bsr_pallas(P, P.T)
+    assert got == want16, f"tricount_bsr_pallas Wathen 16: {got} != {want16}"
+    print(f"{tag} phase19 tricount_bsr_pallas Wathen 16: {got} == dense "
+          f"oracle")
+    # 19c. masked_mxm(L, L, U) on Wathen 64 in its four modes
+    L, U, n, _ = wathen_lu(gt, 64)
+    ntri64 = gt.tricount_auto(L, U)
+    rng3 = np.random.default_rng(3)
+    Lv, Uv = with_values(gt, L, rng3), with_values(gt, U, rng3)
+    S_ = gt.semiring
+    modes = (("count_structural", None, S_.plus_pair[gt.INT32]),
+             ("count_truthy", S_.plus_land[gt.INT32], S_.plus_land[gt.INT32]),
+             ("bool", S_.lor_land[gt.BOOL], S_.lor_land[gt.BOOL]),
+             ("values", S_.plus_times[gt.FP32], S_.plus_times[gt.FP32]))
+    for mode, sr, ref_sr in modes:
+        C, first = timed(lambda: gt.masked_mxm(Lv, Lv, Uv, semiring=sr))
+        engine = gt.last_axb_method()
+        _, warm = timed(lambda: gt.masked_mxm(Lv, Lv, Uv, semiring=sr))
+        want = gt.mxm(gt.Matrix.new(ref_sr.ztype, n, n, device="cuda"), Lv,
+                      None, ref_sr, Lv, Uv)
+        assert engine == ("cuda:bsr_values" if mode == "values"
+                          else "cuda:bsr_count"), engine
+        assert torch.equal(C.pattern, want.pattern), f"{mode}: pattern"
+        if mode == "values":
+            np.testing.assert_allclose(C.to_dense(), want.to_dense(),
+                                       rtol=1e-5, atol=1e-4)
+            assert np.isfinite(C.to_dense()).all()
+        else:
+            assert torch.equal(C.values, want.values.to(C.values.dtype)), \
+                f"{mode}: values"
+        if mode == "count_structural":
+            assert int(C.values.sum(dtype=torch.int64)) == ntri64
+        print(f"{tag} phase19 masked_mxm Wathen 64 (n {n}) {mode} via "
+              f"{engine}: {int(C.pattern.sum())} entries == mxm with the "
+              f"same mask; first {first:.4f} s, warm {warm:.4f} s")
+    del C, want, Lv, Uv, L, U
+    # 19d. k-truss on the symmetrized R-MAT graphs
+    for scale in (16, 18):
+        k, want_e, want_s = KTRUSS_ANCHORS[scale]
+        A = graphs[scale][3]
+        before = _build.launches["bitdot_popcount"]
+        (truss, sup, steps), secs = timed(lambda: gt.ktruss_esc(A, k))
+        engine = gt.last_axb_method()
+        assert engine == "bitdot:ktruss_incremental", engine
+        assert _build.launches["bitdot_popcount"] > before, \
+            f"R-MAT {scale} k-truss without the popcount kernel"
+        assert (truss.nvals // 2, steps) == (want_e, want_s), \
+            (scale, truss.nvals, steps)
+        assert int(sup[:truss.nvals].min()) >= k - 2
+        print(f"{tag} phase19 ktruss_esc R-MAT {scale} k={k}: "
+              f"{truss.nvals // 2} edges ({truss.nvals} entries) in {steps} "
+              f"sweeps via {engine}, {secs:.3f} s (plan included), "
+              f"{_build.launches['bitdot_popcount'] - before} popcount "
+              f"launches")
+        if scale == 16:
+            k5 = truss.nvals // 2
+        del truss, sup
+    allk, secs = timed(lambda: gt.allktruss_esc(graphs[16][3], kmax=5))
+    assert sorted(allk) == [3, 4, 5] and allk[5]["nedges"] == k5, allk
+    print(f"{tag} phase19 allktruss_esc R-MAT 16 to k=5: {allk} in "
+          f"{secs:.3f} s")
+    # 19e. the probes through their entry points
+    for probe in (gp, gdp):
+        recs, secs = timed(probe.run)
+        print(f"{tag} phase19 {probe.__name__}.run: {len(recs)} records "
+              f"in {secs:.3f} s")
+    sync()
+    print(f"{tag} phase19 peak device memory "
+          f"{torch.cuda.max_memory_allocated()} B")
+    bsr_launches = {k: _build.launches[k] for k in BSR_PATH}
+    print(f"bsr-ktruss-probe-path launches: {json.dumps(bsr_launches)}")
+    missing = [k for k, v in bsr_launches.items() if v == 0]
+    assert not missing, \
+        f"kernels not launched on the tile-engine path: {missing}"
+    path_launches["bsr_ktruss_probes"] = bsr_launches
 
     sources = {
         "tri_band_ring": ("graphblas_tpu_torch/csrc/window.cu",
@@ -1063,6 +1447,12 @@ def main() -> None:
                       "graphblas_tpu/sparse/pallas_window.py:101"),
         "tropical_mm": ("graphblas_tpu_torch/csrc/tropical.cu",
                         "graphblas_tpu/sparse/pallas_tropical.py:116"),
+        "bsr_masked_mm": ("graphblas_tpu_torch/csrc/bsr.cu",
+                          "graphblas_tpu/sparse/pallas_bsr.py:95"),
+        "row_gather": ("graphblas_tpu_torch/csrc/probes.cu",
+                       "tools/gather_probe.py:68"),
+        "gatherdot_async": ("graphblas_tpu_torch/csrc/probes.cu",
+                            "tools/gatherdot_probe.py:122"),
     }
     kernels = []
     for name, (src, repl) in sources.items():
@@ -1071,11 +1461,18 @@ def main() -> None:
         # no single PyTorch call computes K1, K2, the popcount pass (no
         # torch popcount, no single-call masked reduce) or K6 (torch has
         # no min-plus product)
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": repl, "launches": launches[name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": pms,
-                        "bound_ms": bms, "bound_by": by,
-                        "library_ms": library_ms.get(name)})
+        # each path's run was counted from zero; "launches" is the count
+        # on the first path that runs the kernel (the slice that ported
+        # it), "launches_by_path" every path's count
+        by_path = {p: c[name] for p, c in path_launches.items() if name in c}
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": repl, "launches": next(iter(by_path.values())),
+                 "launches_by_path": by_path, "max_abs_err": err, "ms": ms,
+                 "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                 "library_ms": library_ms.get(name)}
+        if name in values_err_of:
+            entry["values_max_abs_err"] = values_err_of[name]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

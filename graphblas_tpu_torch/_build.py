@@ -54,6 +54,12 @@ _SIGNATURES = {
     "window_mm": (_P, _P, _P, _P, _I, _I, _I, _P),
     # a, b, c, m, k, n, add_max, mult, stream
     "tropical_mm": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # starts, ta, tb, mslot, A, B, M, out, nout, is_float, stream
+    "bsr_masked_mm": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # x, idx, out, R, Wx, L, stream
+    "row_gather": (_P, _P, _P, _I, _I, _I, _P),
+    # A, B, ai, bj, out, E, na, nb, S, blocks, stream
+    "gatherdot_async": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 #: kernel launches per launcher since the last :func:`reset_launches`;

@@ -7,9 +7,9 @@ semirings — the parity tests' "weights".  Each ``*_from_arrays``
 function takes plain arrays and metadata; :func:`from_jax` reads them
 off a JAX package ``CsrMatrix`` (pattern-only or valued: FP32, INT32,
 FP64, BOOL and the other builtin types), ``CscMatrix``, bitmap
-``Matrix``, ``Vector``, ``BandPlan``, ``WindowPlan``, ``Semiring`` (by
-its operator names and type) or BSR SpMV plan (the 8-tuple
-``bsr_spmv_plan`` returns).
+``Matrix``, ``Vector``, ``BandPlan``, ``WindowPlan``, ``TilePattern``,
+``Semiring`` (by its operator names and type) or BSR SpMV plan (the
+8-tuple ``bsr_spmv_plan`` returns).
 """
 
 from __future__ import annotations
@@ -20,13 +20,15 @@ import torch
 from .core.matrix import Matrix, Vector
 from .core.semirings import Semiring, semiring
 from .core.types import type_by_name
+from .sparse.bsr import TilePattern
 from .sparse.container import CscMatrix, CsrMatrix, resolve_device
 from .sparse.cuda_spmv import BsrSpmvPlan
 from .sparse.window import BandPlan, WindowPlan
 
 __all__ = ["csr_from_arrays", "matrix_from_arrays", "vector_from_arrays",
            "band_plan_from_arrays", "window_plan_from_arrays",
-           "bsr_spmv_plan_from_arrays", "semiring_by_name", "from_jax"]
+           "bsr_spmv_plan_from_arrays", "tile_pattern_from_arrays",
+           "semiring_by_name", "from_jax"]
 
 
 def _dev(a, device) -> torch.Tensor:
@@ -103,6 +105,15 @@ def window_plan_from_arrays(P, Q, M, nI: int, Wmax: int, nJmax: int, k0,
                       ntriples, tuple(shape), tuple(mshape))
 
 
+def tile_pattern_from_arrays(tiles, grid, index, shape, T: int,
+                             device=None) -> TilePattern:
+    """TilePattern from its stacked tiles (any dtype, kept) and numpy
+    grid and index."""
+    return TilePattern(_dev(np.asarray(tiles), resolve_device(device)),
+                       np.array(grid, bool), np.array(index, np.int32),
+                       tuple(shape), int(T))
+
+
 def semiring_by_name(add_name: str, mult_name: str,
                      type_name: str) -> Semiring:
     """The builtin semiring of add monoid ``add_name`` over mult op
@@ -114,8 +125,8 @@ def semiring_by_name(add_name: str, mult_name: str,
 def from_jax(obj, device=None):
     """The port's counterpart of a JAX package CsrMatrix, CscMatrix,
     bitmap Matrix (its pending tuples folded first), Vector, BandPlan,
-    WindowPlan, BSR SpMV plan (read through numpy) or builtin Semiring
-    (by name)."""
+    WindowPlan, TilePattern, BSR SpMV plan (read through numpy) or
+    builtin Semiring (by name)."""
     kind = type(obj).__name__
     if kind == "tuple" and len(obj) == 8:
         return bsr_spmv_plan_from_arrays(*(np.asarray(a) for a in obj[:5]),
@@ -152,4 +163,7 @@ def from_jax(obj, device=None):
             np.asarray(obj.P), np.asarray(obj.Q), np.asarray(obj.M),
             obj.nI, obj.Wmax, obj.nJmax, obj.k0, obj.j0, obj.ntriples,
             obj.shape, obj.mshape, device)
+    if kind == "TilePattern":
+        return tile_pattern_from_arrays(obj.tiles, obj.grid, obj.index,
+                                        obj.shape, obj.T, device)
     raise TypeError(f"cannot convert a {kind}")

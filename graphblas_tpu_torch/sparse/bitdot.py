@@ -18,8 +18,19 @@ bit), when that saves enough.  Plans are chosen on the host in numpy,
 exactly as in the JAX package, so both packages pick the same slabs.
 
 Packed words are int32 tensors holding the bits of the JAX package's
-uint32 words.  Re-packing under per-entry liveness (``keep_entry_lists``,
-used by k-truss) comes with the k-truss slice.
+uint32 words.
+
+**Incremental liveness.** A plan built with ``keep_entry_lists=True``
+remembers, per slab, the original A/B entry id behind every packed bit,
+and the residual's original entry ids, so :func:`bitdot_counts` can
+re-pack the slabs under per-entry ``alive`` masks with no host
+re-selection: the k-truss sweep (:func:`tri.ktruss_esc`) prunes edges by
+ANDing liveness into the cached plan.  The JAX package drains its queue
+after each large transient level (one scalar read back per level, its
+``sync_each``) so that asynchronous dispatch cannot hold every level's
+panels at once; PyTorch's stream-ordered caching allocator reuses a
+freed level's memory for the next in stream order, so the port has no
+drain.
 
 Semantics: PLUS_PAIR over the pattern, identical to
 :func:`tri.masked_pair_counts` (counts aligned with M's padded CSR entry
@@ -74,15 +85,18 @@ _COMPACT_FRAC = 0.75
 class PackLevel(NamedTuple):
     """One bitmap slab of selected contraction columns.  The first
     level's packed panels are cached on the plan (its entry lists are
-    dropped); levels 2+ keep their entry lists and are packed, used and
-    freed inside each counts call, so peak memory is one extra pair."""
+    dropped unless the plan keeps them for liveness re-packing); levels
+    2+ keep their entry lists and are packed, used and freed inside each
+    counts call, so peak memory is one extra pair."""
     W: int                    # 32-bit words per panel row
     na: int                   # panel rows (A side; < m when compacted)
     nb: int                   # panel rows (B side)
     a_rows: torch.Tensor      # PANEL row per selected A entry
     a_slots: torch.Tensor     # bit slot per selected A entry
+    a_eids: torch.Tensor      # original A padded-lane id per entry
     b_js: torch.Tensor        # PANEL row per selected B entry
     b_slots: torch.Tensor
+    b_eids: torch.Tensor      # original B padded-lane id per entry
     amap: Optional[torch.Tensor]  # (m,) orig row -> panel row / -1
     bmap: Optional[torch.Tensor]  # (n,) orig col -> panel row / -1
     covered: int              # wedges this slab handles
@@ -97,6 +111,7 @@ class BitdotPlan(NamedTuple):
     covered_lanes: int        # wedges handled by all bitmap levels
     light_lanes: int          # wedges left for the sort-merge engine
     levels: tuple = ()        # ALL PackLevel slabs (level 1 first)
+    light_eids: Optional[torch.Tensor] = None  # orig eid per light lane
 
     @property
     def panel_bytes(self) -> int:
@@ -113,12 +128,13 @@ def _host_cols_rows(X: CsrMatrix):
             X.indices[:X.nvals].cpu().numpy())
 
 
-def _pack(nrows: int, W: int, rows: torch.Tensor,
-          slots: torch.Tensor) -> torch.Tensor:
+def _pack(nrows: int, W: int, rows: torch.Tensor, slots: torch.Tensor,
+          live: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Scatter bits 1 << (slot & 31) into word rows*W + slot>>5, as a
-    (nrows, W) int32 panel.  Every (row, slot) pair is unique, so add ==
+    (nrows, W) int32 panel, for the entries with ``slot >= 0`` (and
+    ``live``, when given).  Every (row, slot) pair is unique, so add ==
     bitwise-or; the sum runs in int64 and keeps the low 32 bits."""
-    live = slots >= 0
+    live = slots >= 0 if live is None else live & (slots >= 0)
     word = rows.long() * W + (slots >> 5).long()
     word = torch.where(live, word, nrows * W)
     bit = torch.where(live, torch.ones_like(word) << (slots & 31).long(), 0)
@@ -230,15 +246,19 @@ def _select_slab(bud: int, sel_start: int, want_cols: int,
                     amap, bmap, covered), arow_panel, bj_panel
 
 
-def _device_level(sel: _SlabSel, arow_panel, bj_panel,
-                  device) -> PackLevel:
+def _device_level(sel: _SlabSel, arow_panel, bj_panel, device,
+                  keep_entry_lists: bool) -> PackLevel:
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
 
+    z = np.zeros(0, np.int32)
     W = max(_round8((sel.kcut + 31) // 32 + 7), 8)
     return PackLevel(
         W, sel.na, sel.nb,
-        dev(arow_panel), dev(sel.a_slots), dev(bj_panel), dev(sel.b_slots),
+        dev(arow_panel), dev(sel.a_slots),
+        dev(sel.a_idx if keep_entry_lists else z),
+        dev(bj_panel), dev(sel.b_slots),
+        dev(sel.b_idx if keep_entry_lists else z),
         None if sel.amap is None else dev(sel.amap),
         None if sel.bmap is None else dev(sel.bmap),
         sel.covered)
@@ -249,6 +269,7 @@ def build_bitdot_plan(M: CsrMatrix, A: CsrMatrix, B: CsrMatrix,
                       cover_target: float = 0.995,
                       min_lanes: Optional[int] = None,
                       max_levels: int = 24,
+                      keep_entry_lists: bool = False,
                       ) -> Optional[BitdotPlan]:
     """Host-side plan for counts[e] = (A.B)[i_e, j_e] over PLUS_PAIR.
 
@@ -257,7 +278,11 @@ def build_bitdot_plan(M: CsrMatrix, A: CsrMatrix, B: CsrMatrix,
     bitmap slabs — the first is packed now and cached, the rest are
     kept as compact entry lists and packed per call — and compacts the
     residual A entries for the sort-merge engine.  Returns None when the
-    bitmaps can't cover enough wedges to pay."""
+    bitmaps can't cover enough wedges to pay.
+
+    ``keep_entry_lists=True`` also keeps the level-1 entry lists and the
+    residual's original entry ids, for liveness re-packing
+    (:func:`bitdot_counts` ``alive_*``) in incremental sweeps (k-truss)."""
     if budget_bytes is None:
         budget_bytes = _PANEL_BUDGET
     if min_lanes is None:
@@ -299,7 +324,8 @@ def build_bitdot_plan(M: CsrMatrix, A: CsrMatrix, B: CsrMatrix,
             if (sel.covered < max(_MIN_LEVEL_COVER, 0.05 * rem)
                     and rem - sel.covered > _MIN_LEVEL_REM):
                 break
-        levels.append(_device_level(sel, arow_panel, bj_panel, A.device))
+        levels.append(_device_level(sel, arow_panel, bj_panel, A.device,
+                                    keep_entry_lists))
         sel_any[order[sel_end:sel_end + sel.kcut]] = True
         sel_end += sel.kcut
     if not levels:
@@ -311,10 +337,12 @@ def build_bitdot_plan(M: CsrMatrix, A: CsrMatrix, B: CsrMatrix,
     lv0 = levels[0]
     Apack = _pack(lv0.na, lv0.W, lv0.a_rows, lv0.a_slots)
     Bpack = _pack(lv0.nb, lv0.W, lv0.b_js, lv0.b_slots)
-    # drop the level-1 lists: one-shot counting never re-packs level 1,
-    # and at scale the lists are O(nnz) of device memory
-    z = torch.zeros(0, dtype=torch.int32, device=A.device)
-    levels[0] = lv0._replace(a_rows=z, a_slots=z, b_js=z, b_slots=z)
+    if not keep_entry_lists:
+        # drop the level-1 lists: one-shot counting never re-packs level
+        # 1, and at scale the lists are O(nnz) of device memory
+        z = torch.zeros(0, dtype=torch.int32, device=A.device)
+        levels[0] = lv0._replace(a_rows=z, a_slots=z, a_eids=z, b_js=z,
+                                 b_slots=z, b_eids=z)
 
     keep = np.zeros(A.nzmax, bool)
     keep[:A.nvals] = ~sel_any[a_cols]
@@ -323,8 +351,14 @@ def build_bitdot_plan(M: CsrMatrix, A: CsrMatrix, B: CsrMatrix,
     # compaction) so the sort-merge engine can row-slice the mask
     lk = keep[:A.nvals]
     A_light._options["host_pattern"] = (a_rows[lk], a_cols[lk])
+    light_eids = None
+    if keep_entry_lists:
+        le = np.zeros(A_light.nzmax, np.int32)
+        le[:int(lk.sum())] = np.nonzero(lk)[0]
+        light_eids = torch.from_numpy(le).to(A.device)
     return BitdotPlan(Apack, Bpack, A_light, levels[0].W, sel_end,
-                      covered_all, total - covered_all, tuple(levels))
+                      covered_all, total - covered_all, tuple(levels),
+                      light_eids)
 
 
 def _shrink(X: CsrMatrix) -> CsrMatrix:
@@ -419,18 +453,40 @@ def _bitdot_pass(Apack, Bpack, amap, bmap, M: CsrMatrix) -> torch.Tensor:
                            M.nvals)
 
 
-def bitdot_counts(plan: BitdotPlan, M: CsrMatrix) -> torch.Tensor:
+def _level_live(lv: PackLevel, alive_a, alive_b):
+    """Per-entry pack masks of a level under the liveness lane masks
+    (None: every entry)."""
+    la = lb = None
+    if alive_a is not None:
+        la = alive_a[lv.a_eids.long().clamp(0, alive_a.shape[0] - 1)]
+    if alive_b is not None:
+        lb = alive_b[lv.b_eids.long().clamp(0, alive_b.shape[0] - 1)]
+    return la, lb
+
+
+def bitdot_counts(plan: BitdotPlan, M: CsrMatrix, alive_a=None,
+                  alive_b=None) -> torch.Tensor:
     """Heavy-slab counts per M padded entry: the cached level-1 panels
     plus one transient pack + pass per extra slab (each transient pair
     is freed when the next level packs, so peak memory is one extra
-    pair)."""
+    pair).
+
+    ``alive_a`` / ``alive_b``: optional bool lane masks over A's / B's
+    padded entries; dead entries' bits are dropped at (re)pack time, so
+    every level re-packs (the plan must keep its entry lists)."""
+    use_alive = alive_a is not None or alive_b is not None
     counts = None
     for li, lv in enumerate(plan.levels):
-        if li == 0:
+        if li == 0 and not use_alive:
             Ap, Bp = plan.Apack, plan.Bpack
         else:
-            Ap = _pack(lv.na, lv.W, lv.a_rows, lv.a_slots)
-            Bp = _pack(lv.nb, lv.W, lv.b_js, lv.b_slots)
+            if lv.a_rows.shape[0] == 0 or (
+                    use_alive and lv.a_eids.shape[0] == 0):
+                raise ValueError("liveness re-packing needs a plan built "
+                                 "with keep_entry_lists=True")
+            la, lb = _level_live(lv, alive_a, alive_b)
+            Ap = _pack(lv.na, lv.W, lv.a_rows, lv.a_slots, la)
+            Bp = _pack(lv.nb, lv.W, lv.b_js, lv.b_slots, lb)
         c = _bitdot_pass(Ap, Bp, lv.amap, lv.bmap, M)
         counts = c if counts is None else counts + c
     return counts

@@ -15,26 +15,31 @@ kernel for banded graphs, the window kernel for windowed ones, and
 ``tricount_esc`` (bitmap popcount panels + this sort-merge residual)
 for anything else.
 
+``ktruss_esc`` / ``allktruss_esc`` run the k-truss loop on the same
+engines: the bitdot plan is built once with per-entry liveness and each
+sweep re-packs it under the shrinking truss.
+
 Reference counterparts: ``Template/GB_AxB_dot_mask.c`` (masked dot),
-``tricount.c`` SandiaDot, ``tri_prep.c``.  k-truss comes with a later
-slice.
+``tricount.c`` SandiaDot, ``tri_prep.c``, ``ktruss_graphblas.c``,
+``Extras/ktruss/allktruss.c``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..core.errors import DimensionMismatch
+from ..ops.flopcount import record_axb_method
 from .container import CsrMatrix
 from .cuda_window import tricount_band_partials, window_count_partials
 from .window import build_band_plan, build_window_plan
 
 __all__ = ["masked_pair_counts", "tricount_esc", "tricount_auto",
-           "tricount_device", "tricount_prep_csr", "csr_filter_lanes",
-           "csr_tril", "csr_triu"]
+           "tricount_device", "tricount_prep_csr", "ktruss_esc",
+           "allktruss_esc", "csr_filter_lanes", "csr_tril", "csr_triu"]
 
 #: lanes per block: the sort-merge holds about ten int64 lane-sized
 #: arrays (~80 B/lane), 5.4 GB at 2^26 lanes
@@ -235,6 +240,111 @@ def csr_tril(A: CsrMatrix, k: int = -1) -> CsrMatrix:
 def csr_triu(A: CsrMatrix, k: int = 1) -> CsrMatrix:
     """Entries on/above diagonal k (GxB_TRIU at CSR scale)."""
     return csr_filter_lanes(A, A.indices.long() - A.rowids.long() >= k)
+
+
+def _compact_lanes(vals: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """vals[keep] compacted to the front (the order csr_filter_lanes
+    uses), zeros elsewhere."""
+    nz = vals.shape[0]
+    tgt = torch.where(keep, torch.cumsum(keep, 0) - 1, nz)
+    out = torch.zeros(nz + 1, dtype=vals.dtype, device=vals.device)
+    return out.scatter_(0, tgt, vals)[:nz]
+
+
+def ktruss_esc(A: CsrMatrix, k: int, chunk: int = _LANE_CAP,
+               max_iters: int = 1000,
+               budget_bytes: Optional[int] = None
+               ) -> Tuple[CsrMatrix, torch.Tensor, int]:
+    """Sparse k-truss at CSR scale (the ``ktruss_graphblas.c:10-136``
+    loop): support[e] = |N(i) ∩ N(j)| within the truss; prune support <
+    k-2; repeat to the fixpoint.  Returns (truss CsrMatrix, per-entry
+    supports int32 aligned to its padded order, nsteps).
+
+    Incremental: the truss only shrinks, so the bitdot plan is built
+    once on the whole graph (``keep_entry_lists=True``) and each sweep
+    re-packs the cached slabs under the per-entry liveness mask and
+    filters the light residual on the device.  Engine
+    ``bitdot:ktruss_incremental``; a graph the bitmaps cannot pay for
+    takes the per-sweep sort-merge loop."""
+    if k < 3:
+        raise ValueError("k must be >= 3")
+    dev = A.device
+    if A.nvals == 0:
+        return A, torch.zeros(A.nzmax, dtype=torch.int32, device=dev), 0
+    from .bitdot import _auto_budget, bitdot_counts, build_bitdot_plan
+    if budget_bytes is None:
+        budget_bytes = min(_auto_budget(dev), 2 << 30)
+    plan = build_bitdot_plan(A, A, A, budget_bytes=budget_bytes,
+                             keep_entry_lists=True)
+    if plan is None:
+        return _ktruss_sort_merge(A, k, chunk, max_iters)
+    record_axb_method("bitdot:ktruss_incremental")
+    alive = torch.arange(A.nzmax, device=dev) < A.nvals
+    light_lane = (torch.arange(plan.A_light.nzmax, device=dev)
+                  < plan.A_light.nvals)
+    last = A.nvals
+    nsteps = 0
+    counts = torch.zeros(A.nzmax, dtype=torch.int32, device=dev)
+    while nsteps < max_iters:
+        nsteps += 1
+        counts = bitdot_counts(plan, A, alive_a=alive, alive_b=alive)
+        if plan.A_light.nvals:
+            al = alive[plan.light_eids.long().clamp(0, A.nzmax - 1)]
+            A_l = csr_filter_lanes(plan.A_light, al & light_lane)
+            if A_l.nvals:
+                B_l = csr_filter_lanes(A, alive)
+                counts = counts + masked_pair_counts(A, A_l, B_l, chunk)
+        keep = alive & (counts >= (k - 2))
+        nk = int(keep.sum())
+        if nk == last:
+            break
+        alive, last = keep, nk
+        if nk == 0:
+            break
+    truss = csr_filter_lanes(A, alive)
+    return truss, _compact_lanes(counts, alive), nsteps
+
+
+def _ktruss_sort_merge(A: CsrMatrix, k: int, chunk: int, max_iters: int
+                       ) -> Tuple[CsrMatrix, torch.Tensor, int]:
+    """Small or flat-graph fallback: per-sweep sort-merge counting on the
+    shrinking truss."""
+    last = A.nvals
+    nsteps = 0
+    counts = torch.zeros(A.nzmax, dtype=torch.int32, device=A.device)
+    while nsteps < max_iters:
+        nsteps += 1
+        counts = masked_pair_counts(A, A, A, chunk)
+        B = csr_filter_lanes(A, counts >= (k - 2))
+        if B.nvals == last:
+            # nothing pruned: B's lanes coincide with A's, so the
+            # supports just computed are already aligned with B
+            return B, counts, nsteps
+        A, last = B, B.nvals
+        if last == 0:
+            return A, torch.zeros(A.nzmax, dtype=torch.int32,
+                                  device=A.device), nsteps
+    return A, counts, nsteps
+
+
+def allktruss_esc(A: CsrMatrix, kmax: Optional[int] = None,
+                  chunk: int = _LANE_CAP) -> dict:
+    """All-k-truss sweep at CSR scale (``Extras/ktruss/allktruss.c``):
+    k = 3.. until the truss is empty (or ``kmax``), each k starting from
+    the (k-1)-truss.  Returns {k: {nedges, nsteps, nt}}, nedges the
+    undirected edges (half the symmetric entries)."""
+    out = {}
+    C = A
+    k = 3
+    while kmax is None or k <= kmax:
+        C, counts, nsteps = ktruss_esc(C, k, chunk)
+        total = int(counts.sum(dtype=torch.int64))
+        out[k] = {"nedges": C.nvals // 2, "nsteps": nsteps,
+                  "nt": total // 6}
+        if C.nvals == 0:
+            break
+        k += 1
+    return out
 
 
 def tricount_prep_csr(A: CsrMatrix):

@@ -15,7 +15,13 @@ within rtol=2e-5, atol=2e-6 (reassociation).
 
 The third slice, SpMV, runs ``mxv``/``vxm`` on Wathen (through the BSR
 tile engine) and the whole-loop BFS / PageRank and a frontier step on
-R-MAT, with the tolerances stated per test."""
+R-MAT, with the tolerances stated per test.
+
+The fifth slice, the BSR tile engine and k-truss, counts Wathen
+triangles through ``tricount_bsr_pallas`` from COO tiles, runs
+``masked_mxm`` in its four modes on Wathen with bench.py's values
+(counts and patterns exact, values within rtol=1e-5, atol=1e-4), and
+runs ``ktruss_esc`` / ``allktruss_esc`` on R-MAT (exact)."""
 
 import numpy as np
 import pytest
@@ -319,3 +325,96 @@ def test_rmat_min_plus_squaring_matches_jax():
     ref = shortest_path(G, method="D", directed=False)
     assert np.array_equal(Dt.pattern_np(), np.isfinite(ref))
     np.testing.assert_allclose(X, ref[I, J], rtol=1e-5)
+
+
+def _wathen_pattern(nx):
+    I, J, _, n = gt.wathen_coo(nx, nx, seed=1)
+    ku = np.unique(I * n + J)
+    iu, ju = ku // n, ku % n
+    off = iu != ju
+    return iu[off], ju[off], n
+
+
+@pytest.mark.parametrize("nx", [8, 10])
+def test_wathen_bsr_slice_matches_jax(nx):
+    iu, ju, n = _wathen_pattern(nx)
+    lo, up = iu > ju, iu < ju
+    Lt = gt.tile_pattern_from_coo(iu[lo], ju[lo], (n, n), device="cpu")
+    Ut = gt.tile_pattern_from_coo(iu[up], ju[up], (n, n), device="cpu")
+    C, _ = gt.bsr_masked_count_pallas(Lt, Lt, Ut)
+    ntri = int(C.sum())
+    Lj = jsp.tile_pattern_from_coo(iu[lo], ju[lo], (n, n))
+    Uj = jsp.tile_pattern_from_coo(iu[up], ju[up], (n, n))
+    Cj, _ = jsp.bsr_masked_count_pallas(Lj, Lj, Uj)
+    assert np.array_equal(C.numpy(), np.asarray(Cj))
+    (Lc, Lcj), (Uc, Ucj) = _lu_both(iu, ju, n)
+    assert ntri == gt.tricount_auto(Lc, Uc) == jtri.tricount_auto(Lcj, Ucj)
+    P = np.zeros((n, n), bool)
+    P[iu, ju] = True
+    assert gt.tricount_bsr_pallas(np.tril(P, -1), np.triu(P, 1),
+                                  device="cpu") == ntri
+
+
+@pytest.mark.parametrize("sr", [None, "plus_land_INT32", "lor_land_BOOL",
+                                "plus_times_FP32"])
+def test_wathen_masked_mxm_modes_match_jax(sr):
+    """masked_mxm(L, L, L) on Wathen nx=8 with bench.py's values on L."""
+    from graphblas_tpu.core.semirings import semiring as jsemiring
+    iu, ju, n = _wathen_pattern(8)
+    lo = iu > ju
+    (Lt, Lj), _ = _lu_both(iu, ju, n)
+    Lvt, Lvj = _with_values(np.random.default_rng(3), Lt, Lj)
+    if sr is None:
+        srt = srj = None
+    else:
+        name, tname = sr.rsplit("_", 1)
+        srt = getattr(gt.semiring, name)[getattr(gt, tname)]
+        srj = getattr(jsemiring, name)[getattr(gb, tname)]
+    Ct = gt.masked_mxm(Lvt, Lvt, Lvt, semiring=srt)
+    engine = gt.last_axb_method()
+    Cj = jsp.masked_mxm(Lvj, Lvj, Lvj, semiring=srj)
+    _check_engine(engine)
+    assert Ct.type.name == Cj.type.name
+    assert np.array_equal(Ct.pattern_np(), Cj.pattern_np())
+    if sr == "plus_times_FP32":
+        np.testing.assert_allclose(Ct.to_dense(), Cj.to_dense(), rtol=1e-5,
+                                   atol=1e-4)
+        # against the bitmap mxm on the same mask
+        want = gt.mxm(gt.Matrix.new(gt.FP32, n, n, device="cpu"), Lvt, None,
+                      srt, Lvt, Lvt)
+        assert np.array_equal(Ct.pattern_np(), want.pattern_np())
+        np.testing.assert_allclose(Ct.to_dense(), want.to_dense(),
+                                   rtol=1e-5, atol=1e-4)
+    else:
+        assert np.array_equal(Ct.to_dense(), Cj.to_dense())
+    assert int(Ct.pattern_np().sum()) <= int(lo.sum())
+
+
+def test_rmat_ktruss_slice_matches_jax(monkeypatch):
+    """ktruss_esc on the symmetrized R-MAT 10 graph through the
+    incremental bitdot engine, and allktruss_esc, in both packages."""
+    monkeypatch.setattr(tbd, "_MIN_LANES", 1)
+    monkeypatch.setattr(jbd, "_MIN_LANES", 1)
+    n = 1 << 10
+    I, J = gt.symmetrize_pattern(*gt.rmat_edges(10, 16, seed=7), n)
+    X = np.ones(len(I), bool)
+    At = gt.csr_from_coo(I, J, X, n, n, type=gt.BOOL, sum_duplicates=False,
+                         device="cpu")
+    Aj = jsp.CsrMatrix.from_coo(I, J, X, n, n, type=gb.BOOL,
+                                sum_duplicates=False)
+    for k in (5, 8):
+        tt, ct, st = gt.ktruss_esc(At, k)
+        assert gt.last_axb_method() == "bitdot:ktruss_incremental"
+        tj, cj, sj = jtri.ktruss_esc(Aj, k)
+        _check_engine("bitdot:ktruss_incremental")
+        assert (tt.nvals, st) == (tj.nvals, sj)
+        It, Jt, _ = tt.extractTuples()
+        Ij, Jj, _ = tj.extractTuples()
+        assert np.array_equal(It, np.asarray(Ij))
+        assert np.array_equal(Jt, np.asarray(Jj))
+        assert np.array_equal(ct[:tt.nvals].numpy(),
+                              np.asarray(cj)[:tj.nvals])
+    got = gt.allktruss_esc(At, kmax=6)
+    assert got == jtri.allktruss_esc(Aj, kmax=6)
+    tt, _, _ = gt.ktruss_esc(At, 5)
+    assert got[5]["nedges"] == tt.nvals // 2

@@ -14,8 +14,10 @@ uncaught exception and a nonzero exit):
 1. build the CUDA kernels with nvcc (printing ptxas's register report);
 2. each kernel against its plain version on the card, exact integer
    equality: band-ring and window-count on the Wathen nx=ny=128 plans,
-   the popcount pass on random panels (W = 8, 40, 1024, with and without
-   row maps, entries past nvals);
+   the popcount pass against both its plain versions (dense panels and
+   compacted B rows) on random panels (W = 1, 8, 37, 40, 1024, with and
+   without row maps, entries past nvals, unsorted rowids; and sorted
+   rowids with runs of thousands of entries);
 3. Wathen nx=ny=16 against a dense numpy oracle, then Wathen nx=ny=128
    through ``tricount_auto`` (884,992 triangles, band-ring engine) and
    ``window_count_partials`` on its window plan (884,992 again);
@@ -24,8 +26,12 @@ uncaught exception and a nonzero exit):
 5. R-MAT scale 16 (edge factor 16, seed 7): nnz 1,819,622 and
    ``tricount_esc`` 15,623,664;
 6. R-MAT scale 18: nnz 7,612,718 and 82,947,332 triangles;
-7. the popcount pass against its plain version at the scale-18 plan's
-   shapes;
+7. the popcount pass against both plain versions at the scale-18
+   plan's level 1, timed against the dense plain version, with the
+   inputs' structure (nonzero-word shares, entry-weighted nonzero words
+   per row, runs of one A row), two bounds (for the compacted inputs,
+   and the dense-row bound of the earlier design) and the compaction's
+   own time apart;
 8. the gather-dot kernel (valdot, K4) against its plain version on
    random panels (S = 1024 and 4096, float32 and int32, padded lane
    lists with nlive < E and a -1 index): int32 exactly, float32 against
@@ -64,10 +70,11 @@ uncaught exception and a nonzero exit):
    (1000 x 1100) . (1100 x 900) with about 1 % +-inf and NaN values:
    equal bit for bit up to the sign of zero, NaN where NaN; then
    min-plus at 4096^3 timed in turns (kernel, plain once, kernel);
-15. the window product kernel (K3) against its plain version on the
-   Wathen 128 window plan, exact, timed in turns with ``torch.bmm`` of
-   the panels in float16 (the unmasked product, exact at these counts;
-   timed only here);
+15. the window product kernel (K3) against its plain version on random
+   signed int8 panels (1 and 3 block-rows, W and nJ 128 and 640) and on
+   the Wathen 128 window plan, exact, timed in turns with ``torch.bmm``
+   of the panels in float16 (the unmasked product, exact at these
+   counts; timed only here);
 16. the bitmap ``mxm`` path: all-pairs shortest paths on R-MAT 12 (edge
    factor 16, seed 7, symmetrized; weights U[1, 10) float32 from
    ``default_rng(5)`` on the upper triangle, mirrored; a 0 diagonal) by
@@ -368,21 +375,31 @@ def random_gatherdot_case(rng, S: int, dtype):
     return tuple(x.to("cuda") for x in (Av, Bv, ai, bj)) + (nlive,)
 
 
-def random_popcount_case(rng, W: int, maps: bool):
+def random_popcount_case(rng, W: int, maps: bool, runs: int = 0):
     """Random panels and mask entries for the popcount pass on the card:
-    nzmax entries, the last 5% past nvals, maps with -1 rows."""
+    nzmax entries, the last 5% past nvals, maps with -1 rows, about a
+    third of the words zero.  ``runs`` > 0: CSR-ordered rowids drawn
+    from that many rows, so runs of one A row span several chunks of
+    entries; otherwise unsorted."""
     na, nb, m, n, nzmax = 3000, 4000, 5000, 6000, 200_000
     nvals = nzmax - nzmax // 20
     dev = "cuda"
-    Ap = torch.from_numpy(rng.integers(-2**31, 2**31, (na, W),
-                                       dtype=np.int64).astype(np.int32))
-    Bp = torch.from_numpy(rng.integers(-2**31, 2**31, (nb, W),
-                                       dtype=np.int64).astype(np.int32))
+
+    def words(rows):
+        w = rng.integers(-2**31, 2**31, (rows, W),
+                         dtype=np.int64).astype(np.int32)
+        w[rng.random((rows, W)) < 0.35] = 0
+        return torch.from_numpy(w)
+
+    Ap, Bp = words(na), words(nb)
     amap = bmap = None
     if maps:
         amap = torch.from_numpy(rng.integers(-1, na, m).astype(np.int32))
         bmap = torch.from_numpy(rng.integers(-1, nb, n).astype(np.int32))
-    rows = rng.integers(0, m if maps else na, nzmax).astype(np.int32)
+    rows = rng.integers(0, runs or (m if maps else na),
+                        nzmax).astype(np.int32)
+    if runs:
+        rows.sort()
     cols = rng.integers(0, n if maps else nb, nzmax).astype(np.int32)
     return tuple(None if x is None else torch.as_tensor(x).to(dev)
                  for x in (Ap, Bp, amap, bmap, rows, cols)) + (nvals,)
@@ -556,23 +573,30 @@ def main() -> None:
         win.P.numel() + win.Q.numel() + win.M.numel() + 4 * nI,
         2 * nI * 128 * W * nJ, INT8_OPS)
     rng = np.random.default_rng(0)
-    for W in (8, 40, 1024):
-        for maps in (False, True):
-            args = random_popcount_case(rng, W, maps)
-            got = gt.bitdot_popcount(*args)
-            want = bd._bitdot_popcount_plain(*args)
-            err = max_abs_err(got, want)
-            if err:
-                raise AssertionError(f"popcount W={W} maps={maps}: {err}")
-            past = got[args[-1]:]
-            assert int(past.abs().sum()) == 0, "entries past nvals not 0"
+    popcount_cases = [(W, maps, 0) for W in (1, 8, 37, 40, 1024)
+                      for maps in (False, True)]
+    popcount_cases += [(1024, True, 50), (37, False, 20)]
+    for W, maps, runs in popcount_cases:
+        args = random_popcount_case(rng, W, maps, runs)
+        got = gt.bitdot_popcount(*args)
+        want = bd._bitdot_popcount_plain(*args)
+        err = max(max_abs_err(got, want), max_abs_err(
+            got, bd._bitdot_popcount_compact_plain(
+                args[0], bd.compact_rows(args[1]), *args[2:])))
+        if err:
+            raise AssertionError(f"popcount W={W} maps={maps} runs={runs}: "
+                                 f"{err}")
+        past = got[args[-1]:]
+        assert int(past.abs().sum()) == 0, "entries past nvals not 0"
     sync()
     for name in ("tri_band_ring", "window_count"):
         err, ms, pms = summary[name]
         print(f"{tag} phase2 {name}: exact (max_abs_err {err}); "
               f"kernel {ms:.4f} ms, plain {pms:.4f} ms (Wathen 128)")
-    print(f"{tag} phase2 bitdot_popcount: exact on random panels "
-          f"W=8,40,1024 with/without maps")
+    print(f"{tag} phase2 bitdot_popcount: exact against both plain "
+          f"versions on random panels W=1,8,37,40,1024 with/without maps "
+          f"(unsorted rowids), and sorted rowids from 50 rows (W=1024, "
+          f"maps) and 20 rows (W=37): runs of ~4,000 and ~10,000 entries")
     del L, U, band, win
 
     # ---- 8. the gather-dot kernel against its plain version ----
@@ -731,29 +755,65 @@ def main() -> None:
     if not isinstance(plan18, bd.BitdotPlan):
         raise AssertionError("R-MAT 18 did not build a bitdot plan")
     lv = plan18.levels[0]
+    Bc = plan18.Bcomp
     args = (plan18.Apack, plan18.Bpack, lv.amap, lv.bmap, M18.rowids,
             M18.indices, M18.nvals)
+    err = max_abs_err(gt.bitdot_popcount(*args, Bcomp=Bc),
+                      bd._bitdot_popcount_compact_plain(
+                          plan18.Apack, Bc, *args[2:]))
+    assert err == 0, "popcount differs from its compacted plain version"
     summary["bitdot_popcount"] = compare_timed(
-        lambda: gt.bitdot_popcount(*args),
+        lambda: gt.bitdot_popcount(*args, Bcomp=Bc),
         lambda: bd._bitdot_popcount_plain(*args), 5)
     err, ms, pms = summary["bitdot_popcount"]
+    comp_ms = cuda_ms(lambda: bd.compact_rows(plan18.Bpack), 5)
+    # the inputs' structure: nonzero-word shares, entry-weighted nonzero
+    # words of A's and B's rows, runs of one A row in entry order
+    ii, jj, ok = bd._entry_rows(plan18.Apack.shape[0],
+                                plan18.Bpack.shape[0], lv.amap, lv.bmap,
+                                M18.rowids, M18.indices, M18.nvals)
+    ii, jj = ii[ok], jj[ok]
+    nzA = (plan18.Apack != 0).sum(1)
+    nzB = (Bc.ptr[1:] - Bc.ptr[:-1]).long()
+    share_a = float((nzA.sum() / plan18.Apack.numel()))
+    share_b = float(nzB.sum() / plan18.Bpack.numel())
+    wa, wb = float(nzA[ii].double().mean()), float(nzB[jj].double().mean())
+    _, run_len = torch.unique_consecutive(ii, return_counts=True)
+    run_mean = ii.numel() / run_len.numel()
+    run_wmean = float((run_len.double() ** 2).sum() / ii.numel())
+    Wp = plan18.Apack.shape[1]
+    maps_bytes = 4 * sum(x.numel() for x in (lv.amap, lv.bmap)
+                         if x is not None)
+    # the restated bound, for the work the compacted inputs define: each
+    # distinct A row once (dense), each distinct B row's compacted words
+    # once (8 B each), 12 B per entry; an AND, a popcount and an add per
+    # (entry, nonzero B word)
+    ua, ub = torch.unique(ii), torch.unique(jj)
+    nbytes = (ua.numel() * Wp * 4 + 8 * int(nzB[ub].sum())
+              + M18.nzmax * 12 + maps_bytes)
+    bounds["bitdot_popcount"] = bound(nbytes, 3 * int(nzB[jj].sum()),
+                                      CUDA32_OPS)
+    # the bound of the earlier dense-row design, kept for continuity:
+    # both full rows per entry, 3 operations on every word
+    dense_bound = bound((ua.numel() + ub.numel()) * Wp * 4 + M18.nzmax * 12
+                        + maps_bytes, 3 * M18.nvals * Wp, CUDA32_OPS)
+    extra_of = {"bitdot_popcount": {
+        "dense_row_bound_ms": dense_bound[0],
+        "dense_row_bound_by": dense_bound[1], "compaction_ms": comp_ms}}
     print(f"{tag} phase7 bitdot_popcount at R-MAT 18 level 1 (Apack "
           f"{tuple(plan18.Apack.shape)}, Bpack {tuple(plan18.Bpack.shape)}, "
-          f"{M18.nzmax} entries): exact; kernel {ms:.4f} ms, plain "
-          f"{pms:.4f} ms")
-    live = torch.arange(M18.nzmax, device="cuda") < M18.nvals
-    ar = lv.amap[M18.rowids[live].long()] if lv.amap is not None \
-        else M18.rowids[live]
-    bc = lv.bmap[M18.indices[live].long()] if lv.bmap is not None \
-        else M18.indices[live]
-    Wp = plan18.Apack.shape[1]
-    nbytes = ((distinct(ar[ar >= 0]) + distinct(bc[bc >= 0])) * Wp * 4
-              + M18.nzmax * 12
-              + 4 * sum(x.numel() for x in (lv.amap, lv.bmap)
-                        if x is not None))
-    # AND, popcount and add per word of each entry
-    bounds["bitdot_popcount"] = bound(nbytes, 3 * M18.nvals * Wp,
-                                      CUDA32_OPS)
+          f"{M18.nzmax} entries, {ii.numel()} with both rows): exact "
+          f"against both plain versions; kernel {ms:.4f} ms, plain "
+          f"{pms:.4f} ms; bound {bounds['bitdot_popcount'][0]:.4f} ms "
+          f"({bounds['bitdot_popcount'][1]}; compacted B), dense-row bound "
+          f"{dense_bound[0]:.4f} ms ({dense_bound[1]}); compaction of Bpack "
+          f"{comp_ms:.4f} ms apart ({Bc.word.numel()} nonzero words); "
+          f"nonzero words: A {share_a:.4f}, B {share_b:.4f} of the panels, "
+          f"entry-weighted A {wa:.1f}, B {wb:.1f} of {Wp} per row; runs of "
+          f"one A row: {run_len.numel()}, mean {run_mean:.1f} entries "
+          f"(entry-weighted {run_wmean:.1f}); distinct rows A "
+          f"{ua.numel()}, B {ub.numel()}")
+    del ii, jj, ok, nzA, nzB, run_len, ua, ub
     sync()
 
     # ---- 10. the gather-dot kernel at the main path's shapes ----
@@ -1043,6 +1103,25 @@ def main() -> None:
     del a, b, want
 
     # ---- 15. the window product kernel (K3) against its plain version ----
+    from types import SimpleNamespace
+    rng = np.random.default_rng(15)
+
+    def panel(*shape):
+        return torch.from_numpy(rng.integers(-128, 128, shape,
+                                             dtype=np.int8)).to("cuda")
+
+    for nI in (1, 3):
+        for W in (128, 640):
+            for nJ in (128, 640):
+                pl = SimpleNamespace(P=panel(nI, 128, W), Q=panel(nI, W, nJ),
+                                     M=panel(nI, 128, nJ))
+                err = max_abs_err(gt.window_masked_mm_pallas(pl),
+                                  cw._window_mm_plain(pl.P, pl.Q, pl.M))
+                assert err == 0, f"K3 signed nI={nI} W={W} nJ={nJ}: {err}"
+    sync()
+    print(f"{tag} phase15 window_mm: exact on random signed int8 panels, "
+          f"nI in (1, 3), W and nJ in (128, 640)")
+    del pl
     L, U, _, _ = wathen_lu(gt, 128)
     win = gt.build_window_plan(L, U, L)
     assert win is not None, "Wathen 128 window plan refused"
@@ -1472,6 +1551,7 @@ def main() -> None:
                  "library_ms": library_ms.get(name)}
         if name in values_err_of:
             entry["values_max_abs_err"] = values_err_of[name]
+        entry.update(extra_of.get(name, {}))
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -42,9 +42,9 @@ _SIGNATURES = {
     "tri_band_ring": (_P, _P, _P, _I, _I, _P),
     # P, Q, M, partials, nI, W, nJ, stream
     "window_count": (_P, _P, _P, _P, _I, _I, _I, _P),
-    # Apack, Bpack, amap, bmap, rowids, indices, out,
+    # Apack, bptr, bwidx, bword, amap, bmap, rowids, indices, out,
     # nzmax, nvals, na, nb, W, amap_len, bmap_len, stream
-    "bitdot_popcount": (_P, _P, _P, _P, _P, _P, _P,
+    "bitdot_popcount": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _L, _L, _I, _I, _I, _I, _I, _P),
     # Av, Bv, ai, bj, out, nlive, na, nb, S, is_int, stream
     "valdot_gatherdot": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P),

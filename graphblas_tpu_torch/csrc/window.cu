@@ -10,25 +10,33 @@
 // What bounds it on the card: int8 multiply-accumulate work on the padded
 // band, (Wb*(Wb+1)/2) * 128^3 MACs per block-row for the band ring; the
 // panels themselves (L and U once, a few MB to ~1 GB) stream from memory
-// once per (block, offset) pair and stay mostly in L2.
+// once per (block, offset) pair and stay mostly in L2.  K3 writes a 4-byte
+// product per entry against the operands' 1, so it is bound by bytes: at
+// the Wathen 128 plan 350 MB, 127 MB of it the int32 output.
 //
-// What this simple design does about it: one CUDA block per (block-row,
-// band offset, 64-column half) for the band ring and per (block-row,
-// 64-column tile) for the window count and product, so blocks run in
-// parallel where the TPU walked its grid in order; the TPU's VMEM ring that
-// streamed U once becomes direct reads of Ut[J] (L2-resident).  Each block
-// stages 32-byte slices of both operands through shared memory packed as
-// 4-byte words and accumulates a 128x64 int32 tile with __dp4a (4 int8 MACs
-// per instruction), multiplies it by the mask tile and either reduces it in
-// the block and atomically adds it to partials[i] or writes it to the
-// panel.  Integer sums are exact in any order.  The product panel is 4 bytes
-// an entry against the operands' 1, so K3 is bound by writing it.
-// Tensor-core mma/wgmma and TMA staging are later work.
+// K1 and K2: one CUDA block per (block-row, band offset, 64-column half)
+// for the band ring and per (block-row, 64-column tile) for the window
+// count, so blocks run in parallel where the TPU walked its grid in order;
+// the TPU's VMEM ring that streamed U once becomes direct reads of Ut[J]
+// (L2-resident).  Each block accumulates a 128x64 int32 tile with the
+// shared __dp4a tile (dp4a_tile.cuh), multiplies it by the mask tile,
+// reduces it in the block and atomically adds it to partials[i].  Integer
+// sums are exact in any order.
+//
+// K3: one block per (block-row, 128-column tile) on the int8 tensor-core
+// tile (mma_s8_tile.cuh: mma.sync m16n8k32, a three-stage cp.async ring,
+// Q's k-major tiles transposed in registers with prmt between shared
+// memory and the mma); the column tile runs fastest, so the blocks of one block-row
+// read P[i] from L2 and Q is read once.  The epilogue pairs neighbouring
+// lanes' accumulators with one shuffle so that each lane multiplies four
+// consecutive outputs by a 4-byte mask word and writes them with one
+// 16-byte store.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "dp4a_tile.cuh"  // T, TN, NT and the shared tile_product
+#include "dp4a_tile.cuh"    // T, TN, NT and the __dp4a tile_product
+#include "mma_s8_tile.cuh"  // mma_s8::tile_product (K3)
 
 namespace {
 
@@ -101,26 +109,45 @@ window_count_kernel(const int8_t* __restrict__ P,
   if (threadIdx.x == 0 && sum != 0) atomicAdd(partials + i, sum);
 }
 
-// Grid (nI, nJ/TN): block-row i, output column tile c.  Same operands as
-// window_count_kernel; out (nI, T, nJ) int32 gets (P[i].Q[i]) * M[i].
-__global__ void __launch_bounds__(NT)
+// Grid nI * (nJ / 128): block b is block-row b / (nJ / 128), column tile
+// b % (nJ / 128).  Same operands as window_count_kernel; out (nI, T, nJ)
+// int32 gets (P[i].Q[i]) * M[i].
+__global__ void __launch_bounds__(mma_s8::NT, 2)
 window_mm_kernel(const int8_t* __restrict__ P, const int8_t* __restrict__ Q,
                  const int8_t* __restrict__ M, int* __restrict__ out, int W,
                  int nJ) {
-  const int i = blockIdx.x;
-  const long c0 = (long)blockIdx.y * TN;
-  int acc[8][4];
-  tile_product(P + (long)i * T * W, W, Q + (long)i * W * nJ + c0, nJ, W,
-               acc);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int8_t* Mi = M + (long)i * T * nJ + c0;
-  int* Oi = out + (long)i * T * nJ + c0;
+  const int nct = nJ / mma_s8::BN;
+  const long i = blockIdx.x / nct;
+  const long c0 = (long)(blockIdx.x % nct) * mma_s8::BN;
+  extern __shared__ __align__(16) uint32_t mm_smem[];
+  int acc[2][8][4];
+  mma_s8::tile_product(P + i * T * W, W, Q + i * W * nJ + c0, nJ, W,
+                       mm_smem, acc);
+  // lane pairs (tq, tq^1) swap halves: the even lane then holds row g's
+  // four columns 8*ni + 2*tq .. +3, the odd lane row g+8's four columns
+  // 8*ni + 2*(tq-1) .. +3
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const bool odd = tq & 1;
+  const int8_t* Mi = M + i * T * nJ + c0;
+  int* Oi = out + i * T * nJ + c0;
 #pragma unroll
-  for (int r = 0; r < 8; ++r)
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const long e = (long)(ty + 16 * r) * nJ + tx + 16 * j;
-      Oi[e] = acc[r][j] * (int)Mi[e];
+    for (int ni = 0; ni < 8; ++ni) {
+      const int* c = acc[mi][ni];
+      const int x0 = __shfl_xor_sync(0xffffffffu, odd ? c[0] : c[2], 1);
+      const int x1 = __shfl_xor_sync(0xffffffffu, odd ? c[1] : c[3], 1);
+      int4 v = odd ? make_int4(x0, x1, c[2], c[3])
+                   : make_int4(c[0], c[1], x0, x1);
+      const long e = (long)(32 * (warp & 3) + 16 * mi + g + (odd ? 8 : 0))
+                         * nJ + 64 * (warp >> 2) + 8 * ni + 4 * (tq >> 1);
+      const uint32_t m = *reinterpret_cast<const uint32_t*>(Mi + e);
+      v.x *= (int)(signed char)(m & 0xff);
+      v.y *= (int)(signed char)((m >> 8) & 0xff);
+      v.z *= (int)(signed char)((m >> 16) & 0xff);
+      v.w *= (int)(signed char)(m >> 24);
+      *reinterpret_cast<int4*>(Oi + e) = v;
     }
 }
 
@@ -151,11 +178,18 @@ extern "C" int gb_window_count(const void* P, const void* Q, const void* M,
 }
 
 // Same panels as gb_window_count; out (nI, T, nJ) int32, every element
-// written.
+// written.  The panels' base pointers must be 16-byte aligned (the
+// wrapper's fresh contiguous tensors are).
 extern "C" int gb_window_mm(const void* P, const void* Q, const void* M,
                             void* out, int nI, int W, int nJ, void* stream) {
   if (nI > 0 && W > 0 && nJ > 0) {
-    window_mm_kernel<<<dim3(nI, nJ / TN), NT, 0, (cudaStream_t)stream>>>(
+    const cudaError_t rc = cudaFuncSetAttribute(
+        window_mm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        mma_s8::SMEM_BYTES);
+    if (rc != cudaSuccess) return (int)rc;
+    window_mm_kernel<<<(unsigned)((long)nI * (nJ / mma_s8::BN)),
+                       mma_s8::NT, mma_s8::SMEM_BYTES,
+                       (cudaStream_t)stream>>>(
         (const int8_t*)P, (const int8_t*)Q, (const int8_t*)M, (int*)out, W,
         nJ);
   }

@@ -6,8 +6,8 @@ kernel (:mod:`cuda_tropical`) are reached through ``mxm``, as in the JAX
 package."""
 
 from .algorithms import bfs_csr, pagerank_csr
-from .bitdot import (BitdotPlan, PackLevel, bitdot_counts,
-                     bitdot_popcount, build_bitdot_plan,
+from .bitdot import (BitdotPlan, CompactRows, PackLevel, bitdot_counts,
+                     bitdot_popcount, build_bitdot_plan, compact_rows,
                      masked_pair_counts_auto)
 from .bitpack import pack_pattern, popcount, words_for
 from .bsr import (TilePattern, bsr_masked_count, tile_matrix, tile_pattern,
@@ -39,7 +39,8 @@ __all__ = [
     "tricount_band_partials", "window_count_partials",
     "window_masked_mm_pallas",
     "BitdotPlan", "PackLevel", "build_bitdot_plan", "bitdot_counts",
-    "bitdot_popcount", "masked_pair_counts_auto",
+    "bitdot_popcount", "CompactRows", "compact_rows",
+    "masked_pair_counts_auto",
     "masked_pair_counts", "tricount_esc", "tricount_device",
     "tricount_auto", "tricount_prep_csr", "csr_filter_lanes", "csr_tril",
     "csr_triu", "csr_spgemm", "csr_accum_mask", "csr_clear",

@@ -7,8 +7,11 @@ dimension is split by measured wedge weight:
 * **heavy k** (top columns by ``indeg_A(k) * deg_B(k)``): membership of
   each selected k in A's rows and B's columns is packed into per-row
   bitmaps of ``W`` 32-bit words, and the masked dot for mask entry
-  (i, j) is ``popcount(Apack[i, :] & Bpack[j, :])`` — two W-word row
-  reads, AND, popcount, in one CUDA kernel (``csrc/bitdot.cu``);
+  (i, j) is ``popcount(Apack[i, :] & Bpack[j, :])``, summed over B's
+  nonzero words only: B's rows are compacted to their nonzero words
+  (:func:`compact_rows`, cached on the plan beside the level-1 panel) and
+  one CUDA kernel (``csrc/bitdot.cu``) stages each run of entries' A row
+  once and sweeps B's compacted words;
 * **light k** (the residual): the remaining A entries go through the
   sort-merge engine (:mod:`tri`).
 
@@ -52,8 +55,9 @@ from .container import CsrMatrix
 from .esc import _bucket
 from .tri import csr_filter_lanes, masked_pair_counts
 
-__all__ = ["BitdotPlan", "PackLevel", "build_bitdot_plan",
-           "bitdot_counts", "bitdot_popcount", "masked_pair_counts_auto"]
+__all__ = ["BitdotPlan", "PackLevel", "CompactRows", "build_bitdot_plan",
+           "bitdot_counts", "bitdot_popcount", "compact_rows",
+           "masked_pair_counts_auto"]
 
 #: the plain popcount pass gathers at most this many words per side at
 #: a time
@@ -102,6 +106,28 @@ class PackLevel(NamedTuple):
     covered: int              # wedges this slab handles
 
 
+class CompactRows(NamedTuple):
+    """A panel's rows compacted to their nonzero words, a CSR of words:
+    row r holds ``word[q]`` at column ``widx[q]`` for q in
+    ``[ptr[r], ptr[r+1])``, columns ascending.  All int32."""
+    ptr: torch.Tensor         # (nrows + 1,)
+    widx: torch.Tensor        # (nnzw,)
+    word: torch.Tensor        # (nnzw,)
+
+
+def compact_rows(panel: torch.Tensor) -> CompactRows:
+    """The (nrows, W) int32 panel's rows compacted to their nonzero
+    words, on the panel's device (one ``nonzero`` pass, which reads its
+    length back)."""
+    nrows, W = panel.shape
+    flat = torch.nonzero(panel.reshape(-1) != 0).flatten()
+    ptr = torch.zeros(nrows + 1, dtype=torch.int32, device=panel.device)
+    if flat.numel():
+        ptr[1:] = torch.bincount(flat // W, minlength=nrows).cumsum(0)
+    return CompactRows(ptr, (flat % W).to(torch.int32),
+                       panel.reshape(-1)[flat].contiguous())
+
+
 class BitdotPlan(NamedTuple):
     Apack: torch.Tensor       # packed level-1 A panel (cached)
     Bpack: torch.Tensor       # packed level-1 B panel (cached)
@@ -112,6 +138,7 @@ class BitdotPlan(NamedTuple):
     light_lanes: int          # wedges left for the sort-merge engine
     levels: tuple = ()        # ALL PackLevel slabs (level 1 first)
     light_eids: Optional[torch.Tensor] = None  # orig eid per light lane
+    Bcomp: Optional[CompactRows] = None  # level-1 B rows, compacted
 
     @property
     def panel_bytes(self) -> int:
@@ -358,7 +385,7 @@ def build_bitdot_plan(M: CsrMatrix, A: CsrMatrix, B: CsrMatrix,
         light_eids = torch.from_numpy(le).to(A.device)
     return BitdotPlan(Apack, Bpack, A_light, levels[0].W, sel_end,
                       covered_all, total - covered_all, tuple(levels),
-                      light_eids)
+                      light_eids, compact_rows(Bpack))
 
 
 def _shrink(X: CsrMatrix) -> CsrMatrix:
@@ -397,10 +424,11 @@ def _check_popcount_args(Apack, Bpack, amap, bmap, rowids, indices):
     return dev
 
 
-def _bitdot_popcount_plain(Apack, Bpack, amap, bmap, rowids, indices,
-                           nvals: int) -> torch.Tensor:
-    """Plain version of the popcount kernel: index gather, AND, SWAR
-    popcount, sum over the words, in chunks of entries."""
+def _entry_rows(na: int, nb: int, amap, bmap, rowids, indices,
+                nvals: int):
+    """(A panel row, B panel row, live) per entry: the maps applied and
+    the rows clamped as the kernel does; an entry past ``nvals`` or whose
+    map gives -1 is not live."""
     E = rowids.shape[0]
     live = torch.arange(E, device=rowids.device) < nvals
     ii = torch.where(live, rowids, 0).long()
@@ -410,8 +438,17 @@ def _bitdot_popcount_plain(Apack, Bpack, amap, bmap, rowids, indices,
     if bmap is not None:
         jj = bmap[jj.clamp(0, bmap.shape[0] - 1)].long()
     ok = (ii >= 0) & (jj >= 0) & live
-    ii = ii.clamp(0, Apack.shape[0] - 1)
-    jj = jj.clamp(0, Bpack.shape[0] - 1)
+    return ii.clamp(0, na - 1), jj.clamp(0, nb - 1), ok
+
+
+def _bitdot_popcount_plain(Apack, Bpack, amap, bmap, rowids, indices,
+                           nvals: int) -> torch.Tensor:
+    """Plain version of the popcount kernel on the dense panels: index
+    gather, AND, SWAR popcount, sum over the words, in chunks of
+    entries."""
+    ii, jj, ok = _entry_rows(Apack.shape[0], Bpack.shape[0], amap, bmap,
+                             rowids, indices, nvals)
+    E = rowids.shape[0]
     out = torch.empty(E, dtype=torch.int32, device=rowids.device)
     step = max(1, _CHUNK_WORDS // Apack.shape[1])
     for s in range(0, E, step):
@@ -420,24 +457,73 @@ def _bitdot_popcount_plain(Apack, Bpack, amap, bmap, rowids, indices,
     return torch.where(ok, out, 0)
 
 
+def _bitdot_popcount_compact_plain(Apack, Bc: CompactRows, amap, bmap,
+                                   rowids, indices,
+                                   nvals: int) -> torch.Tensor:
+    """Plain version of the popcount kernel as it reads B, compacted:
+    per entry, B's nonzero words AND the A words at their columns,
+    popcounted and summed, in chunks of at most _CHUNK_WORDS words."""
+    nb = Bc.ptr.shape[0] - 1
+    ii, jj, ok = _entry_rows(Apack.shape[0], nb, amap, bmap, rowids,
+                             indices, nvals)
+    E = rowids.shape[0]
+    dev = rowids.device
+    ptr = Bc.ptr.long()
+    lens = torch.where(ok, ptr[jj + 1] - ptr[jj], 0)
+    out = torch.zeros(E, dtype=torch.int32, device=dev)
+    step = max(1, _CHUNK_WORDS // Apack.shape[1])
+    for s in range(0, E, step):
+        ln = lens[s:s + step]
+        ent = torch.repeat_interleave(torch.arange(ln.numel(), device=dev),
+                                      ln)
+        first = (ln.cumsum(0) - ln)[ent]
+        q = ptr[jj[s:s + step]][ent] + torch.arange(ent.numel(),
+                                                    device=dev) - first
+        v = popcount(Bc.word[q] & Apack[ii[s:s + step][ent],
+                                        Bc.widx[q].long()])
+        out[s:s + step].index_add_(0, ent, v.to(torch.int32))
+    return out
+
+
+def _check_compact(Bc: CompactRows, nb: int, dev) -> None:
+    for name, x in zip(CompactRows._fields, Bc):
+        if x.dtype != torch.int32 or x.dim() != 1:
+            raise TypeError(f"Bcomp.{name} must be a 1-D int32 tensor, got "
+                            f"{x.dtype} {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"Bcomp.{name} must be contiguous")
+        if x.device != dev:
+            raise ValueError(f"Bcomp.{name} is on {x.device}, expected "
+                             f"{dev}")
+    if Bc.ptr.shape[0] != nb + 1 or Bc.widx.shape != Bc.word.shape:
+        raise ValueError(f"Bcomp does not compact a panel of {nb} rows")
+
+
 def bitdot_popcount(Apack: torch.Tensor, Bpack: torch.Tensor,
                     amap: Optional[torch.Tensor],
                     bmap: Optional[torch.Tensor], rowids: torch.Tensor,
-                    indices: torch.Tensor, nvals: int) -> torch.Tensor:
+                    indices: torch.Tensor, nvals: int,
+                    Bcomp: Optional[CompactRows] = None) -> torch.Tensor:
     """counts[e] = sum_w popc(Apack[amap[rowids[e]], w] &
     Bpack[bmap[indices[e]], w]) for e < nvals, with 0 past nvals and
     where a map gives -1 (an absent map is the identity).  Returns
-    (len(rowids),) int32.  CUDA tensors launch the popcount kernel;
-    CPU tensors run its plain version."""
+    (len(rowids),) int32.  CUDA tensors launch the popcount kernel, which
+    reads B through ``Bcomp``, Bpack's rows compacted
+    (:func:`compact_rows`; built here when not given); CPU tensors run
+    its plain version on the dense panels."""
     dev = _check_popcount_args(Apack, Bpack, amap, bmap, rowids, indices)
     if dev.type == "cpu":
         return _bitdot_popcount_plain(Apack, Bpack, amap, bmap, rowids,
                                       indices, nvals)
+    if Bcomp is None:
+        Bcomp = compact_rows(Bpack)
+    _check_compact(Bcomp, Bpack.shape[0], dev)
     E = rowids.shape[0]
     out = torch.empty(E, dtype=torch.int32, device=dev)
     _build.launch(
         "bitdot_popcount", Apack,
-        Apack.data_ptr(), Bpack.data_ptr(),
+        Apack.data_ptr(), Bcomp.ptr.data_ptr(), Bcomp.widx.data_ptr(),
+        Bcomp.word.data_ptr(),
         None if amap is None else amap.data_ptr(),
         None if bmap is None else bmap.data_ptr(),
         rowids.data_ptr(), indices.data_ptr(), out.data_ptr(),
@@ -447,10 +533,11 @@ def bitdot_popcount(Apack: torch.Tensor, Bpack: torch.Tensor,
     return out
 
 
-def _bitdot_pass(Apack, Bpack, amap, bmap, M: CsrMatrix) -> torch.Tensor:
+def _bitdot_pass(Apack, Bpack, amap, bmap, M: CsrMatrix,
+                 Bcomp: Optional[CompactRows] = None) -> torch.Tensor:
     """One gather+AND+popcount pass of a packed slab pair over M."""
     return bitdot_popcount(Apack, Bpack, amap, bmap, M.rowids, M.indices,
-                           M.nvals)
+                           M.nvals, Bcomp)
 
 
 def _level_live(lv: PackLevel, alive_a, alive_b):
@@ -477,8 +564,9 @@ def bitdot_counts(plan: BitdotPlan, M: CsrMatrix, alive_a=None,
     use_alive = alive_a is not None or alive_b is not None
     counts = None
     for li, lv in enumerate(plan.levels):
+        Bc = None     # a fresh pack is compacted by the popcount wrapper
         if li == 0 and not use_alive:
-            Ap, Bp = plan.Apack, plan.Bpack
+            Ap, Bp, Bc = plan.Apack, plan.Bpack, plan.Bcomp
         else:
             if lv.a_rows.shape[0] == 0 or (
                     use_alive and lv.a_eids.shape[0] == 0):
@@ -487,7 +575,7 @@ def bitdot_counts(plan: BitdotPlan, M: CsrMatrix, alive_a=None,
             la, lb = _level_live(lv, alive_a, alive_b)
             Ap = _pack(lv.na, lv.W, lv.a_rows, lv.a_slots, la)
             Bp = _pack(lv.nb, lv.W, lv.b_js, lv.b_slots, lb)
-        c = _bitdot_pass(Ap, Bp, lv.amap, lv.bmap, M)
+        c = _bitdot_pass(Ap, Bp, lv.amap, lv.bmap, M, Bc)
         counts = c if counts is None else counts + c
     return counts
 

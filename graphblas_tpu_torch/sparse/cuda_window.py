@@ -7,7 +7,9 @@ current stream.
 
 Each wrapper takes the plan's int8 panels and returns per-block-row
 int32 partials (the caller sums them in int64) or, for
-``window_masked_mm_pallas``, the masked int32 product panels.  On a CUDA
+``window_masked_mm_pallas``, the masked int32 product panels (K3, on the
+int8 tensor-core tile of ``csrc/mma_s8_tile.cuh``; the band ring and the
+window count use the ``__dp4a`` tile of ``csrc/dp4a_tile.cuh``).  On a CUDA
 tensor it launches the kernel (or raises); on a CPU tensor it runs the
 kernel's plain PyTorch version, defined here beside it.
 
@@ -142,6 +144,9 @@ def window_masked_mm_pallas(plan: WindowPlan) -> torch.Tensor:
         return _window_mm_plain(P, Q, M)
     nI, _, W = P.shape
     nJ = M.shape[2]
+    if any(x.data_ptr() % 16 for x in (P, Q, M)):
+        raise ValueError("the window product kernel reads 16-byte aligned "
+                         "panels")
     out = torch.empty((nI, T, nJ), dtype=torch.int32, device=dev)
     _build.launch("window_mm", P, P.data_ptr(), Q.data_ptr(), M.data_ptr(),
                   out.data_ptr(), nI, W, nJ)

@@ -31,7 +31,8 @@ Segment reductions (the ``GB_assoc_template.c`` switch-factory
 analogue): named monoids scatter into an identity-filled output: PLUS
 and TIMES (integers in int64, wrapped back to the storage width:
 congruent), MIN and MAX over the type's own order (unsigned read as
-unsigned), LOR/LAND as any/all, LXOR/EQ as parity counts.  An empty
+unsigned; float NaN terms replaced by the identity, so a NaN drops out
+as in the bitmap path), LOR/LAND as any/all, LXOR/EQ as parity counts.  An empty
 segment holds the identity.  Any other monoid takes the generic
 segmented fold.
 """
@@ -113,6 +114,12 @@ def segment_reduce(monoid_name: str, vals: torch.Tensor,
             out.scatter_reduce_(0, idx, wide, reduce="prod")
         return out.to(vals.dtype)
     if nm in ("MAX", "MIN", "LOR", "LAND"):
+        if nm in ("MAX", "MIN") and vals.dtype.is_floating_point:
+            # fmin/fmax from the identity, as the bitmap path, K6 and
+            # SpMM fold: a NaN term drops out, an all-NaN segment holds
+            # the identity (scatter_reduce's amin/amax propagate NaN)
+            vals = torch.where(torch.isnan(vals), torch.full(
+                (), identity, dtype=vals.dtype, device=dev), vals)
         keys = ordered(vals, t)
         ident = torch.full((), identity, dtype=vals.dtype)
         out = ordered(ident, t).to(keys.dtype).expand(num_segments).clone()

@@ -201,3 +201,178 @@ def test_small_graph_falls_back_to_sort_merge():
     got = tbd.masked_pair_counts_auto(L, L, U)
     assert gt.last_axb_method() == "tri:sort_merge"
     assert int(got.sum()) == 4          # K4 has 4 triangles
+
+
+# ---- the popcount pass over compacted B rows ----
+
+def _sparse_words(rng, shape, density=0.3):
+    """Random 32-bit words, about ``density`` of them nonzero, with a few
+    all-zero rows."""
+    w = rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32)
+    w[rng.random(shape) >= density] = 0
+    w[::7] = 0
+    return w
+
+
+def _popcount_case(W, maps=True, order="random", long_row=0, seed=0):
+    """Random panels and mask entries as numpy arrays: (Apack, Bpack,
+    amap, bmap, rowids, indices, nvals).  ``maps`` adds row maps with -1
+    rows; ``order`` "sorted" gives CSR-ordered rowids (runs of one A
+    row), "random" unsorted; ``long_row`` > 0 makes row 0 that many
+    entries long; the last 5 % of the entries lie past nvals."""
+    rng = np.random.default_rng(seed + W)
+    m, n, na, nb, E = 80, 70, 60, 50, 700 + long_row
+    A = _sparse_words(rng, (na, W))
+    B = _sparse_words(rng, (nb, W))
+    amap = bmap = None
+    if maps:
+        amap = rng.integers(-1, na, m).astype(np.int32)
+        bmap = rng.integers(-1, nb, n).astype(np.int32)
+        amap[0] = 1               # the long row has an A row
+    rows = rng.integers(0, m if maps else na, E).astype(np.int32)
+    rows[:long_row] = 0
+    if order == "sorted":
+        rows.sort()
+    cols = rng.integers(0, n if maps else nb, E).astype(np.int32)
+    return A, B, amap, bmap, rows, cols, E - E // 20
+
+
+def _torch_case(case, device="cpu"):
+    return tuple(None if x is None else torch.from_numpy(x).to(device)
+                 for x in case[:6]) + (case[6],)
+
+
+def _jax_bitdot(case):
+    A, B, amap, bmap, rows, cols, nvals = case
+    dummy = jnp.zeros((1,), jnp.int32)
+    return np.asarray(jbd._bitdot_jit(
+        1, rows.shape[0], amap is not None, bmap is not None,
+        jnp.asarray(A.view(np.uint32)), jnp.asarray(B.view(np.uint32)),
+        dummy if amap is None else jnp.asarray(amap),
+        dummy if bmap is None else jnp.asarray(bmap),
+        jnp.asarray(rows), jnp.asarray(cols), nvals))
+
+
+def _scatter_back(Bc, nrows, W):
+    ptr = Bc.ptr.long()
+    rows = torch.repeat_interleave(torch.arange(nrows), ptr[1:] - ptr[:-1])
+    dense = torch.zeros((nrows, W), dtype=torch.int32)
+    dense[rows, Bc.widx.long()] = Bc.word
+    return dense, rows
+
+
+@pytest.mark.parametrize("W", [1, 37, 1024])
+def test_compact_rows_scatters_back(W):
+    panel = torch.from_numpy(_sparse_words(np.random.default_rng(W),
+                                           (45, W)))
+    Bc = tbd.compact_rows(panel)
+    assert all(x.dtype == torch.int32 for x in Bc)
+    assert int(Bc.ptr[0]) == 0 and int(Bc.ptr[-1]) == Bc.word.numel()
+    assert Bc.word.numel() == int((panel != 0).sum())
+    assert bool((Bc.word != 0).all())
+    dense, rows = _scatter_back(Bc, 45, W)
+    assert torch.equal(dense, panel)
+    key = rows * W + Bc.widx.long()          # row-major, columns ascending
+    assert bool((key[1:] > key[:-1]).all())
+
+
+def test_compact_rows_of_empty_panel():
+    Bc = tbd.compact_rows(torch.zeros((6, 9), dtype=torch.int32))
+    assert Bc.ptr.tolist() == [0] * 7 and Bc.word.numel() == 0
+
+
+@pytest.mark.parametrize("order", ["random", "sorted"])
+@pytest.mark.parametrize("maps", [False, True])
+@pytest.mark.parametrize("W", [1, 37, 1024])
+def test_compact_plain_matches_dense_plain_and_jax(W, maps, order):
+    """The compacted-B plain version equals the dense plain version and
+    the JAX ``_bitdot_jit`` exactly: maps with -1 rows, unsorted or
+    sorted rowids, entries past nvals."""
+    case = _popcount_case(W, maps, order)
+    args = _torch_case(case)
+    Bc = tbd.compact_rows(args[1])
+    got = tbd._bitdot_popcount_compact_plain(args[0], Bc, *args[2:])
+    dense = tbd._bitdot_popcount_plain(*args)
+    assert got.dtype == torch.int32 and torch.equal(got, dense)
+    assert np.array_equal(got.numpy(), _jax_bitdot(case))
+    assert int(got[case[6]:].abs().sum()) == 0
+    assert int(got.sum()) > 0
+
+
+@pytest.mark.parametrize("seed", [3, 11])
+def test_plan_caches_compacted_level1_b(seed):
+    """The plan's compacted B is its level-1 Bpack's, and the compacted
+    plain version over the power-law graph's mask equals the JAX pass."""
+    (Lt, Ut), (Lj, Uj) = _powerlaw(seed)
+    pt = tbd.build_bitdot_plan(Lt, Lt, Ut, min_lanes=1, cover_target=0.8)
+    pj = jbd.build_bitdot_plan(Lj, Lj, Uj, min_lanes=1, cover_target=0.8)
+    dense, _ = _scatter_back(pt.Bcomp, pt.Bpack.shape[0], pt.W)
+    assert torch.equal(dense, pt.Bpack)
+    lv = pt.levels[0]
+    got = tbd._bitdot_popcount_compact_plain(
+        pt.Apack, pt.Bcomp, lv.amap, lv.bmap, Lt.rowids, Lt.indices,
+        Lt.nvals)
+    want = jbd._bitdot_pass(pj.Apack, pj.Bpack, pj.levels[0].amap,
+                            pj.levels[0].bmap, Lj)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+def test_popcount_wrapper_checks_compacted_rows():
+    A = torch.zeros((4, 8), dtype=torch.int32)
+    r = torch.zeros(5, dtype=torch.int32)
+    Bc = tbd.compact_rows(A)
+    with pytest.raises(ValueError):
+        tbd._check_compact(Bc, 5, A.device)
+    with pytest.raises(TypeError):
+        tbd._check_compact(Bc._replace(word=Bc.word.long()), 4, A.device)
+    # on the CPU the wrapper runs the dense plain version, Bcomp or not
+    assert torch.equal(gt.bitdot_popcount(A, A, None, None, r, r, 5, Bc),
+                       torch.zeros(5, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("seed", [3, 11])
+def test_tricount_and_ktruss_match_jax(seed):
+    (Lt, Ut), (Lj, Uj) = _powerlaw(seed)
+    assert gt.tricount_esc(Lt, Ut) == int(jtri.tricount_esc(Lj, Uj))
+    rng = np.random.default_rng(seed)
+    n = 400
+    I = rng.integers(0, n, 4000)
+    J = rng.integers(0, n, 4000)
+    I, J = gt.symmetrize_pattern(I, J, n)
+    At = gt.csr_from_coo(I, J, np.ones(len(I), bool), n, n, type=gt.BOOL,
+                         sum_duplicates=False, device="cpu")
+    Aj = jsp.CsrMatrix.from_coo(I, J, np.ones(len(I), bool), n, n,
+                                type=gb.BOOL, sum_duplicates=False)
+    Ct, _, st = gt.ktruss_esc(At, 4)
+    Cj, _, sj = jtri.ktruss_esc(Aj, 4)
+    assert (Ct.nvals, st) == (Cj.nvals, sj)
+    assert np.array_equal(Ct.indices[:Ct.nvals].numpy(),
+                          np.asarray(Cj.indices[:Cj.nvals]))
+
+
+_CARD_CASES = ([(W, maps, order, 0) for W in (1, 37, 1024)
+                for maps in (False, True) for order in ("random", "sorted")]
+               + [(1024, True, "sorted", 600), (648, False, "sorted", 1500),
+                  (12000, True, "sorted", 300)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,maps,order,long_row", _CARD_CASES)
+def test_popcount_kernel_on_card(W, maps, order, long_row):
+    """The kernel against both plain versions on the card, exactly: the
+    CPU cases, a mask row longer than one chunk of entries (256), and a
+    row too wide to stage in shared memory (W = 12000); one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from graphblas_tpu_torch import _build
+    args = _torch_case(_popcount_case(W, maps, order, long_row), "cuda")
+    Bc = tbd.compact_rows(args[1])
+    before = _build.launches["bitdot_popcount"]
+    got = gt.bitdot_popcount(*args, Bcomp=Bc)
+    torch.cuda.synchronize()
+    assert _build.launches["bitdot_popcount"] == before + 1
+    assert torch.equal(got, tbd._bitdot_popcount_plain(*args))
+    assert torch.equal(got, tbd._bitdot_popcount_compact_plain(
+        args[0], Bc, *args[2:]))
+    # bare panels: the wrapper compacts B itself
+    assert torch.equal(gt.bitdot_popcount(*args), got)

@@ -260,3 +260,28 @@ def test_window_mm_kernel_on_card():
     assert _build.launches["window_mm"] == before + 1
     assert gt.last_axb_method() == "cuda:window_mm"
     assert torch.equal(got, cw._window_mm_plain(pt.P, pt.Q, pt.M))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nJ", [128, 640])
+@pytest.mark.parametrize("W", [128, 640])
+@pytest.mark.parametrize("nI", [1, 3])
+def test_window_mm_kernel_signed_panels_on_card(nI, W, nJ):
+    """K3's int8 tensor-core tile against its plain version on random
+    signed int8 panels (P, Q and M over the whole int8 range), exact."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from types import SimpleNamespace
+    rng = np.random.default_rng(nI * 1000 + W + nJ)
+
+    def panel(*shape):
+        return torch.from_numpy(rng.integers(-128, 128, shape,
+                                             dtype=np.int8)).cuda()
+
+    plan = SimpleNamespace(P=panel(nI, 128, W), Q=panel(nI, W, nJ),
+                           M=panel(nI, 128, nJ))
+    before = _build.launches["window_mm"]
+    got = gt.window_masked_mm_pallas(plan)
+    torch.cuda.synchronize()
+    assert _build.launches["window_mm"] == before + 1
+    assert torch.equal(got, cw._window_mm_plain(plan.P, plan.Q, plan.M))

@@ -351,8 +351,14 @@ def test_narrow_slab_raises_on_card(graph, monkeypatch):
     gather-dot wrapper; it never runs the plain pass."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    (Lj, Uj, Mj), _ = _lum(graph, np.float32, "FP32")
-    Lt, Ut, Mt = (convert.from_jax(x, device="cuda") for x in (Lj, Uj, Mj))
+    # _lum's L, U, M (the same value draws), built on the card directly
+    r, I, J, n, lo = graph
+    k = int(lo.sum())
+    Lt, Ut, Mt = (gt.csr_from_coo(a, b, _vals(r, k, np.float32), n, n,
+                                  type=gt.FP32, sum_duplicates=False,
+                                  device="cuda")
+                  for a, b in ((I[lo], J[lo]), (J[lo], I[lo]),
+                               (I[lo], J[lo])))
     sr = gt.semiring.plus_times[gt.FP32]
     plan = _narrow_plan(Lt, Ut, Mt, sr, monkeypatch)
     before = dict(_build.launches)

@@ -32,11 +32,14 @@ uncaught exception and a nonzero exit):
    per row, runs of one A row), two bounds (for the compacted inputs,
    and the dense-row bound of the earlier design) and the compaction's
    own time apart;
-8. the gather-dot kernel (valdot, K4) against its plain version on
+8. the gather-dot kernels (valdot, K4) against their plain versions on
    random panels (S = 1024 and 4096, float32 and int32, padded lane
    lists with nlive < E and a -1 index): int32 exactly, float32 against
    a float64 plain result within the reassociation bound
-   S * 2^-24 * sum_s |a_s * b_s| per lane;
+   S * 2^-24 * sum_s |a_s * b_s| per lane; the dense kernel on dense
+   panels, the compacted kernel (``valdot_gatherdot_rows``) on sparse
+   panels' compacted rows at S = 1024, 4096 and 16384 (wider than its
+   staged row) with lanes sorted from 20 or 2,000 rows or unsorted;
 9. the masked valued product on R-MAT 16 and 18 with bench.py's value
    recipe (values for L, then U, then the mask M on L's pattern, from
    ``default_rng(3)``): ``mxm(C0, M, None, "plus_times", L, U)`` with an
@@ -44,11 +47,15 @@ uncaught exception and a nonzero exit):
    ``valdot:*`` at scale 18, and equals the ESC-only engine
    (``Descriptor(axb_method="gustavson")``): the pattern exactly, values
    within rtol=5e-5, atol=1e-4;
-10. the gather-dot kernel at the main path's shapes (the first level of
-   the R-MAT 18 plan) against its plain version and one library call
-   for the same function (``torch.sparse.sampled_addmm`` over the live
-   pairs, timed only here), its ns per live lane, and the ESC residual's
-   ns per lane;
+10. both gather-dot kernels at the main path's shapes (slab 0 of the
+   R-MAT 18 plan: the compacted rows the plan cached, and the dense
+   panels packed here) against their plain versions and one library
+   call for the same function (``torch.sparse.sampled_addmm`` over the
+   live pairs, timed only here), with two bounds (for the compacted
+   inputs, and the dense bound of the earlier design), the slab's
+   structure and the compaction's time, the ESC residual's ns per lane,
+   and the warm R-MAT 18 ``mxm`` split into stages (it must launch the
+   compacted kernel);
 11. the BSR SpMV kernel (K5) against its plain version at the Wathen
    nx=ny=256 plan (15,425 tiles): per row within K * 2^-24 *
    sum_c |a_rc * x_c| of the float64 product (K: the row's term count),
@@ -87,8 +94,10 @@ uncaught exception and a nonzero exit):
    on the Wathen 128 window plan, whose panels sum to 884,992;
 17. the BSR tile-triple kernel (K7) against its plain version: counting
    at the Wathen 128 schedule (M = A = L, B = Uᵀ from COO tiles; 5,151
-   triples) exactly; values at Wathen 64 with bench.py's values (L, then
-   U, from ``default_rng(3)``) within K * 2^-24 * sum |a * b| per entry
+   triples) exactly, timed there in turns with its plain version and the
+   gathered-tile float16 ``torch.bmm`` + ``index_add_``; values at Wathen
+   64 with bench.py's values (L, then U, from ``default_rng(3)``) within
+   K * 2^-24 * sum |a * b| per entry
    of the float64 plain result (K = 128 * the output's triple count),
    and once more with one +inf value (NaN where NaN, the same infinities,
    the rest within the bound); then timed at Wathen 384 (52,820 triples)
@@ -119,11 +128,12 @@ uncaught exception and a nonzero exit):
 
 Launch counters are zeroed just before each path and read just after
 it: before phase 3 and after phase 9 (triangle counting and ``mxm``:
-the first four kernels), before phase 12 and after phase 13 (SpMV: K5),
-before and after phase 16 (the bitmap ``mxm`` path: K6 and K3), before
-and after phase 19 (the tile engine, k-truss and the probes: K7, the
-popcount pass and both probe kernels); every kernel of a path must have
-launched there.  The line before the
+the first three kernels and the compacted gather-dot), before phase 12
+and after phase 13 (SpMV: K5), before and after phase 16 (the bitmap
+``mxm`` path: K6 and K3), before and after phase 19 (the tile engine,
+k-truss and the probes: K7, the popcount pass, both probe kernels and
+the dense gather-dot, which the gather-dot probe times); every kernel of
+a path must have launched there.  The line before the
 last is the per-kernel JSON summary, with each kernel's bound (the
 larger of its compulsory bytes over 3.35 TB/s and its operations over
 the card's peak for their type); the last line is
@@ -152,11 +162,12 @@ RMAT18_BFS_LEVELS = {0: 88_501, 1: 1, 2: 25_261, 3: 140_309, 4: 8_041,
 RMAT18_PAGERANK_TOP10 = [0, 32, 16384, 1024, 512, 2048, 2, 16, 8192, 4]
 # the kernels each path must launch
 MXM_PATH = ("tri_band_ring", "window_count", "bitdot_popcount",
-            "valdot_gatherdot")
+            "valdot_gatherdot_rows")
 SPMV_PATH = ("bsr_spmv",)
 BITMAP_PATH = ("tropical_mm", "window_mm")
+# the gather-dot probe's run() times the dense gather-dot kernel
 BSR_PATH = ("bsr_masked_mm", "bitdot_popcount", "row_gather",
-            "gatherdot_async")
+            "gatherdot_async", "valdot_gatherdot")
 # k-truss of the symmetrized R-MAT graphs (ef 16, seed 7): scale -> (k,
 # undirected edges = half the truss's entries, sweeps), ROADMAP.md anchors
 KTRUSS_ANCHORS = {16: (5, 726_973, 10), 18: (10, 2_292_950, 13)}
@@ -373,6 +384,36 @@ def random_gatherdot_case(rng, S: int, dtype):
     ai = torch.from_numpy(rng.integers(-1, na, E).astype(np.int32))
     bj = torch.from_numpy(rng.integers(0, nb, E).astype(np.int32))
     return tuple(x.to("cuda") for x in (Av, Bv, ai, bj)) + (nlive,)
+
+
+def random_rows_case(rng, S: int, dtype, runs):
+    """Sparse random panels (rows about 0-6 % full, the first three
+    empty) with their compacted rows, and a padded lane list for the
+    compacted gather-dot kernel: E lanes, nlive < E, some -1 indices; A
+    rows drawn from ``runs`` rows and sorted (runs of about E / runs
+    lanes), or unsorted (runs of one) when ``runs`` is None."""
+    from graphblas_tpu_torch.sparse import valdot as vd
+    na, nb, E = 3000, 2500, 200_000
+    nlive = E - E // 20 + 1
+
+    def panel(n):
+        if dtype == torch.float32:
+            P = rng.random((n, S), np.float32) - 0.5
+        else:
+            P = rng.integers(-2**31, 2**31, (n, S),
+                             dtype=np.int64).astype(np.int32)
+        P[rng.random((n, S)) >= rng.random((n, 1)) * 0.06] = 0
+        P[:3] = 0
+        return torch.from_numpy(P).to("cuda")
+
+    Av, Bv = panel(na), panel(nb)
+    ai = rng.integers(-1, runs or na, E).astype(np.int32)
+    if runs:
+        ai.sort()
+    bj = rng.integers(-1, nb, E).astype(np.int32)
+    return (Av, Bv, vd.compact_panel(Av), vd.compact_panel(Bv),
+            torch.from_numpy(ai).to("cuda"), torch.from_numpy(bj).to("cuda"),
+            nlive)
 
 
 def random_popcount_case(rng, W: int, maps: bool, runs: int = 0):
@@ -610,6 +651,26 @@ def main() -> None:
                   f"(max_abs_err {err}) on {args[2].numel()} lanes, "
                   f"nlive {args[-1]}")
     del args
+    # the compacted gather-dot kernel: staged A rows (sorted lanes), and
+    # searched A rows (unsorted lanes; every lane at S = 16384)
+    for S in (1024, 4096, 16384):
+        for dt in (torch.float32, torch.int32):
+            for runs in (20, 2000, None):
+                Av, Bv, Ar, Br, ai, bj, nlive = random_rows_case(rng, S, dt,
+                                                                 runs)
+                got = gt.valdot_gatherdot_rows(Ar, Br, ai, bj, nlive, S)
+                err = check_gatherdot(got, Av, Bv, ai, bj, nlive)
+                if dt == torch.int32:
+                    err = max(err, max_abs_err(got, vd._gatherdot_rows_plain(
+                        Ar, Br, ai, bj, nlive, S)))
+                    assert err == 0, f"compacted K4 int32 differs by {err}"
+                sync()
+                print(f"{tag} phase8 valdot_gatherdot_rows S={S} {dt} "
+                      f"{'sorted from %d rows' % runs if runs else 'unsorted'}"
+                      f": {'exact' if dt == torch.int32 else 'within bound'} "
+                      f"(max_abs_err {err}) on {ai.numel()} lanes, nlive "
+                      f"{nlive}, {Ar.val.numel()} + {Br.val.numel()} entries")
+    del Av, Bv, Ar, Br, ai, bj
 
     # ---- main path: 3-6, counted ----
     _build.reset_launches()
@@ -700,7 +761,7 @@ def main() -> None:
         C0 = gt.CsrMatrix.from_coo(e, e, np.zeros(0, np.float32), n, n,
                                    type=gt.FP32, device="cuda")
         torch.cuda.reset_peak_memory_stats()
-        before = _build.launches["valdot_gatherdot"]
+        before = _build.launches["valdot_gatherdot_rows"]
         C, first = timed(lambda: gt.mxm(C0, Mv, None, "plus_times", Lv, Uv))
         engine = gt.last_axb_method()
         C2, warm = timed(lambda: gt.mxm(C0, Mv, None, "plus_times", Lv,
@@ -713,7 +774,7 @@ def main() -> None:
         plan = vd.cached_plan(Mv, Lv, Uv, sr)
         if engine.startswith("valdot:"):
             assert plan is not None, f"R-MAT {scale}: {engine} left no plan"
-            assert _build.launches["valdot_gatherdot"] > before, \
+            assert _build.launches["valdot_gatherdot_rows"] > before, \
                 f"R-MAT {scale} ran {engine} without the gather-dot kernel"
         Ce, esc_first = timed(lambda: gt.mxm(
             C0, Mv, None, "plus_times", Lv, Uv,
@@ -816,18 +877,25 @@ def main() -> None:
     del ii, jj, ok, nzA, nzB, run_len, ua, ub
     sync()
 
-    # ---- 10. the gather-dot kernel at the main path's shapes ----
+    # ---- 10. the gather-dot kernels at the main path's shapes ----
     Lv, Uv, Mv, C0, plan = valued[18]
+    ncached = sum(v.rows is not None for v in plan.levels)
+    assert ncached == len(plan.levels), "the plan did not cache every slab"
     lv = plan.levels[0]
+    S, nlive = lv.S, lv.nlive
+    Ar, Br = lv.rows
+    # the dense panels of the slab, packed here for the dense kernel and
+    # the library call (the main path builds none)
     Av, Bv, _, _ = vd._pack_level(lv, bits=False)
-    args = (Av, Bv, lv.live_ai, lv.live_bj, lv.nlive)
+    args = (Av, Bv, lv.live_ai, lv.live_bj, nlive)
+    rargs = (Ar, Br, lv.live_ai, lv.live_bj, nlive, S)
     err = check_gatherdot(gt.valdot_gatherdot(*args), *args)
+    rerr = check_gatherdot(gt.valdot_gatherdot_rows(*rargs), *args)
     # the library call for the same function: cuSPARSE's sampled dense
     # product (SDDMM) over the live (ai, bj) pairs as a CSR pattern.  The
     # live lanes are mask entries in CSR order and the row maps are
     # monotone and one-to-one, so the pairs are row-sorted and unique and
     # the CSR values come out in lane order.
-    S, nlive = Av.shape[1], lv.nlive
     ai, bj = lv.live_ai[:nlive].long(), lv.live_bj[:nlive].long()
     key = ai * Bv.shape[0] + bj
     assert bool((ai >= 0).all() and (bj >= 0).all()
@@ -847,39 +915,94 @@ def main() -> None:
     lib_err = check_gatherdot(lib_out, *args)
     ms, pms, lms = turns(lambda: gt.valdot_gatherdot(*args),
                          lambda: vd._gatherdot_plain(*args), 10, 2, library)
+    # the compacted kernel in turns with its plain version, and the dense
+    # kernel again inside the same turns
+    rms, rpms, dms = turns(lambda: gt.valdot_gatherdot_rows(*rargs),
+                           lambda: vd._gatherdot_rows_plain(*rargs), 10, 2,
+                           lambda: gt.valdot_gatherdot(*args))
+    comp_ms = cuda_ms(lambda: vd.compact_level(lv._replace(rows=None)), 5)
+    comp_all_ms = cuda_ms(lambda: [vd.compact_level(v._replace(rows=None))
+                                   for v in plan.levels], 2)
     summary["valdot_gatherdot"] = (err, ms, pms)
-    library_ms = {"valdot_gatherdot": lms}
-    bounds["valdot_gatherdot"] = bound(
-        (distinct(lv.live_ai[:nlive]) + distinct(lv.live_bj[:nlive])) * S
-        * 4 + nlive * 12, 2 * S * nlive, CUDA32_OPS)
+    summary["valdot_gatherdot_rows"] = (rerr, rms, rpms)
+    library_ms = {"valdot_gatherdot": lms, "valdot_gatherdot_rows": lms}
+    dense_bound = bound(
+        (distinct(ai) + distinct(bj)) * S * 4 + nlive * 12, 2 * S * nlive,
+        CUDA32_OPS)
+    bounds["valdot_gatherdot"] = dense_bound
+    # the restated bound, for the work the compacted inputs define: each
+    # distinct row's (slot, value) pairs once (8 B each), 12 B per lane;
+    # a multiply and an add per (lane, B entry)
+    lenA = (Ar.ptr[1:] - Ar.ptr[:-1]).long()
+    lenB = (Br.ptr[1:] - Br.ptr[:-1]).long()
+    ua, ub = torch.unique(ai), torch.unique(bj)
+    pairs = int(lenB[bj].sum())
+    bounds["valdot_gatherdot_rows"] = bound(
+        8 * int(lenA[ua].sum() + lenB[ub].sum()) + nlive * 12, 2 * pairs,
+        CUDA32_OPS)
+    _, run_len = torch.unique_consecutive(ai, return_counts=True)
+    extra_of["valdot_gatherdot_rows"] = {
+        "dense_bound_ms": dense_bound[0], "dense_bound_by": dense_bound[1],
+        "dense_kernel_ms": dms, "compaction_ms": comp_ms,
+        "compaction_all_slabs_ms": comp_all_ms}
     model_ns = (2 * vd._ISSUE_NS + S * 8 / vd._STREAM_BW) * 1e9
     resid = (lambda: esc_mod.csr_spgemm(sr, plan.A_light, Uv, mask=Mv))
     resid_ms = cuda_ms(resid, 3)
-    print(f"{tag} phase10 valdot_gatherdot at R-MAT 18 level 1 (Av "
-          f"{tuple(Av.shape)}, Bv {tuple(Bv.shape)}, nlive {nlive}): "
-          f"max_abs_err {err} (within bound); kernel {ms:.4f} ms, plain "
-          f"{pms:.4f} ms, sampled_addmm {lms:.4f} ms (max_abs_err "
-          f"{lib_err}, within bound), "
-          f"bound {bounds['valdot_gatherdot'][0]:.4f} ms "
-          f"({bounds['valdot_gatherdot'][1]}); {ms * 1e6 / nlive:.3f} ns "
-          f"per live lane (cost model {model_ns:.1f}); ESC residual "
+    rb = bounds["valdot_gatherdot_rows"]
+    print(f"{tag} phase10 gather-dot at R-MAT 18 slab 0 (S {S}, panel rows "
+          f"{lv.na} x {lv.nb}, nlive {nlive}): compacted kernel "
+          f"(valdot_gatherdot_rows) max_abs_err {rerr}, dense kernel "
+          f"max_abs_err {err}, sampled_addmm max_abs_err {lib_err} (all "
+          f"within bound); compacted {rms:.4f} ms (plain {rpms:.4f}) with "
+          f"the dense kernel {dms:.4f} in its turns; dense {ms:.4f} ms "
+          f"(plain {pms:.4f}), sampled_addmm {lms:.4f} ms in theirs; bound "
+          f"for the compacted inputs {rb[0]:.6f} ms ({rb[1]}), dense bound "
+          f"{dense_bound[0]:.4f} ms ({dense_bound[1]}); compaction "
+          f"{comp_ms:.4f} ms for the slab, {comp_all_ms:.4f} ms for all "
+          f"{len(plan.levels)} slabs (once per plan); {rms * 1e6 / nlive:.3f}"
+          f" ns per live lane (cost model {model_ns:.1f}); ESC residual "
           f"{resid_ms:.4f} ms for {plan.light_lanes} lanes, "
           f"{resid_ms * 1e6 / max(plan.light_lanes, 1):.3f} ns per lane "
           f"(cost model {vd._ESC_NS * 1e9:.1f})")
-    # where the warm R-MAT 18 mxm goes: every slab's gather-dot, the
-    # slab pass with its merges, the whole engine (+ the residual and
-    # the combine), and the whole mxm (+ the accum/mask epilogue)
-    k4_all = cuda_ms(lambda: [gt.valdot_gatherdot(
+    wa = float(lenA[ai].double().mean())
+    wb = float(lenB[bj].double().mean())
+    print(f"{tag} phase10 slab 0 inputs: {Ar.val.numel()} + "
+          f"{Br.val.numel()} panel entries ({Ar.val.numel() / (lv.na * S):.4f}"
+          f" / {Br.val.numel() / (lv.nb * S):.4f} of the panels); distinct "
+          f"rows A {ua.numel()}, B {ub.numel()}; sum over lanes of nnz(B "
+          f"row) {pairs}; lane-weighted nnz A {wa:.1f}, B {wb:.1f}; runs "
+          f"of one A row {run_len.numel()}, mean "
+          f"{nlive / run_len.numel():.1f} lanes")
+    del Av, Bv, BvT, pattern, lib_out, ai, bj, key, crow, lenA, lenB, ua, ub
+    # where the warm R-MAT 18 mxm goes: every slab's compacted gather-dot
+    # (no per-call packing: the plan caches every slab's rows), the dense
+    # design it replaced (with its per-call pack, and the pack alone), the
+    # slab pass with its merges, the whole engine (+ the residual and the
+    # combine), and the whole mxm (+ the accum/mask epilogue)
+    live = [v for v in plan.levels if v.nlive]
+    k4_all = cuda_ms(lambda: [gt.valdot_gatherdot_rows(
+        *v.rows, v.live_ai, v.live_bj, v.nlive, v.S) for v in live], 3)
+    k4_dense_all = cuda_ms(lambda: [gt.valdot_gatherdot(
         *vd._pack_level(v, bits=False)[:2], v.live_ai, v.live_bj, v.nlive)
-        for v in plan.levels], 3)
+        for v in live], 3)
+    pack_all = cuda_ms(lambda: [vd._pack_level(v, bits=False)
+                                for v in live], 3)
     heavy = cuda_ms(lambda: vd._valdot_heavy(plan, sr, Mv), 3)
     engine = cuda_ms(lambda: vd.valdot_masked_spgemm(sr, Lv, Uv, Mv), 3)
+    before = _build.launches["valdot_gatherdot_rows"]
     whole = cuda_ms(lambda: gt.mxm(C0, Mv, None, "plus_times", Lv, Uv), 3)
+    # warm-up and three timed calls, one launch per live slab each
+    assert (_build.launches["valdot_gatherdot_rows"] - before
+            == 4 * len(live)), "the warm mxm did not launch the compacted K4"
     print(f"{tag} phase10 R-MAT 18 warm mxm breakdown (CUDA events, ms): "
-          f"gather-dot over {len(plan.levels)} slabs {k4_all:.4f}; slab "
-          f"pass with merges {heavy:.4f}; residual ESC {resid_ms:.4f}; "
-          f"combine {engine - heavy - resid_ms:.4f}; valdot engine "
-          f"{engine:.4f}; epilogue {whole - engine:.4f}; mxm {whole:.4f}")
+          f"compacted gather-dot over {len(live)} slabs {k4_all:.4f} "
+          f"(kernel only; per-call packing none: {ncached} of "
+          f"{len(plan.levels)} slabs' rows cached, {plan.panel_bytes} B); "
+          f"the dense kernel with its per-call pack {k4_dense_all:.4f} (the "
+          f"pack alone {pack_all:.4f}); slab pass with merges {heavy:.4f}; "
+          f"residual ESC {resid_ms:.4f}; combine "
+          f"{engine - heavy - resid_ms:.4f}; valdot engine {engine:.4f}; "
+          f"epilogue {whole - engine:.4f}; mxm {whole:.4f}")
     sync()
 
     # ---- 11. the BSR SpMV kernel (K5) at the Wathen 256 plan ----
@@ -1229,18 +1352,53 @@ def main() -> None:
     # ---- 17. the BSR tile-triple kernel (K7) against its plain version ----
     from graphblas_tpu_torch.sparse import bsr as bsr_mod
     from graphblas_tpu_torch.sparse import cuda_bsr as tcb
-    Lt, Bt, _, _, _ = wathen_tiles(gt, 128)
-    args, sched = k7_schedule(tcb, Lt, Lt, Bt)
-    got = tcb.bsr_tiles_mm(*args, Lt.tiles, Bt.tiles, Lt.tiles, torch.int32)
-    k7_err = max_abs_err(got, tcb._bsr_mm_plain(*args, Lt.tiles, Bt.tiles,
-                                                Lt.tiles, torch.int32))
-    assert k7_err == 0, \
-        f"K7 counting differs from its plain version by {k7_err}"
+
+    def k7_timed(nx, reps):
+        """K7's counting form at the Wathen nx schedule (M = A = L, B =
+        Uᵀ from COO tiles): exact against its plain version, equal to the
+        gathered float16 bmm + index_add_ (unmasked, the library
+        formulation; timed only here) once masked, and timed in turns with
+        both.  Returns (the counts, tiles of L, the numpy schedule,
+        kernel_ms, plain_ms, library_ms)."""
+        Lt, Bt, _, _, _ = wathen_tiles(gt, nx)
+        args, sched = k7_schedule(tcb, Lt, Lt, Bt)
+        nout = len(sched[3])
+        counts = torch.from_numpy(np.diff(sched[0]).astype(np.int64)).cuda()
+        oid = torch.repeat_interleave(torch.arange(nout, device="cuda"),
+                                      counts)
+        ta_l, tb_l = args[1].long(), args[2].long()
+
+        def k7():
+            return tcb.bsr_tiles_mm(*args, Lt.tiles, Bt.tiles, Lt.tiles,
+                                    torch.int32)
+
+        def k7_library():
+            return bsr_mod._product_counts(Lt.tiles, Bt.tiles, ta_l, tb_l,
+                                           oid, nout)
+
+        def k7_plain():
+            return tcb._bsr_mm_plain(*args, Lt.tiles, Bt.tiles, Lt.tiles,
+                                     torch.int32)
+
+        got = k7()
+        err = max_abs_err(got, k7_plain())
+        assert err == 0, f"K7 counting differs from its plain version by {err}"
+        masked = k7_library() * (Lt.tiles[args[3].long()] != 0)
+        assert torch.equal(masked, got), "float16 bmm (masked) != K7"
+        del masked
+        ms, pms, lms = turns(k7, k7_plain, reps, 2, k7_library)
+        return got, Lt, Bt, args, sched, ms, pms, lms
+
+    got, Lt, _, _, sched, ms, pms, lms = k7_timed(128, 50)
     assert int(got.sum(dtype=torch.int64)) == WATHEN_128_NTRI
+    b128 = k7_bound(sched, 1, 4, a_is_m=True)
     sync()
     print(f"{tag} phase17 bsr_masked_mm counting at Wathen 128 ({Lt.ntiles} "
           f"L tiles, {len(sched[1])} triples, kmax {sched[4]}): exact, "
-          f"sum {WATHEN_128_NTRI}")
+          f"sum {WATHEN_128_NTRI}; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+          f"float16 bmm + index_add_ {lms:.4f} ms, bound {b128[0]:.4f} ms "
+          f"({b128[1]})")
+    del got, Lt
     # values at Wathen 64: bench.py's values, L then U
     Lt64, _, iu, ju, n64 = wathen_tiles(gt, 64)
     lo, up = iu > ju, iu < ju
@@ -1286,35 +1444,10 @@ def main() -> None:
           f"(max_abs_err {ierr})")
     del Av, Bv, ainf, gi, Lt64
     # timing at Wathen 384 (the phase-4 graph)
-    Lt, Bt, _, _, _ = wathen_tiles(gt, 384)
-    args, sched = k7_schedule(tcb, Lt, Lt, Bt)
+    got, Lt, Bt, args, sched, ms, pms, lms = k7_timed(384, 20)
     nout = len(sched[3])
-    counts = torch.from_numpy(np.diff(sched[0]).astype(np.int64)).cuda()
-    oid = torch.repeat_interleave(torch.arange(nout, device="cuda"), counts)
-    ta_l, tb_l = args[1].long(), args[2].long()
-
-    def k7():
-        return tcb.bsr_tiles_mm(*args, Lt.tiles, Bt.tiles, Lt.tiles,
-                                torch.int32)
-
-    def k7_library():
-        return bsr_mod._product_counts(Lt.tiles, Bt.tiles, ta_l, tb_l, oid,
-                                       nout)
-
-    def k7_plain():
-        return tcb._bsr_mm_plain(*args, Lt.tiles, Bt.tiles, Lt.tiles,
-                                 torch.int32)
-
-    got = k7()
     assert int(got.sum(dtype=torch.int64)) == ntri384
-    k7_err = max(k7_err, max_abs_err(got, k7_plain()))
-    assert k7_err == 0, \
-        f"K7 counting differs from its plain version by {k7_err}"
-    masked = k7_library() * (Lt.tiles[args[3].long()] != 0)
-    assert torch.equal(masked, got), "float16 bmm (masked) != K7"
-    del masked
-    ms, pms, lms = turns(k7, k7_plain, 20, 2, k7_library)
-    summary["bsr_masked_mm"] = (k7_err, ms, pms)
+    summary["bsr_masked_mm"] = (0, ms, pms)   # exact at both schedules
     library_ms["bsr_masked_mm"] = lms
     # A and M are one stack here (L's tiles): each is read once
     bounds["bsr_masked_mm"] = k7_bound(sched, 1, 4, a_is_m=True)
@@ -1338,7 +1471,7 @@ def main() -> None:
           f"float32 tiles, equal to the counts): kernel {fms:.4f} ms, bound "
           f"{fbound[0]:.4f} ms ({fbound[1]}, float32 FMAs at "
           f"{CUDA32_OPS / 1e12:.0f} T/s)")
-    del Lt, Bt, Af, Bf, args, got, oid
+    del Lt, Bt, Af, Bf, args, got
     sync()
 
     # ---- 18. the probes' kernels against their plain versions ----
@@ -1518,6 +1651,8 @@ def main() -> None:
                          "graphblas_tpu/sparse/pallas_window.py:63"),
         "bitdot_popcount": ("graphblas_tpu_torch/csrc/bitdot.cu",
                             "graphblas_tpu/sparse/bitdot.py:401"),
+        "valdot_gatherdot_rows": ("graphblas_tpu_torch/csrc/valdot.cu",
+                                  "graphblas_tpu/sparse/valdot.py:481"),
         "valdot_gatherdot": ("graphblas_tpu_torch/csrc/valdot.cu",
                              "graphblas_tpu/sparse/valdot.py:481"),
         "bsr_spmv": ("graphblas_tpu_torch/csrc/spmv.cu",

@@ -12,7 +12,8 @@ and imports no JAX.  Four slices so far:
 * the masked valued product ``mxm(C, M, None, semiring, A, B)`` on CSR
   containers for any builtin semiring (the algebra in :mod:`core`, the
   ESC engine, the sparse accum/mask epilogue, and the value-panel engine
-  :mod:`sparse.valdot` with its hand-written gather-dot kernel);
+  :mod:`sparse.valdot` with its hand-written gather-dot kernels, over
+  dense panels and over compacted panel rows);
 * SpMV: ``mxv``/``vxm`` on ``Vector`` outputs with CSR, CSC or bitmap
   matrices (:mod:`sparse.spmv`, the BSR tile kernel of
   :mod:`sparse.cuda_spmv`) and the whole-loop ``bfs_csr`` /

@@ -48,6 +48,10 @@ _SIGNATURES = {
                         _L, _L, _I, _I, _I, _I, _I, _P),
     # Av, Bv, ai, bj, out, nlive, na, nb, S, is_int, stream
     "valdot_gatherdot": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
+    # aptr, aslot, aval, bptr, bslot, bval, ai, bj, out, E, nlive, na, nb,
+    # S, is_int, stream
+    "valdot_gatherdot_rows": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L,
+                              _I, _I, _I, _I, _P),
     # rbptr, cb, slot, valid, tiles, x, y, nrb, stream
     "bsr_spmv": (_P, _P, _P, _P, _P, _P, _P, _I, _P),
     # P, Q, M, out, nI, W, nJ, stream

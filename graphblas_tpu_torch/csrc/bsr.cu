@@ -11,12 +11,11 @@
 // (output tile, K-slot) grid padded to the longest output's slot count, with
 // the schedule scalar-prefetched so the pipeline could DMA the next A and B
 // tiles, and carried the accumulator in its revisited VMEM output block.
-// Here one CUDA block owns one 64-column half of an output tile, reads its
-// own schedule entries and loops over its own K-slots only (no padded
-// steps), keeps the accumulator in registers across the loop, multiplies it
-// by the mask once and stores it once: no atomics, nothing carried between
-// blocks.  The mask is read through its slot, so the caller passes M's own
-// tiles rather than a gathered copy.
+// Here each CUDA block reads its own schedule entries and loops over its
+// own K-slots only (no padded steps), keeps the accumulator in registers
+// across the loop, masks it once and stores it once: no atomics, nothing
+// carried between blocks.  The mask is read through its slot, so the
+// caller passes M's own tiles rather than a gathered copy.
 //
 // What bounds it on the card: bytes, on the graphs it runs on (a few tile
 // triples per output).  Each output tile is written as 64 KB of int32 or
@@ -24,50 +23,72 @@
 // the int8 multiply-accumulates (2 * 128^3 operations per triple) sit far
 // below the tensor cores' 1,979 TOP/s.
 //
-// What this simple design does about it: the counting form runs the __dp4a
-// tile product that K1-K3 share (dp4a_tile.cuh), with B's tile staged as
-// A's is (k contiguous: the A.B^T form); the values form is a register-
-// blocked float32 tile, 8x4 outputs per thread, k staged 16 at a time
-// through shared memory.  Tensor cores, TMA and pipelining are later work.
+// What the design does about it.  The counting form: one block of 256
+// threads owns a whole 128x128 output tile and runs the int8 tensor-core
+// tile (mma_s8_tile.cuh, mma.sync m16n8k32) in its A.B^T form: both tiles
+// are k contiguous, the native layout of the mma's row.col operands, so
+// no byte transpose is needed.  One three-stage cp.async ring of 64-k
+// stages runs across the output's triples (two stages per triple), so it
+// does not drain between them; the epilogue pairs lanes with one shuffle
+// and masks four outputs per 4-byte mask read and 16-byte store.  Sums are
+// exact: each product is at most 2^14 in magnitude and K = 128 * triples.
+// The values form: a register-blocked float32 tile, one block per 64-
+// column half of the output tile, 8x4 outputs per thread, k staged 16 at
+// a time through shared memory; TF32 is never used.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "dp4a_tile.cuh"  // T, TN, NT and tile_accumulate
+#include "mma_s8_tile.cuh"  // mma_s8::tile_accumulate_nt
 
 namespace {
 
+constexpr int T = 128;         // tile rows and columns
+constexpr int TN = 64;         // output columns per block (values form)
+constexpr int NT = 256;        // threads per block
 constexpr int BK = 16;         // float32 k per shared-memory stage
 
-// Grid (nout, 2): output tile o, column half h (output columns h*64 + c are
-// rows h*64 + c of each B tile).
-__global__ void __launch_bounds__(NT)
+// Grid nout: output tile o, the sum over its triples of A[ta[s]] .
+// B[tb[s]]^T, kept where the mask tile's byte is nonzero.
+__global__ void __launch_bounds__(mma_s8::NT, 2)
 bsr_count_kernel(const int* __restrict__ starts, const int* __restrict__ ta,
                  const int* __restrict__ tb, const int* __restrict__ mslot,
                  const int8_t* __restrict__ A, const int8_t* __restrict__ B,
                  const int8_t* __restrict__ M, int* __restrict__ out) {
+  extern __shared__ __align__(16) uint32_t mm_smem[];
   const long o = blockIdx.x;
-  const int h = blockIdx.y;
-  int acc[8][4];
+  const int s0 = starts[o];
+  int acc[2][8][4];
+  const auto pair = [&](int i, const int8_t*& a, const int8_t*& b) {
+    a = A + (long)ta[s0 + i] * T * T;
+    b = B + (long)tb[s0 + i] * T * T;
+  };
+  mma_s8::tile_accumulate_nt(pair, starts[o + 1] - s0, T, T, mm_smem, acc);
+  // lane pairs (tq, tq^1) swap halves: the even lane then holds row g's
+  // four columns 8*ni + 2*tq .. +3, the odd lane row g+8's four columns
+  // 8*ni + 2*(tq-1) .. +3 (as in window.cu's K3 epilogue)
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const bool odd = tq & 1;
+  const int8_t* Mo = M + (long)mslot[o] * T * T;
+  int* Co = out + o * T * T;
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-  const int s1 = starts[o + 1];
-  for (int s = starts[o]; s < s1; ++s) {
-    tile_accumulate<false>(A + (long)ta[s] * T * T, T,
-                           B + (long)tb[s] * T * T + (long)h * TN * T, T, T,
-                           acc);
-  }
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int8_t* Mo = M + (long)mslot[o] * T * T + h * TN;
-  int* Co = out + o * T * T + h * TN;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int e = (ty + 16 * i) * T + tx + 16 * j;
-      Co[e] = Mo[e] != 0 ? acc[i][j] : 0;
+    for (int ni = 0; ni < 8; ++ni) {
+      const int* c = acc[mi][ni];
+      const int x0 = __shfl_xor_sync(0xffffffffu, odd ? c[0] : c[2], 1);
+      const int x1 = __shfl_xor_sync(0xffffffffu, odd ? c[1] : c[3], 1);
+      int4 v = odd ? make_int4(x0, x1, c[2], c[3])
+                   : make_int4(c[0], c[1], x0, x1);
+      const int e = (32 * (warp & 3) + 16 * mi + g + (odd ? 8 : 0)) * T
+                    + 64 * (warp >> 2) + 8 * ni + 4 * (tq >> 1);
+      const uint32_t m = *reinterpret_cast<const uint32_t*>(Mo + e);
+      if (!(m & 0xffu)) v.x = 0;
+      if (!(m & 0xff00u)) v.y = 0;
+      if (!(m & 0xff0000u)) v.z = 0;
+      if (!(m & 0xff000000u)) v.w = 0;
+      *reinterpret_cast<int4*>(Co + e) = v;
     }
 }
 
@@ -149,7 +170,8 @@ bsr_f32_kernel(const int* __restrict__ starts, const int* __restrict__ ta,
 // starts (nout+1,), ta, tb (starts[nout],), mslot (nout,): int32 schedule.
 // A, B: stacked int8 (is_float 0) or float32 (is_float 1) tiles; M: stacked
 // int8 mask tiles; out (nout, T, T) int32 or float32, every element written.
-// More than 2^31 - 1 output tiles returns cudaErrorInvalidValue unlaunched.
+// Every base pointer 16-byte aligned.  More than 2^31 - 1 output tiles
+// returns cudaErrorInvalidValue unlaunched.
 extern "C" int gb_bsr_masked_mm(const void* starts, const void* ta,
                                 const void* tb, const void* mslot,
                                 const void* A, const void* B, const void* M,
@@ -157,15 +179,18 @@ extern "C" int gb_bsr_masked_mm(const void* starts, const void* ta,
                                 void* stream) {
   if (nout < 0) return (int)cudaErrorInvalidValue;
   if (nout > 0) {
-    const dim3 grid(nout, T / TN);
     cudaStream_t s = (cudaStream_t)stream;
     if (is_float) {
-      bsr_f32_kernel<<<grid, NT, 0, s>>>(
+      bsr_f32_kernel<<<dim3(nout, T / TN), NT, 0, s>>>(
           (const int*)starts, (const int*)ta, (const int*)tb,
           (const int*)mslot, (const float*)A, (const float*)B,
           (const int8_t*)M, (float*)out);
     } else {
-      bsr_count_kernel<<<grid, NT, 0, s>>>(
+      const cudaError_t rc = cudaFuncSetAttribute(
+          bsr_count_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          mma_s8::SMEM_NT_BYTES);
+      if (rc != cudaSuccess) return (int)rc;
+      bsr_count_kernel<<<nout, mma_s8::NT, mma_s8::SMEM_NT_BYTES, s>>>(
           (const int*)starts, (const int*)ta, (const int*)tb,
           (const int*)mslot, (const int8_t*)A, (const int8_t*)B,
           (const int8_t*)M, (int*)out);

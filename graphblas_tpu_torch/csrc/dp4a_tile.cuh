@@ -1,10 +1,10 @@
 // The int8 tile product that the band ring and window count (window.cu:
-// K1, K2) and the BSR tile-triple kernel (bsr.cu: K7) share: one CUDA block
-// of NT threads accumulates a 128x64 int32 tile of A.B or A.B^T with __dp4a
-// (4 int8 multiply-accumulates per instruction), staging 32-byte slices of
-// both operands through shared memory packed as 4-byte words.  The window
-// product (K3) runs on the int8 tensor-core tile of mma_s8_tile.cuh; these
-// kernels may take it in turn.
+// K1, K2) share: one CUDA block of NT threads accumulates a 128x64 int32
+// tile of A.B or A.B^T with __dp4a (4 int8 multiply-accumulates per
+// instruction), staging 32-byte slices of both operands through shared
+// memory packed as 4-byte words.  The window product (K3) and the BSR
+// tile-triple kernel's counting form (K7) run on the int8 tensor-core tile
+// of mma_s8_tile.cuh; K1 and K2 may take it in turn.
 
 #pragma once
 

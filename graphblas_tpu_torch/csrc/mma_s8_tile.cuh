@@ -1,8 +1,10 @@
 // The int8 tensor-core tile: one CUDA block of 256 threads (8 warps)
-// accumulates a 128x128 int32 tile of A.B, with A row-major (k contiguous)
-// and B k-major (n contiguous), on mma.sync.m16n8k32.s8.s8.s32.  Used by
-// the window product kernel (window.cu: K3); K1, K2 and K7 still run the
-// __dp4a tile of dp4a_tile.cuh.
+// accumulates a 128x128 int32 tile on mma.sync.m16n8k32.s8.s8.s32, in two
+// forms.  A.B (tile_product), with A row-major (k contiguous) and B
+// k-major (n contiguous): the window product kernel (window.cu: K3).
+// A.B^T summed over a list of tile pairs (tile_accumulate_nt), both
+// operands k contiguous: the BSR tile-triple kernel's counting form
+// (bsr.cu: K7).  K1 and K2 still run the __dp4a tile of dp4a_tile.cuh.
 //
 // Why mma.sync and not wgmma: K3 at the Wathen 128 plan moves 350 MB of
 // compulsory bytes (0.105 ms at 3.35 TB/s) for 40.8 G int8 operations,
@@ -18,6 +20,11 @@
 // reads.  The A tile and the transposed B tile are XOR-swizzled by row so
 // that the fragment reads (8 rows x 4 words per warp) hit 32 distinct
 // banks.
+//
+// A.B^T needs none of that: a row of B^T's tile is 128 consecutive k of
+// one output column, which is the "col" fragment's own layout, so B's
+// stage is loaded and swizzled as A's is and its fragment reads mirror
+// A's (four 4-k words of one column per thread).
 //
 // Pipeline: every global read is a 16-byte cp.async copy straight into
 // shared memory, three stages of 64 k in a ring with two in flight while
@@ -201,6 +208,104 @@ __device__ void tile_product(const int8_t* __restrict__ A, long lda,
     transpose_b(cur + A_WORDS, Bs);
     __syncthreads();
     multiply_stage(cur, Bs, acc);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// A.B^T over a list of tile pairs (K7's counting form)
+
+// One stage's copies for A.B^T: A's and B's 128 rows x 64 bytes (k
+// contiguous, row r at X + r*ld) into the swizzled tiles As and Bs.
+__device__ __forceinline__ void copy_stage_nt(const int8_t* __restrict__ A,
+                                              const int8_t* __restrict__ B,
+                                              long ld, int k0, uint32_t* As,
+                                              uint32_t* Bs) {
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const int id = t + NT * p;
+    const int r = id >> 2, c = id & 3;
+    cp_async16(As + a_off(r, 4 * c), A + (long)r * ld + k0 + 16 * c);
+    cp_async16(Bs + a_off(r, 4 * c), B + (long)r * ld + k0 + 16 * c);
+  }
+}
+
+// acc[mi][ni][*] += this warp's m16n8 tiles of one 64-k stage of A.B^T:
+// B's fragment is four consecutive k of column n, word (n, ks + tq) of
+// the tile, swizzled as A's rows are.
+__device__ __forceinline__ void multiply_stage_nt(const uint32_t* As,
+                                                  const uint32_t* Bs,
+                                                  int (&acc)[2][8][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int r0 = (warp & 3) * WM, n0 = (warp >> 2) * WN;
+#pragma unroll
+  for (int ks = 0; ks < KW; ks += 8) {
+    uint32_t a[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int r = r0 + 16 * mi + g;
+      a[mi][0] = As[a_off(r, ks + tq)];
+      a[mi][1] = As[a_off(r + 8, ks + tq)];
+      a[mi][2] = As[a_off(r, ks + 4 + tq)];
+      a[mi][3] = As[a_off(r + 8, ks + 4 + tq)];
+    }
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni) {
+      const int n = n0 + 8 * ni + g;
+      const uint32_t b0 = Bs[a_off(n, ks + tq)];
+      const uint32_t b1 = Bs[a_off(n, ks + 4 + tq)];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) mma16832(acc[mi][ni], a[mi], b0, b1);
+    }
+  }
+}
+
+// shared memory of the A.B^T tile: STAGES stages of A and B, 48 KB
+constexpr int SMEM_NT_BYTES = 4 * STAGES * (BM * KW + BN * KW);
+
+// The block's 128x128 tile of sum_i A_i . B_i^T over npairs pairs of
+// 128 x K int8 tiles (K a multiple of KC; row r of a tile at X + r*ld,
+// 16-byte aligned, ld a multiple of 16), from zero.  ``pair(i, a, b)``
+// sets the i-th pair's base pointers.  The stages of every pair run
+// through one ring of STAGES: stage g is pair g / (K / KC), k0 = (g %
+// (K / KC)) * KC, so the ring does not drain between pairs.  ``smem``:
+// SMEM_NT_BYTES of dynamic shared memory, 16-byte aligned.  acc's layout
+// is tile_product's.
+template <class Pair>
+__device__ void tile_accumulate_nt(const Pair& pair, int npairs, long ld,
+                                   int K, uint32_t* smem,
+                                   int (&acc)[2][8][4]) {
+  constexpr int WORDS = BM * KW;          // one operand's stage (BN == BM)
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) acc[mi][ni][h] = 0;
+  const int nkc = K / KC;
+  const int nst = npairs * nkc;
+  auto issue = [&](int g) {
+    const int8_t* a;
+    const int8_t* b;
+    pair(g / nkc, a, b);
+    uint32_t* st = smem + (g % STAGES) * 2 * WORDS;
+    copy_stage_nt(a, b, ld, (g % nkc) * KC, st, st + WORDS);
+  };
+#pragma unroll
+  for (int g = 0; g < STAGES - 1; ++g) {
+    if (g < nst) issue(g);
+    commit();
+  }
+  for (int g = 0; g < nst; ++g) {
+    // stage g has landed (every thread's copies, after the barrier), and
+    // every warp is done with stage g-1, whose slot the next copy takes
+    wait_groups<STAGES - 2>();
+    __syncthreads();
+    if (g + STAGES - 1 < nst) issue(g + STAGES - 1);
+    commit();
+    const uint32_t* cur = smem + (g % STAGES) * 2 * WORDS;
+    multiply_stage_nt(cur, cur + WORDS, acc);
   }
 }
 

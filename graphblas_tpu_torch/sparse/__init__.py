@@ -27,7 +27,7 @@ from .tri import (allktruss_esc, csr_filter_lanes, csr_tril, csr_triu,
                   ktruss_esc, masked_pair_counts, tricount_auto,
                   tricount_device, tricount_esc, tricount_prep_csr)
 from .valdot import (ValdotPlan, build_valdot_plan, valdot_gatherdot,
-                     valdot_masked_spgemm)
+                     valdot_gatherdot_rows, valdot_masked_spgemm)
 from .window import (BandPlan, WindowPlan, build_band_plan,
                      build_window_plan, tricount_window,
                      window_masked_count_sum, window_masked_mm)
@@ -45,7 +45,8 @@ __all__ = [
     "tricount_auto", "tricount_prep_csr", "csr_filter_lanes", "csr_tril",
     "csr_triu", "csr_spgemm", "csr_accum_mask", "csr_clear",
     "ValdotPlan", "build_valdot_plan", "valdot_gatherdot",
-    "valdot_masked_spgemm", "csr_mxv", "csr_vxm", "bsr_spmv",
+    "valdot_gatherdot_rows", "valdot_masked_spgemm", "csr_mxv",
+    "csr_vxm", "bsr_spmv",
     "bsr_spmv_ok", "bsr_spmv_plan", "bfs_csr", "pagerank_csr",
     "pack_pattern", "popcount", "words_for", "edge_intersection_counts",
     "masked_spgemm_counts", "tricount_sparse", "ktruss_sparse",

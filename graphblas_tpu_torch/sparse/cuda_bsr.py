@@ -145,6 +145,10 @@ def _check_tiles(starts, ta, tb, mslot, Atiles, Btiles, Mtiles,
                              f"square {T}x{T} tiles")
     if dev.type == "cuda" and T != TILE:
         raise ValueError(f"the kernel takes {TILE}x{TILE} tiles, got {T}")
+    if dev.type == "cuda" and any(x.data_ptr() % 16
+                                  for x in (Atiles, Btiles, Mtiles)):
+        raise ValueError("the kernel takes tile stacks that start 16-byte "
+                         "aligned")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -24,10 +24,13 @@ For ``plus_times`` over finite values the zero pads are exact, so the
 bitmaps are not read: on a CUDA tensor of float32 or int32 the slab pass
 is the hand-written gather-dot kernel (``csrc/valdot.cu``, replacing the
 JAX package's fused Pallas kernel ``_gd_jit``), under the JAX package's
-gate with "a CUDA tensor" for "not the CPU backend".  Only the value
-panels are cached on that path.  Every other semiring runs the bitmap
-variant in plain torch on both devices (the JAX package computes it
-outside Pallas too).
+gate with "a CUDA tensor" for "not the CPU backend".  That path reads
+each slab's panels as compacted rows (:class:`ValRows`: a CSR of
+(slot, value) pairs per panel row, built once per plan from the slab's
+entries and cached for every slab) and builds no dense value panel.
+Every other semiring runs the bitmap variant on the dense panels in
+plain torch on both devices (the JAX package computes it outside Pallas
+too).
 
 The marginal rule's constants are the JAX package's cost model constants,
 not measured on this card; they keep the two packages' engine choices
@@ -56,8 +59,10 @@ from .container import CsrMatrix
 from .esc import _assemble, _bucket, csr_spgemm
 from .tri import csr_filter_lanes
 
-__all__ = ["ValdotPlan", "ValLevel", "build_valdot_plan", "cached_plan",
-           "valdot_masked_spgemm", "valdot_gatherdot"]
+__all__ = ["ValdotPlan", "ValLevel", "ValRows", "build_valdot_plan",
+           "cached_plan", "compact_level", "compact_panel",
+           "valdot_masked_spgemm", "valdot_gatherdot",
+           "valdot_gatherdot_rows"]
 
 #: slab width in columns (the JAX package's default)
 _LEVEL_COLS = 4096
@@ -75,6 +80,19 @@ _LEVEL_OVERHEAD_S = 2e-3
 
 #: slab cap; the marginal rule, not the cap, should stop the packing
 _MAX_LEVELS = 320
+
+#: (lane, B entry) pairs per chunk of the compacted plain version
+_CHUNK_PAIRS = 1 << 24
+
+
+class ValRows(NamedTuple):
+    """A value panel's rows compacted to their entries, a CSR of (slot,
+    value) pairs: row r holds ``val[q]`` at slot ``slot[q]`` for q in
+    ``[ptr[r], ptr[r+1])``, slots ascending.  ``ptr`` and ``slot`` are
+    int32."""
+    ptr: torch.Tensor         # (nrows + 1,)
+    slot: torch.Tensor        # (nnz,)
+    val: torch.Tensor         # (nnz,)
 
 
 class ValLevel(NamedTuple):
@@ -94,6 +112,7 @@ class ValLevel(NamedTuple):
     packed: Optional[tuple]   # (Av, Bv, Ab, Bb) when cached; Ab/Bb None
                               # on the plus_times path, which skips them
     covered: int              # wedges this slab handles
+    rows: Optional[tuple] = None  # (A, B) ValRows on the kernel path
 
 
 class ValdotPlan(NamedTuple):
@@ -108,9 +127,18 @@ class ValdotPlan(NamedTuple):
 
     @property
     def panel_bytes(self) -> int:
-        return sum(a.numel() * a.element_size()
-                   for lv in self.levels if lv.packed is not None
-                   for a in lv.packed if a is not None)
+        """Bytes of the cached dense panels and compacted rows."""
+        return sum(_nbytes(lv.packed) + _nbytes(lv.rows)
+                   for lv in self.levels)
+
+
+def _nbytes(cached) -> int:
+    """Bytes of the tensors in a (nested) tuple; None holds none."""
+    if cached is None:
+        return 0
+    if isinstance(cached, torch.Tensor):
+        return cached.numel() * cached.element_size()
+    return sum(_nbytes(a) for a in cached)
 
 
 def _pack_vals(nrows: int, S: int, rows, slots, vals) -> torch.Tensor:
@@ -121,6 +149,38 @@ def _pack_vals(nrows: int, S: int, rows, slots, vals) -> torch.Tensor:
     out = torch.zeros(nrows * S + 1, dtype=vals.dtype, device=vals.device)
     out.scatter_(0, tgt, vals)
     return out[:nrows * S].reshape(nrows, S)
+
+
+def _compact_side(nrows: int, S: int, rows, slots, vals) -> ValRows:
+    """The (nrows, S) panel that :func:`_pack_vals` would scatter, as
+    compacted rows: the entries with a slot, sorted by (row, slot).  A
+    slab's (row, slot) pairs are distinct (one operand entry each)."""
+    keep = torch.nonzero(slots >= 0).flatten()
+    r = rows[keep].long()
+    sl = slots[keep]
+    order = torch.argsort(r * S + sl.long())
+    ptr = torch.zeros(nrows + 1, dtype=torch.int32, device=rows.device)
+    if keep.numel():
+        ptr[1:] = torch.bincount(r, minlength=nrows).cumsum(0)
+    return ValRows(ptr, sl[order].to(torch.int32).contiguous(),
+                   vals[keep][order].contiguous())
+
+
+def compact_level(lv: ValLevel) -> tuple:
+    """(A, B) :class:`ValRows` of a slab: its cached compacted rows, or
+    compacted now from its entries."""
+    if lv.rows is not None:
+        return lv.rows
+    return (_compact_side(lv.na, lv.S, lv.a_rows, lv.a_slots, lv.a_vals),
+            _compact_side(lv.nb, lv.S, lv.b_js, lv.b_slots, lv.b_vals))
+
+
+def compact_panel(panel: torch.Tensor) -> ValRows:
+    """The (nrows, S) panel's rows compacted to their nonzero entries,
+    on the panel's device."""
+    r, c = torch.nonzero(panel, as_tuple=True)
+    return _compact_side(panel.shape[0], panel.shape[1], r.to(torch.int32),
+                         c.to(torch.int32), panel[r, c])
 
 
 def _slot_words(S: int) -> int:
@@ -200,6 +260,7 @@ def build_valdot_plan(M: CsrMatrix, A: CsrMatrix, B: CsrMatrix,
         if t.is_float:
             finite_ok = finite_ok and bool(torch.isfinite(v).all())
     fast = _plus_times_fast(sr, finite_ok)
+    kernel = _use_kernel(sr, fast, dev)
     # entries sorted by column rank once, so each slab's entries are one
     # contiguous host range
     rankk = np.full(kk, nnzk, np.int64)
@@ -258,7 +319,9 @@ def build_valdot_plan(M: CsrMatrix, A: CsrMatrix, B: CsrMatrix,
         lv = ValLevel(S, na, nb, dev_i32(arr), dev_i32(asl), av,
                       dev_i32(bjr), dev_i32(bsl), bv, z, z, z, 0, None,
                       cov_l)
-        Av, Bv, Ab, Bb = _pack_level(lv)
+        W = _slot_words(S)
+        Ab = _pack(na, W, lv.a_rows, lv.a_slots)
+        Bb = _pack(nb, W, lv.b_js, lv.b_slots)
         # liveness from the bit panels (the row maps are plan-time only)
         amap = np.full(m, -1, np.int32)
         amap[ra] = np.arange(len(ra), dtype=np.int32)
@@ -280,17 +343,24 @@ def build_valdot_plan(M: CsrMatrix, A: CsrMatrix, B: CsrMatrix,
         lidx_c = lidx.clamp(0, M.nzmax - 1)
         live_ai = amap_d[M.rowids[lidx_c].long().clamp(0, m - 1)]
         live_bj = bmap_d[M.indices[lidx_c].long().clamp(0, n - 1)]
-        cached = (Av, Bv, None, None) if fast else (Av, Bv, Ab, Bb)
-        panel_bytes = sum(a.numel() * a.element_size()
-                          for a in cached if a is not None)
-        packed = None
-        if panel_bytes <= panel_budget_left:
-            packed = cached
-            panel_budget_left -= panel_bytes
-        del Av, Bv, Ab, Bb, cached
+        packed = rows = None
+        if kernel:
+            # the kernel path reads compacted rows only: every slab's are
+            # cached (at most one int32 slot and one value per operand
+            # entry), and the budget counts them
+            rows = compact_level(lv)
+            panel_budget_left -= _nbytes(rows)
+        else:
+            Av, Bv, _, _ = _pack_level(lv, bits=False)
+            cached = (Av, Bv, None, None) if fast else (Av, Bv, Ab, Bb)
+            if _nbytes(cached) <= panel_budget_left:
+                packed = cached
+                panel_budget_left -= _nbytes(cached)
+            del Av, Bv, cached
+        del Ab, Bb
         levels.append(lv._replace(live_idx=lidx.to(torch.int32),
                                   live_ai=live_ai, live_bj=live_bj,
-                                  nlive=nlive, packed=packed))
+                                  nlive=nlive, packed=packed, rows=rows))
         cnt_total = cnt_l if cnt_total is None else cnt_total + cnt_l
         covered_all += cov_l
         sel_end += kcut_l
@@ -421,12 +491,116 @@ def valdot_gatherdot(Av: torch.Tensor, Bv: torch.Tensor, ai: torch.Tensor,
     return out
 
 
+def _check_rows_args(Ar: ValRows, Br: ValRows, ai, bj, S: int):
+    dev = Ar.val.device
+    if Ar.val.dtype not in (torch.float32, torch.int32):
+        raise TypeError(f"gather-dot values must be float32 or int32, got "
+                        f"{Ar.val.dtype}")
+    if Br.val.dtype != Ar.val.dtype:
+        raise TypeError(f"value dtypes differ: {Ar.val.dtype} vs "
+                        f"{Br.val.dtype}")
+    if S <= 0 or S % 4:
+        raise ValueError(f"slot count S={S} is not a positive multiple "
+                         f"of 4")
+    for side, R in (("A", Ar), ("B", Br)):
+        for name, x in zip(ValRows._fields, R):
+            if x.dim() != 1 or (name != "val" and x.dtype != torch.int32):
+                raise TypeError(f"{side}.{name} must be a 1-D int32 tensor, "
+                                f"got {x.dtype} {tuple(x.shape)}")
+        if R.ptr.shape[0] < 2:
+            raise ValueError(f"{side} has no rows")
+        if R.slot.shape != R.val.shape:
+            raise ValueError(f"{side}.slot and {side}.val differ in length")
+    for name, x in (("ai", ai), ("bj", bj)):
+        if x.dtype != torch.int32 or x.dim() != 1:
+            raise TypeError(f"{name} must be a 1-D int32 tensor, got "
+                            f"{x.dtype} {tuple(x.shape)}")
+    if ai.shape != bj.shape:
+        raise ValueError("ai and bj differ in length")
+    for name, x in (("A", Ar.ptr), ("A", Ar.slot), ("A", Ar.val),
+                    ("B", Br.ptr), ("B", Br.slot), ("B", Br.val),
+                    ("ai", ai), ("bj", bj)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, expected {dev}")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _gatherdot_rows_plain(Ar: ValRows, Br: ValRows, ai: torch.Tensor,
+                          bj: torch.Tensor, nlive: int,
+                          S: int) -> torch.Tensor:
+    """Plain version of the compacted gather-dot kernel, a segment sum:
+    per lane, its B row's entries, each times A's value at the same slot
+    (a search of A's sorted (row, slot) keys; 0 where A has none),
+    summed into the lane (``index_add_``, int32 wrapping), in chunks of
+    at most _CHUNK_PAIRS pairs; 0 at and past ``nlive``."""
+    E = ai.shape[0]
+    na, nb = Ar.ptr.shape[0] - 1, Br.ptr.shape[0] - 1
+    nlive = max(0, min(int(nlive), E))
+    dev = ai.device
+    out = torch.zeros(E, dtype=Ar.val.dtype, device=dev)
+    if Ar.slot.numel() == 0:
+        return out                    # A holds no entry: every dot is 0
+    arow = torch.repeat_interleave(torch.arange(na, device=dev),
+                                   (Ar.ptr[1:] - Ar.ptr[:-1]).long())
+    akey = arow * S + Ar.slot.long()               # ascending
+    ii = ai[:nlive].long().clamp(0, na - 1)
+    jj = bj[:nlive].long().clamp(0, nb - 1)
+    bptr = Br.ptr.long()
+    lens = bptr[jj + 1] - bptr[jj]
+    ends = lens.cumsum(0)
+    s = 0
+    while s < nlive:
+        # lanes [s, e): at least one, else at most _CHUNK_PAIRS pairs
+        base = int(ends[s - 1]) if s else 0
+        e = int(torch.searchsorted(ends, base + _CHUNK_PAIRS, right=True))
+        e = min(max(e, s + 1), nlive)
+        ln = lens[s:e]
+        ent = torch.repeat_interleave(torch.arange(e - s, device=dev), ln)
+        first = (ln.cumsum(0) - ln)[ent]
+        q = bptr[jj[s:e]][ent] + torch.arange(ent.numel(), device=dev) - first
+        key = ii[s:e][ent] * S + Br.slot[q].long()
+        pos = torch.searchsorted(akey, key).clamp(max=akey.numel() - 1)
+        prod = torch.where(akey[pos] == key, Ar.val[pos] * Br.val[q], 0)
+        out[s:e].index_add_(0, ent, prod)
+        s = e
+    return out
+
+
+def valdot_gatherdot_rows(Ar: ValRows, Br: ValRows, ai: torch.Tensor,
+                          bj: torch.Tensor, nlive: int,
+                          S: int) -> torch.Tensor:
+    """The gather-dot over compacted panel rows: out[t] = sum_s
+    A[clip(ai[t]), s] * B[clip(bj[t]), s] for t < nlive, 0 past it, with
+    A and B the (na, S) and (nb, S) panels whose rows ``Ar`` and ``Br``
+    compact; (len(ai),) of their dtype (float32 or int32, which wraps).
+    CUDA tensors launch the compacted gather-dot kernel
+    (``csrc/valdot.cu``); CPU tensors run its plain version."""
+    dev = _check_rows_args(Ar, Br, ai, bj, S)
+    if dev.type == "cpu":
+        return _gatherdot_rows_plain(Ar, Br, ai, bj, nlive, S)
+    E = ai.shape[0]
+    out = torch.empty(E, dtype=Ar.val.dtype, device=dev)
+    _build.launch(
+        "valdot_gatherdot_rows", Ar.val,
+        Ar.ptr.data_ptr(), Ar.slot.data_ptr(), Ar.val.data_ptr(),
+        Br.ptr.data_ptr(), Br.slot.data_ptr(), Br.val.data_ptr(),
+        ai.data_ptr(), bj.data_ptr(), out.data_ptr(), E,
+        max(0, min(int(nlive), E)), Ar.ptr.shape[0] - 1,
+        Br.ptr.shape[0] - 1, S, int(Ar.val.dtype == torch.int32))
+    return out
+
+
 def _use_kernel(sr: Semiring, fast: bool, device: torch.device) -> bool:
     """The JAX package's fused-kernel gate (``valdot.py:550-558``), with
     "a CUDA tensor" for its "not the CPU backend"; the TPU's 16 KB
     panel-row cap (scoped VMEM) has no counterpart on the card.  A slab
     width the kernel cannot take (not a multiple of 4) makes the wrapper
-    raise; it never falls back to the plain pass."""
+    raise; it never falls back to the plain pass.  The plan reads this
+    gate too: on the kernel path it caches compacted rows, not panels."""
     zd = np.dtype(sr.ztype.dtype)
     return (fast and device.type == "cuda"
             and np.dtype(sr.xtype.dtype) == zd
@@ -447,11 +621,11 @@ def _valdot_heavy(plan: ValdotPlan, sr: Semiring, M: CsrMatrix):
     for lv in plan.levels:
         if lv.nlive == 0:
             continue
-        Av, Bv, Ab, Bb = _pack_level(lv, bits=not fast)
         if kernel:
-            part = valdot_gatherdot(Av, Bv, lv.live_ai, lv.live_bj,
-                                    lv.nlive)
+            part = valdot_gatherdot_rows(*compact_level(lv), lv.live_ai,
+                                         lv.live_bj, lv.nlive, lv.S)
         else:
+            Av, Bv, Ab, Bb = _pack_level(lv, bits=not fast)
             part = _valdot_pass(sr, Av, Bv, Ab, Bb, lv.live_ai, lv.live_bj,
                                 lv.nlive, use_bits=not fast)
         idx = lv.live_idx.long().clamp(0, M.nzmax - 1)

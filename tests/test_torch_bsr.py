@@ -402,12 +402,56 @@ def test_convert_tile_pattern_from_jax():
     _same_tiles(convert.from_jax(jp, device=CPU), jp)
 
 
+def _wathen_tiles_on_card(nx):
+    """Wathen nx x nx (duplicates merged, diagonal dropped) as the card
+    tile patterns of L and of U^T: M = A = L, B = U^T."""
+    I, J, _, n = gt.wathen_coo(nx, nx, seed=1)
+    ku = np.unique(I * n + J)
+    iu, ju = ku // n, ku % n
+    lo, up = iu > ju, iu < ju
+    return (gt.tile_pattern_from_coo(iu[lo], ju[lo], (n, n), device="cuda"),
+            gt.tile_pattern_from_coo(ju[up], iu[up], (n, n), device="cuda"))
+
+
 @pytest.mark.cuda
 def test_k7_kernel_on_card():
     """The kernel against its plain version on the card: counting
-    exactly, values within the float32 reassociation bound."""
+    exactly (on the int8 tensor-core tile) on a random schedule of
+    signed int8 tiles whose outputs take 0, 1 or up to 12 triples under
+    a mask of bytes in -2..2, on the Wathen 128 schedule and on a random
+    pattern; values within the float32 reassociation bound."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    from graphblas_tpu_torch import _build
+    rng = np.random.default_rng(9)
+    A = torch.from_numpy(rng.integers(-128, 128, (40, 128, 128))
+                         .astype(np.int8)).cuda()
+    B = torch.from_numpy(rng.integers(-128, 128, (30, 128, 128))
+                         .astype(np.int8)).cuda()
+    M = torch.from_numpy(rng.integers(-2, 3, (20, 128, 128))
+                         .astype(np.int8)).cuda()
+    nout = 400
+    cnt = rng.integers(0, 13, nout)
+    cnt[:3] = (0, 1, 12)
+    starts = np.zeros(nout + 1, np.int32)
+    starts[1:] = np.cumsum(cnt)
+    rand = [torch.from_numpy(x).cuda() for x in (
+        starts, rng.integers(0, 40, starts[-1]).astype(np.int32),
+        rng.integers(0, 30, starts[-1]).astype(np.int32),
+        rng.integers(0, 20, nout).astype(np.int32))]
+    before = _build.launches["bsr_masked_mm"]
+    got = tcb.bsr_tiles_mm(*rand, A, B, M, torch.int32)
+    torch.cuda.synchronize()
+    assert _build.launches["bsr_masked_mm"] == before + 1
+    assert torch.equal(got, tcb._bsr_mm_plain(*rand, A, B, M, torch.int32))
+    assert not got[0].any()
+    Lw, Bw = _wathen_tiles_on_card(128)
+    sw = tcb._schedule(Lw, Lw, Bw)
+    wargs = [torch.from_numpy(a).cuda() for a in sw[:4]]
+    got = tcb.bsr_tiles_mm(*wargs, Lw.tiles, Bw.tiles, Lw.tiles, torch.int32)
+    assert torch.equal(got, tcb._bsr_mm_plain(*wargs, Lw.tiles, Bw.tiles,
+                                              Lw.tiles, torch.int32))
+    assert int(got.sum(dtype=torch.int64)) == 884_992
     pat = _sym(1000, 0.01, 7)
     L, U = np.tril(pat, -1), np.triu(pat, 1)
     Lt = gt.tile_pattern(L, device="cuda")

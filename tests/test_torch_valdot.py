@@ -202,7 +202,7 @@ def test_valdot_refuses_small_and_udt(graph):
         tesc.csr_spgemm(sr_udt, Lt, Ut, mask=Mt)
 
 
-def test_valdot_plan_cache(graph, min_lanes_1):
+def test_valdot_plan_cache(graph, min_lanes_1, monkeypatch):
     _, (Lt, Ut, Mt) = _lum(graph, np.float32, "FP32")
     sr = gt.semiring.plus_times[gt.FP32]
     c1 = tvd.valdot_masked_spgemm(sr, Lt, Ut, Mt)
@@ -226,6 +226,25 @@ def test_valdot_plan_cache(graph, min_lanes_1):
     plan = Mt._options[key][-1]
     assert all(lv.packed[2] is None and lv.packed[3] is None
                for lv in plan.levels if lv.packed is not None)
+    assert all(lv.rows is None for lv in plan.levels)
+    # the kernel route (its gate forced open; on the CPU the wrapper runs
+    # its plain version): every slab's compacted rows are cached and no
+    # panel, whatever the budget, and the plan's bytes count the rows
+    monkeypatch.setattr(tvd, "_use_kernel", lambda *a: True)
+    for budget in (None, 1):
+        Mk = gt.CsrMatrix(Mt.indptr, Mt.indices, Mt.rowids, Mt.values,
+                          Mt.nvals, Mt.nrows, Mt.ncols, Mt.type)
+        ck = tvd.valdot_masked_spgemm(sr, Lt, Ut, Mk, budget_bytes=budget)
+        pk = tvd.cached_plan(Mk, Lt, Ut, sr)
+        assert len(pk.levels) == len(plan.levels)
+        assert all(lv.rows is not None and lv.packed is None
+                   for lv in pk.levels)
+        rows_bytes = sum(x.numel() * x.element_size() for lv in pk.levels
+                         for R in lv.rows for x in R)
+        assert pk.panel_bytes == rows_bytes > 0
+        assert tvd.valdot_masked_spgemm(sr, Lt, Ut, Mk) is not None
+        assert tvd.cached_plan(Mk, Lt, Ut, sr) is pk          # no rebuild
+        assert_same_csr(ck, c1)
 
 
 def test_fast_path_and_nonfinite_guard(graph, min_lanes_1):

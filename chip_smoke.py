@@ -13,16 +13,23 @@ uncaught exception and a nonzero exit):
 
 1. build the CUDA kernels with nvcc (printing ptxas's register report);
 2. each kernel against its plain version on the card, exact integer
-   equality: band-ring and window-count on the Wathen nx=ny=128 plans,
-   the popcount pass against both its plain versions (dense panels and
-   compacted B rows) on random panels (W = 1, 8, 37, 40, 1024, with and
-   without row maps, entries past nvals, unsorted rowids; and sorted
-   rowids with runs of thousands of entries);
+   equality: band-ring and window-count on the Wathen nx=ny=128 plans
+   (against the dense plain versions and the plain versions over the
+   kernels' schedules of nonempty tiles, whose triples must equal the
+   plans' ``ntriples``; timed with both bounds: the nonempty tiles' and
+   the padded panels'), the popcount pass against both its plain
+   versions (dense panels and compacted B rows) on random panels (W =
+   1, 8, 37, 40, 1024, with and without row maps, entries past nvals,
+   unsorted rowids; and sorted rowids with runs of thousands of
+   entries);
 3. Wathen nx=ny=16 against a dense numpy oracle, then Wathen nx=ny=128
    through ``tricount_auto`` (884,992 triangles, band-ring engine) and
    ``window_count_partials`` on its window plan (884,992 again);
 4. Wathen nx=ny=384: ``tricount_auto`` (band ring) equals
-   ``tricount_esc`` on the same L/U;
+   ``tricount_esc`` on the same L/U; the warm calls of phases 3 and 4
+   build no schedule; after the counted path, the band ring at Wathen
+   384 against both plain versions, timed in turns (phase 4b), with
+   its schedule's build time and the warm ``tricount_auto``;
 5. R-MAT scale 16 (edge factor 16, seed 7): nnz 1,819,622 and
    ``tricount_esc`` 15,623,664;
 6. R-MAT scale 18: nnz 7,612,718 and 82,947,332 triangles;
@@ -178,6 +185,9 @@ KTRUSS_ANCHORS = {16: (5, 726_973, 10), 18: (10, 2_292_950, 13)}
 HBM_BPS = 3.35e12
 INT8_OPS = 1.979e15
 CUDA32_OPS = 67e12
+# 32-bit instructions the CUDA cores issue per second: one per lane per
+# clock, 132 SMs x 128 lanes x 1.98 GHz (an FMA counts two of CUDA32_OPS)
+CUDA32_INSTR = CUDA32_OPS / 2
 
 
 def card_label() -> str:
@@ -239,13 +249,74 @@ def turns(kernel, plain, reps: int, plain_reps: int = None, library=None):
     return min(k1, k2), min(p1, p2), min(l1, l2)
 
 
-def compare_timed(kernel, plain, reps: int):
+def compare_timed(kernel, plain, reps: int, plain_reps: int = None):
     """Exact comparison, then device times in turns.  Returns
     (max_abs_err, kernel_ms, plain_ms)."""
     err = max_abs_err(kernel(), plain())
     if err:
         raise AssertionError(f"kernel differs from plain version by {err}")
-    return (err, *turns(kernel, plain, reps))
+    return (err, *turns(kernel, plain, reps, plain_reps))
+
+
+def nonempty_tiles(x: torch.Tensor) -> int:
+    """128x128 tiles of the (n, R, C) panels that hold a nonzero."""
+    n, R, C = x.shape
+    return int(torch.any(x.view(n, R // 128, 128, C // 128, 128),
+                         dim=(2, 4)).sum())
+
+
+def count_bounds(plan, panels):
+    """(bound, padded bound) of a band-ring or window-count call, each
+    (ms, by).  The bound counts the work the schedule defines: each
+    nonempty 128x128 panel tile read once, the partials written once,
+    the schedule read once, and 2 * 128^3 int8 operations per tile
+    triple.  The padded bound, of the earlier design, reads every panel
+    byte and multiplies the whole padded band or window."""
+    sched = plan.schedule
+    nI = plan.P.shape[0]
+    tiles = sum(nonempty_tiles(x) for x in panels)
+    sbytes = 4 * sum(x.numel() for x in (sched.rows, sched.cols, sched.kptr,
+                                         sched.kblk))
+    restated = bound(tiles * 128 * 128 + 4 * nI + sbytes,
+                     2 * 128 ** 3 * sched.ntriples, INT8_OPS)
+    nbytes = sum(x.numel() for x in panels) + 4 * nI
+    W = plan.P.shape[2]
+    if len(panels) == 2:     # band ring: s+1 k-blocks at offset s
+        Wb = W // 128
+        macs = sum((nI - s) * 128 ** 3 * (s + 1) for s in range(min(Wb, nI)))
+    else:
+        macs = nI * 128 * W * plan.M.shape[2]
+    return restated, bound(nbytes, 2 * macs, INT8_OPS)
+
+
+def check_scheduled(plan, ntriples: int, what: str) -> None:
+    """The kernel's partials equal the plain version over its schedule,
+    and the schedule holds the plan's tile triples."""
+    from graphblas_tpu_torch.sparse import cuda_window as cw
+    if hasattr(plan, "Ut"):
+        got = cw.tricount_band_partials(plan)
+        want = cw._tri_band_partials_scheduled(plan.P, plan.Ut,
+                                               plan.schedule)
+    else:
+        got = cw.window_count_partials(plan)
+        want = cw._window_count_scheduled(plan.P, plan.Q, plan.M,
+                                          plan.schedule)
+    err = max_abs_err(got, want)
+    assert err == 0, f"{what}: kernel differs from scheduled plain by {err}"
+    assert plan.schedule.ntriples == ntriples, \
+        f"{what}: schedule {plan.schedule.ntriples} triples != {ntriples}"
+
+
+def schedule_ms(plan) -> float:
+    """Device milliseconds of building a plan's schedule anew (the
+    schedule is replaced by an equal one)."""
+    from graphblas_tpu_torch.sparse import window as tw
+    make = tw.band_schedule if hasattr(plan, "Ut") else tw.window_schedule
+
+    def build():
+        plan.schedule = None
+        make(plan)
+    return cuda_ms(build, 3)
 
 
 def bound(nbytes: float, ops: float, ops_rate: float):
@@ -577,8 +648,10 @@ def main() -> None:
     from graphblas_tpu_torch.sparse import cuda_window as cw
     from graphblas_tpu_torch.sparse import esc as esc_mod
     from graphblas_tpu_torch.sparse import valdot as vd
+    from graphblas_tpu_torch.sparse import window as tw
     tag = f"[{card}]"
     summary = {}
+    extra_of = {}
 
     # ---- 1. build ----
     _, secs = timed(_build.library)
@@ -596,23 +669,25 @@ def main() -> None:
     assert band is not None and win is not None, "Wathen 128 plans refused"
     print(f"{tag} phase2 band plan P {tuple(band.P.shape)} Wb {band.Wb}; "
           f"window plan P {tuple(win.P.shape)} Q {tuple(win.Q.shape)}")
-    summary["tri_band_ring"] = compare_timed(
+    band128 = compare_timed(
         lambda: gt.tricount_band_partials(band),
         lambda: cw._tri_band_partials_plain(band.P, band.Ut), 20)
-    nI, _, W = band.P.shape
-    Wb = W // 128
-    macs = sum((nI - s) * 128 * 128 * (s + 1) * 128
-               for s in range(min(Wb, nI)))
-    bounds = {"tri_band_ring": bound(band.P.numel() + band.Ut.numel()
-                                     + 4 * nI, 2 * macs, INT8_OPS)}
+    band128_bounds = count_bounds(band, (band.P, band.Ut))
+    check_scheduled(band, band.ntriples, "Wathen 128 band")
     summary["window_count"] = compare_timed(
         lambda: gt.window_count_partials(win),
         lambda: cw._window_count_plain(win.P, win.Q, win.M), 5)
-    nI, _, W = win.P.shape
-    nJ = win.Q.shape[2]
-    bounds["window_count"] = bound(
-        win.P.numel() + win.Q.numel() + win.M.numel() + 4 * nI,
-        2 * nI * 128 * W * nJ, INT8_OPS)
+    bounds = {}
+    bounds["window_count"], win_padded = count_bounds(
+        win, (win.P, win.Q, win.M))
+    check_scheduled(win, win.ntriples, "Wathen 128 window")
+    extra_of["window_count"] = {
+        "padded_bound_ms": win_padded[0], "padded_bound_by": win_padded[1],
+        "schedule_outputs": win.schedule.nout,
+        "schedule_triples": win.schedule.ntriples,
+        "schedule_ms": schedule_ms(win)}
+    band128_sched_ms = schedule_ms(band)
+    band128_sched = (band.schedule.nout, band.schedule.ntriples)
     rng = np.random.default_rng(0)
     popcount_cases = [(W, maps, 0) for W in (1, 8, 37, 40, 1024)
                       for maps in (False, True)]
@@ -630,10 +705,17 @@ def main() -> None:
         past = got[args[-1]:]
         assert int(past.abs().sum()) == 0, "entries past nvals not 0"
     sync()
-    for name in ("tri_band_ring", "window_count"):
-        err, ms, pms = summary[name]
-        print(f"{tag} phase2 {name}: exact (max_abs_err {err}); "
-              f"kernel {ms:.4f} ms, plain {pms:.4f} ms (Wathen 128)")
+    for name, (err, ms, pms), plan, (bnd, padded) in (
+            ("tri_band_ring", band128, band, band128_bounds),
+            ("window_count", summary["window_count"], win,
+             (bounds["window_count"], win_padded))):
+        print(f"{tag} phase2 {name}: exact (max_abs_err {err}) against the "
+              f"dense and the scheduled plain versions; kernel {ms:.4f} ms, "
+              f"plain {pms:.4f} ms (Wathen 128); schedule "
+              f"{plan.schedule.nout} outputs, {plan.schedule.ntriples} "
+              f"triples == plan.ntriples; bound {bnd[0]:.4f} ms ({bnd[1]}; "
+              f"nonempty tiles), padded-panel bound {padded[0]:.4f} ms "
+              f"({padded[1]})")
     print(f"{tag} phase2 bitdot_popcount: exact against both plain "
           f"versions on random panels W=1,8,37,40,1024 with/without maps "
           f"(unsorted rowids), and sorted rowids from 50 rows (W=1024, "
@@ -689,7 +771,10 @@ def main() -> None:
     before = _build.launches["tri_band_ring"]
     ntri, first = timed(lambda: gt.tricount_auto(L, U))
     engine = gt.last_axb_method()
+    builds = dict(tw.schedule_builds)
     ntri2, warm = timed(lambda: gt.tricount_auto(L, U))
+    assert tw.schedule_builds == builds, \
+        "a warm tricount_auto built a schedule"
     assert ntri == ntri2 == WATHEN_128_NTRI, (ntri, ntri2)
     assert engine == "cuda:tri_band_ring", engine
     assert _build.launches["tri_band_ring"] > before, "band ring not run"
@@ -704,22 +789,29 @@ def main() -> None:
     del L, U, win
 
     # 4. Wathen nx=384: band ring against the counting engines
-    L, U, n, nnz = wathen_lu(gt, 384)
-    ntri, first = timed(lambda: gt.tricount_auto(L, U))
+    L384, U384, n, nnz = wathen_lu(gt, 384)
+    ntri, first = timed(lambda: gt.tricount_auto(L384, U384))
     engine = gt.last_axb_method()
-    _, warm = timed(lambda: gt.tricount_auto(L, U))
+    builds = dict(tw.schedule_builds)
+    _, warm = timed(lambda: gt.tricount_auto(L384, U384))
+    assert tw.schedule_builds == builds, \
+        "a warm tricount_auto built a schedule"
     assert engine == "cuda:tri_band_ring", engine
-    band = gt.build_band_plan(L, U)
-    esc, esc_first = timed(lambda: gt.tricount_esc(L, U))
+    band384 = gt.build_band_plan(L384, U384)
+    assert band384.schedule.ntriples == band384.ntriples, \
+        (band384.schedule.ntriples, band384.ntriples)
+    esc, esc_first = timed(lambda: gt.tricount_esc(L384, U384))
     esc_engine = gt.last_axb_method()
-    _, esc_warm = timed(lambda: gt.tricount_esc(L, U))
+    _, esc_warm = timed(lambda: gt.tricount_esc(L384, U384))
     assert ntri == esc, f"Wathen 384: band ring {ntri} != esc {esc}"
     ntri384 = ntri
-    print(f"{tag} phase4 Wathen 384: n {n}, {nnz} entries, Wb {band.Wb}, "
-          f"panels {band.panel_bytes} B; {ntri} triangles via {engine} "
-          f"(first {first:.4f} s, warm {warm:.6f} s) == tricount_esc via "
-          f"{esc_engine} (first {esc_first:.4f} s, warm {esc_warm:.6f} s)")
-    del L, U, band
+    print(f"{tag} phase4 Wathen 384: n {n}, {nnz} entries, Wb "
+          f"{band384.Wb}, panels {band384.panel_bytes} B, schedule "
+          f"{band384.schedule.nout} outputs, {band384.schedule.ntriples} "
+          f"triples == plan.ntriples; {ntri} triangles via {engine} (first "
+          f"{first:.4f} s, warm {warm:.6f} s, no schedule built warm) == "
+          f"tricount_esc via {esc_engine} (first {esc_first:.4f} s, warm "
+          f"{esc_warm:.6f} s)")
 
     # 5-6. R-MAT: the power-law regime
     plan18 = None
@@ -812,6 +904,40 @@ def main() -> None:
     assert not missing, f"kernels not launched on the main path: {missing}"
     path_launches = {"mxm": launches}
 
+    # ---- 4b. the band ring at Wathen 384, off the counted path ----
+    summary["tri_band_ring"] = compare_timed(
+        lambda: gt.tricount_band_partials(band384),
+        lambda: cw._tri_band_partials_plain(band384.P, band384.Ut), 20, 2)
+    check_scheduled(band384, band384.ntriples, "Wathen 384 band")
+    bounds["tri_band_ring"], padded = count_bounds(
+        band384, (band384.P, band384.Ut))
+    auto_ms = cuda_ms(lambda: gt.tricount_auto(L384, U384), 10)
+    err, ms, pms = summary["tri_band_ring"]
+    extra_of["tri_band_ring"] = {
+        "padded_bound_ms": padded[0], "padded_bound_by": padded[1],
+        "schedule_outputs": band384.schedule.nout,
+        "schedule_triples": band384.schedule.ntriples,
+        "schedule_ms": schedule_ms(band384),
+        "warm_tricount_auto_ms": auto_ms,
+        "wathen128_ms": band128[1], "wathen128_plain_ms": band128[2],
+        "wathen128_max_abs_err": band128[0],
+        "wathen128_bound_ms": band128_bounds[0][0],
+        "wathen128_bound_by": band128_bounds[0][1],
+        "wathen128_padded_bound_ms": band128_bounds[1][0],
+        "wathen128_schedule_outputs": band128_sched[0],
+        "wathen128_schedule_triples": band128_sched[1],
+        "wathen128_schedule_ms": band128_sched_ms}
+    print(f"{tag} phase4b tri_band_ring at Wathen 384 (P "
+          f"{tuple(band384.P.shape)}): exact (max_abs_err {err}) against the "
+          f"dense and the scheduled plain versions; kernel {ms:.4f} ms, "
+          f"plain {pms:.4f} ms; schedule {band384.schedule.nout} outputs, "
+          f"{band384.schedule.ntriples} triples, built in "
+          f"{extra_of['tri_band_ring']['schedule_ms']:.4f} ms; bound "
+          f"{bounds['tri_band_ring'][0]:.4f} ms ({bounds['tri_band_ring'][1]}"
+          f"; nonempty tiles), padded-panel bound {padded[0]:.4f} ms "
+          f"({padded[1]}); warm tricount_auto {auto_ms:.4f} ms (CUDA events)")
+    del L384, U384, band384
+
     # ---- 7. popcount at the main path's shapes ----
     if not isinstance(plan18, bd.BitdotPlan):
         raise AssertionError("R-MAT 18 did not build a bitdot plan")
@@ -858,9 +984,9 @@ def main() -> None:
     # both full rows per entry, 3 operations on every word
     dense_bound = bound((ua.numel() + ub.numel()) * Wp * 4 + M18.nzmax * 12
                         + maps_bytes, 3 * M18.nvals * Wp, CUDA32_OPS)
-    extra_of = {"bitdot_popcount": {
+    extra_of["bitdot_popcount"] = {
         "dense_row_bound_ms": dense_bound[0],
-        "dense_row_bound_by": dense_bound[1], "compaction_ms": comp_ms}}
+        "dense_row_bound_by": dense_bound[1], "compaction_ms": comp_ms}
     print(f"{tag} phase7 bitdot_popcount at R-MAT 18 level 1 (Apack "
           f"{tuple(plan18.Apack.shape)}, Bpack {tuple(plan18.Bpack.shape)}, "
           f"{M18.nzmax} entries, {ii.numel()} with both rows): exact "
@@ -1216,13 +1342,19 @@ def main() -> None:
     k2 = cuda_ms(k6, 5)
     err = tropical_err(k6(), want)
     summary["tropical_mm"] = (err, min(k1, k2), pms)
-    bounds["tropical_mm"] = bound(3 * N * N * 4, 2 * N ** 3, CUDA32_OPS)
+    # the issue limit: each of the N^3 terms is one FADD and one FMNMX, no
+    # fused add-min exists for float32; the earlier bound priced both at
+    # the FMA's flop rate, half an instruction each
+    bounds["tropical_mm"] = bound(3 * N * N * 4, 2 * N ** 3, CUDA32_INSTR)
+    flop_bound = bound(3 * N * N * 4, 2 * N ** 3, CUDA32_OPS)
+    extra_of["tropical_mm"] = {"flop_rate_bound_ms": flop_bound[0]}
     print(f"{tag} phase14 tropical_mm min-plus at {N}^3: equal to plain; "
           f"kernel {k1:.4f} / {k2:.4f} ms, plain (once) {pms:.4f} ms, bound "
           f"{bounds['tropical_mm'][0]:.4f} ms "
-          f"({bounds['tropical_mm'][1]}; counts an add and a min at the "
-          f"float32 FMA rate, so optimistic), "
-          f"{2 * N ** 3 / (min(k1, k2) * 1e-3) / 1e12:.3f} T ops/s")
+          f"({bounds['tropical_mm'][1]}; an FADD and an FMNMX a term at "
+          f"one instruction a lane a clock; {flop_bound[0]:.4f} ms at the "
+          f"FMA flop rate), {2 * N ** 3 / (min(k1, k2) * 1e-3) / 1e12:.3f} "
+          f"T ops/s")
     del a, b, want
 
     # ---- 15. the window product kernel (K3) against its plain version ----

@@ -38,10 +38,10 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
 #: launcher name -> argument types (every pointer and the stream last)
 _SIGNATURES = {
-    # P, Ut, partials, nI, Wb, stream
-    "tri_band_ring": (_P, _P, _P, _I, _I, _P),
-    # P, Q, M, partials, nI, W, nJ, stream
-    "window_count": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # P, Ut, rows, cols, kptr, kblk, partials, nout, Wb, stream
+    "tri_band_ring": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # P, Q, M, rows, cols, kptr, kblk, partials, nout, W, nJ, stream
+    "window_count": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # Apack, bptr, bwidx, bword, amap, bmap, rowids, indices, out,
     # nzmax, nvals, na, nb, W, amap_len, bmap_len, stream
     "bitdot_popcount": (_P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -7,106 +7,123 @@
 //   gb_window_count   <- _count_launch / _count_kernel (window-panel count)
 //   gb_window_mm      <- _mm_launch / _mm_kernel (window-panel product, K3)
 //
-// What bounds it on the card: int8 multiply-accumulate work on the padded
-// band, (Wb*(Wb+1)/2) * 128^3 MACs per block-row for the band ring; the
-// panels themselves (L and U once, a few MB to ~1 GB) stream from memory
-// once per (block, offset) pair and stay mostly in L2.  K3 writes a 4-byte
-// product per entry against the operands' 1, so it is bound by bytes: at
-// the Wathen 128 plan 350 MB, 127 MB of it the int32 output.
+// Every kernel here runs on the int8 tensor-core tile of mma_s8_tile.cuh
+// (mma.sync m16n8k32, a three-stage cp.async ring, B's k-major tiles
+// transposed in registers with prmt between shared memory and the mma),
+// one CUDA block of 256 threads per 128x128 output tile.
 //
-// K1 and K2: one CUDA block per (block-row, band offset, 64-column half)
-// for the band ring and per (block-row, 64-column tile) for the window
-// count, so blocks run in parallel where the TPU walked its grid in order;
-// the TPU's VMEM ring that streamed U once becomes direct reads of Ut[J]
-// (L2-resident).  Each block accumulates a 128x64 int32 tile with the
-// shared __dp4a tile (dp4a_tile.cuh), multiplies it by the mask tile,
-// reduces it in the block and atomically adds it to partials[i].  Integer
-// sums are exact in any order.
+// K1 and K2: what bounds them on the card is the nonempty 128x128 tiles.
+// The TPU multiplied the whole padded band (K1: (Wb*(Wb+1)/2) tile
+// products per block-row) or window, empty tiles included; on a banded
+// graph most of those tiles are empty (Wathen 384: 228,448 padded tile
+// products against 52,820 whose three tiles are all nonempty).  So each
+// kernel runs over a schedule (sparse/window.py, built once per plan on
+// the card from the panels and cached on the plan): the output tiles
+// whose mask tile is nonempty, heaviest first, each with the k-blocks
+// whose A and B tiles are both nonempty.  One block per scheduled output
+// tile starts copying its mask tile into shared memory (copy_mask, in the
+// first stage's commit group, so its latency hides behind the products),
+// runs the A.B list form over its k-blocks through one cp.async ring,
+// multiplies the C fragment by the mask bytes (masked_sum), reduces it in
+// the block and adds it to partials[i] with one atomicAdd.  The bytes are
+// then each nonempty tile read about once from device memory (re-reads
+// hit L2), and the operations 2 * 128^3 per scheduled tile triple.
+// Integer sums are exact in any order.
 //
-// K3: one block per (block-row, 128-column tile) on the int8 tensor-core
-// tile (mma_s8_tile.cuh: mma.sync m16n8k32, a three-stage cp.async ring,
-// Q's k-major tiles transposed in registers with prmt between shared
-// memory and the mma); the column tile runs fastest, so the blocks of one block-row
-// read P[i] from L2 and Q is read once.  The epilogue pairs neighbouring
-// lanes' accumulators with one shuffle so that each lane multiplies four
-// consecutive outputs by a 4-byte mask word and writes them with one
-// 16-byte store.
+// K3: one block per (block-row, 128-column tile); the column tile runs
+// fastest, so the blocks of one block-row read P[i] from L2 and Q is read
+// once.  It writes a 4-byte product per entry against the operands' 1, so
+// it is bound by bytes: at the Wathen 128 plan 350 MB, 127 MB of it the
+// int32 output.  The epilogue pairs neighbouring lanes' accumulators with
+// one shuffle so that each lane multiplies four consecutive outputs by a
+// 4-byte mask word and writes them with one 16-byte store.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "dp4a_tile.cuh"    // T, TN, NT and the __dp4a tile_product
-#include "mma_s8_tile.cuh"  // mma_s8::tile_product (K3)
+#include "mma_s8_tile.cuh"  // the int8 tensor-core tile and masked_sum
 
 namespace {
 
-// Block-wide sum over r < 128, c < 64 of (A.B)[r,c] * Msk[r,c] (operands as
-// for tile_product; Msk: row r at Msk + r*ldm).  The result is valid in
-// thread 0.
-__device__ int masked_tile_sum(const int8_t* __restrict__ A, long lda,
-                               const int8_t* __restrict__ B, long ldb,
-                               const int8_t* __restrict__ Msk, long ldm,
-                               int K) {
-  __shared__ int red[NT / 32];
-  const int t = threadIdx.x;
-  const int tx = t % 16, ty = t / 16;
-  int acc[8][4];
-  tile_product(A, lda, B, ldb, K, acc);
-  int s = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      s += acc[i][j] * (int)Msk[(long)(ty + 16 * i) * ldm + tx + 16 * j];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    s += __shfl_down_sync(0xffffffffu, s, off);
-  if (t % 32 == 0) red[t / 32] = s;
-  __syncthreads();
-  if (t < 32) {
-    s = t < NT / 32 ? red[t] : 0;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      s += __shfl_down_sync(0xffffffffu, s, off);
-  }
-  return s;
-}
+constexpr int T = 128;  // panel block width (rows and columns of a tile)
 
-// Grid (nI, Wb, 2): block-row i, band offset s (J = i - s), column half h.
-// P (nI, T, Wb*T): L block-row i over column blocks [i-Wb+1, i].
-// Ut (nI, Wb*T, T): U block-row J transposed, over column blocks [J, J+Wb).
-// The pair's contraction runs over the (s+1)*T columns [J*T, (i+1)*T): P's
-// columns from jj*T (jj = Wb-1-s) against Ut[J]'s first (s+1)*T rows; the
-// mask is P's own column block jj.
-__global__ void __launch_bounds__(NT)
-tri_band_ring_kernel(const int8_t* __restrict__ P,
-                     const int8_t* __restrict__ Ut, int* partials, int Wb) {
-  const int i = blockIdx.x, s = blockIdx.y, h = blockIdx.z;
-  if (i < s) return;  // J < 0: warm-up rows contribute nothing
-  const int J = i - s;
-  const int jj = Wb - 1 - s;
-  const long W = (long)Wb * T;
-  const int8_t* Pi = P + (long)i * T * W;
-  const int sum = masked_tile_sum(Pi + (long)jj * T, W,
-                                  Ut + (long)J * W * T + h * TN, T,
-                                  Pi + (long)jj * T + h * TN, W,
-                                  (s + 1) * T);
+// The body of both count kernels for schedule entry o = blockIdx.x of
+// block-row i: stages the output's k-blocks kblk[kptr[o] .. kptr[o+1]) (at
+// most NT) in shared memory, starts the mask tile's copy, sums A_kb . B_kb
+// over them (``pair(kb, a, b)`` sets k-block kb's tiles; lda, ldb their
+// leading dimensions), and adds the masked block sum to partials[i].  The
+// mask lands with the first stage, before the tile's first barrier: every
+// scheduled output has a k-block.
+template <class Pair>
+__device__ __forceinline__ void masked_count(
+    const int* __restrict__ kptr, const int* __restrict__ kblk, long i,
+    const Pair& pair, long lda, long ldb, const int8_t* __restrict__ Msk,
+    long ldm, int* partials) {
+  extern __shared__ __align__(16) uint32_t mm_smem[];
+  __shared__ int kb[mma_s8::NT];
+  const int o = blockIdx.x;
+  const int k0 = kptr[o], npairs = kptr[o + 1] - k0;
+  if (threadIdx.x < npairs) kb[threadIdx.x] = kblk[k0 + threadIdx.x];
+  __syncthreads();
+  uint32_t* const Ms = mm_smem + mma_s8::SMEM_BYTES / 4;
+  mma_s8::copy_mask(Msk, ldm, Ms);
+  int acc[2][8][4];
+  mma_s8::tile_accumulate_nn(
+      [&](int q, const int8_t*& a, const int8_t*& b) { pair(kb[q], a, b); },
+      npairs, lda, ldb, T, mm_smem, acc);
+  const int sum = mma_s8::masked_sum(acc, Ms);
   if (threadIdx.x == 0 && sum != 0) atomicAdd(partials + i, sum);
 }
 
-// Grid (nI, nJ/TN): block-row i, output column tile c.
-// P (nI, T, W), Q (nI, W, nJ), M (nI, T, nJ).
-__global__ void __launch_bounds__(NT)
+// Grid nout: schedule entry o is block-row i = rows[o] and band offset s =
+// cols[o] (J = i - s, jj = Wb-1-s).  P (nI, T, Wb*T): L block-row i over
+// column blocks [i-Wb+1, i].  Ut (nI, Wb*T, T): U block-row J transposed,
+// over column blocks [J, J+Wb).  K-block kb is P[i]'s column block jj+kb
+// against Ut[J]'s row block kb; the mask is P[i]'s column block jj.
+__global__ void __launch_bounds__(mma_s8::NT, 2)
+tri_band_ring_kernel(const int8_t* __restrict__ P,
+                     const int8_t* __restrict__ Ut,
+                     const int* __restrict__ rows,
+                     const int* __restrict__ cols,
+                     const int* __restrict__ kptr,
+                     const int* __restrict__ kblk, int* partials, int Wb) {
+  const long i = rows[blockIdx.x];
+  const int s = cols[blockIdx.x];
+  const long W = (long)Wb * T;
+  const int8_t* Pi = P + i * T * W + (long)(Wb - 1 - s) * T;  // block jj
+  const int8_t* UtJ = Ut + (i - s) * W * T;
+  masked_count(
+      kptr, kblk, i,
+      [&](int kb, const int8_t*& a, const int8_t*& b) {
+        a = Pi + (long)kb * T;
+        b = UtJ + (long)kb * T * T;
+      },
+      W, T, Pi, W, partials);
+}
+
+// Grid nout: schedule entry o is block-row i = rows[o] and output column
+// tile c = cols[o].  P (nI, T, W), Q (nI, W, nJ), M (nI, T, nJ).  K-block
+// kb is P[i]'s column block kb against Q[i]'s tile (kb, c); the mask is
+// M[i]'s tile c.
+__global__ void __launch_bounds__(mma_s8::NT, 2)
 window_count_kernel(const int8_t* __restrict__ P,
                     const int8_t* __restrict__ Q,
-                    const int8_t* __restrict__ M, int* partials, int W,
+                    const int8_t* __restrict__ M,
+                    const int* __restrict__ rows,
+                    const int* __restrict__ cols,
+                    const int* __restrict__ kptr,
+                    const int* __restrict__ kblk, int* partials, int W,
                     int nJ) {
-  const int i = blockIdx.x;
-  const long c0 = (long)blockIdx.y * TN;
-  const int sum = masked_tile_sum(P + (long)i * T * W, W,
-                                  Q + (long)i * W * nJ + c0, nJ,
-                                  M + (long)i * T * nJ + c0, nJ, W);
-  if (threadIdx.x == 0 && sum != 0) atomicAdd(partials + i, sum);
+  const long i = rows[blockIdx.x], c0 = (long)cols[blockIdx.x] * T;
+  const int8_t* Pi = P + i * T * W;
+  const int8_t* Qi = Q + i * W * nJ + c0;
+  masked_count(
+      kptr, kblk, i,
+      [&](int kb, const int8_t*& a, const int8_t*& b) {
+        a = Pi + (long)kb * T;
+        b = Qi + (long)kb * T * nJ;
+      },
+      W, nJ, M + i * T * nJ + c0, nJ, partials);
 }
 
 // Grid nI * (nJ / 128): block b is block-row b / (nJ / 128), column tile
@@ -151,28 +168,55 @@ window_mm_kernel(const int8_t* __restrict__ P, const int8_t* __restrict__ Q,
     }
 }
 
+// dynamic shared memory of the count kernels: the tile, then the mask
+constexpr int COUNT_SMEM = mma_s8::SMEM_BYTES + mma_s8::MASK_BYTES;
+
+// Lets ``kernel`` take ``bytes`` of dynamic shared memory; 0 or the CUDA
+// error.
+template <class Kernel>
+int allow_smem(Kernel kernel, int bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
 }  // namespace
 
-// partials (nI,) int32 must be zeroed by the caller.  Wb*T and T are the
-// panel widths; the wrapper checks shapes, dtype (int8) and contiguity.
-extern "C" int gb_tri_band_ring(const void* P, const void* Ut, void* partials,
-                                int nI, int Wb, void* stream) {
-  if (nI > 0) {
-    tri_band_ring_kernel<<<dim3(nI, Wb, T / TN), NT, 0,
+// partials (nI,) int32 must be zeroed by the caller.  rows, cols, kptr
+// (nout + 1), kblk: the int32 schedule (sparse/window.py), every output
+// with 1 to 256 k-blocks.  The wrapper checks shapes, dtype (int8),
+// contiguity and 16-byte aligned panels.
+extern "C" int gb_tri_band_ring(const void* P, const void* Ut,
+                                const void* rows, const void* cols,
+                                const void* kptr, const void* kblk,
+                                void* partials, int nout, int Wb,
+                                void* stream) {
+  if (nout > 0) {
+    const int rc = allow_smem(tri_band_ring_kernel, COUNT_SMEM);
+    if (rc) return rc;
+    tri_band_ring_kernel<<<nout, mma_s8::NT, COUNT_SMEM,
                            (cudaStream_t)stream>>>(
-        (const int8_t*)P, (const int8_t*)Ut, (int*)partials, Wb);
+        (const int8_t*)P, (const int8_t*)Ut, (const int*)rows,
+        (const int*)cols, (const int*)kptr, (const int*)kblk,
+        (int*)partials, Wb);
   }
   return (int)cudaGetLastError();
 }
 
-// W and nJ are multiples of T (the plan's 128-blocks).
+// W and nJ are multiples of T (the plan's 128-blocks); the schedule as for
+// gb_tri_band_ring.
 extern "C" int gb_window_count(const void* P, const void* Q, const void* M,
-                               void* partials, int nI, int W, int nJ,
+                               const void* rows, const void* cols,
+                               const void* kptr, const void* kblk,
+                               void* partials, int nout, int W, int nJ,
                                void* stream) {
-  if (nI > 0 && W > 0 && nJ > 0) {
-    window_count_kernel<<<dim3(nI, nJ / TN), NT, 0, (cudaStream_t)stream>>>(
-        (const int8_t*)P, (const int8_t*)Q, (const int8_t*)M, (int*)partials,
-        W, nJ);
+  if (nout > 0) {
+    const int rc = allow_smem(window_count_kernel, COUNT_SMEM);
+    if (rc) return rc;
+    window_count_kernel<<<nout, mma_s8::NT, COUNT_SMEM,
+                          (cudaStream_t)stream>>>(
+        (const int8_t*)P, (const int8_t*)Q, (const int8_t*)M,
+        (const int*)rows, (const int*)cols, (const int*)kptr,
+        (const int*)kblk, (int*)partials, W, nJ);
   }
   return (int)cudaGetLastError();
 }
@@ -183,10 +227,8 @@ extern "C" int gb_window_count(const void* P, const void* Q, const void* M,
 extern "C" int gb_window_mm(const void* P, const void* Q, const void* M,
                             void* out, int nI, int W, int nJ, void* stream) {
   if (nI > 0 && W > 0 && nJ > 0) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        window_mm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        mma_s8::SMEM_BYTES);
-    if (rc != cudaSuccess) return (int)rc;
+    const int rc = allow_smem(window_mm_kernel, mma_s8::SMEM_BYTES);
+    if (rc) return rc;
     window_mm_kernel<<<(unsigned)((long)nI * (nJ / mma_s8::BN)),
                        mma_s8::NT, mma_s8::SMEM_BYTES,
                        (cudaStream_t)stream>>>(

@@ -28,14 +28,16 @@ from .tri import (allktruss_esc, csr_filter_lanes, csr_tril, csr_triu,
                   tricount_device, tricount_esc, tricount_prep_csr)
 from .valdot import (ValdotPlan, build_valdot_plan, valdot_gatherdot,
                      valdot_gatherdot_rows, valdot_masked_spgemm)
-from .window import (BandPlan, WindowPlan, build_band_plan,
-                     build_window_plan, tricount_window,
-                     window_masked_count_sum, window_masked_mm)
+from .window import (BandPlan, TileSchedule, WindowPlan, band_schedule,
+                     build_band_plan, build_window_plan, tricount_window,
+                     window_masked_count_sum, window_masked_mm,
+                     window_schedule)
 
 __all__ = [
     "CsrMatrix", "CscMatrix", "csr_from_coo", "default_device",
     "BandPlan", "WindowPlan", "build_band_plan", "build_window_plan",
     "tricount_window", "window_masked_count_sum", "window_masked_mm",
+    "TileSchedule", "band_schedule", "window_schedule",
     "tricount_band_partials", "window_count_partials",
     "window_masked_mm_pallas",
     "BitdotPlan", "PackLevel", "build_bitdot_plan", "bitdot_counts",

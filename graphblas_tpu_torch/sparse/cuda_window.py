@@ -7,11 +7,15 @@ current stream.
 
 Each wrapper takes the plan's int8 panels and returns per-block-row
 int32 partials (the caller sums them in int64) or, for
-``window_masked_mm_pallas``, the masked int32 product panels (K3, on the
-int8 tensor-core tile of ``csrc/mma_s8_tile.cuh``; the band ring and the
-window count use the ``__dp4a`` tile of ``csrc/dp4a_tile.cuh``).  On a CUDA
-tensor it launches the kernel (or raises); on a CPU tensor it runs the
-kernel's plain PyTorch version, defined here beside it.
+``window_masked_mm_pallas``, the masked int32 product panels.  All three
+kernels run on the int8 tensor-core tile of ``csrc/mma_s8_tile.cuh``.
+The band ring (K1) and the window count (K2) multiply only the tile
+triples of the plan's :class:`~.window.TileSchedule` (its nonempty
+128x128 tiles), which the wrapper builds at the first launch and the
+plan keeps.  On a CUDA tensor a wrapper launches the kernel (or
+raises); on a CPU tensor it runs the kernel's plain PyTorch version,
+defined here beside it.  ``_tri_band_partials_scheduled`` and
+``_window_count_scheduled`` are the plain versions over a schedule.
 
 Engine names (``last_axb_method``), port <-> JAX package:
 
@@ -26,10 +30,17 @@ import torch
 
 from .. import _build
 from ..ops.flopcount import record_axb_method
-from .window import T, BandPlan, WindowPlan
+from .window import (T, BandPlan, TileSchedule, WindowPlan, band_schedule,
+                     window_schedule)
 
 __all__ = ["tricount_band_partials", "window_count_partials",
            "window_masked_mm_pallas"]
+
+#: tile triples per batched product of the scheduled plain versions
+_PLAIN_CHUNK = 1 << 10
+#: k-blocks an output may take in the count kernels (one CUDA block's
+#: threads stage the list)
+_MAX_KBLOCKS = 256
 
 
 def _check_panels(*named) -> torch.device:
@@ -68,10 +79,62 @@ def _tri_band_partials_plain(P: torch.Tensor,
     return out.to(torch.int32)
 
 
+def _triples(sched: TileSchedule):
+    """(output row, output column, k-block) of each of a schedule's tile
+    triples, int64."""
+    counts = (sched.kptr[1:] - sched.kptr[:-1]).long()
+    o = torch.repeat_interleave(
+        torch.arange(sched.nout, device=counts.device), counts)
+    return sched.rows.long()[o], sched.cols.long()[o], sched.kblk.long()
+
+
+def _scheduled_sum(nI: int, i: torch.Tensor, tiles) -> torch.Tensor:
+    """Partials (nI,) int32: per triple t, sum(A_t @ B_t * M_t) added to
+    row i[t], with ``tiles(sl)`` giving the (A, B, M) tile stacks of the
+    triples ``sl``; products in float64, exact at these sums."""
+    out = torch.zeros(nI, dtype=torch.int64, device=i.device)
+    for c in range(0, i.numel(), _PLAIN_CHUNK):
+        sl = slice(c, c + _PLAIN_CHUNK)
+        A, B, Msk = tiles(sl)
+        part = (torch.bmm(A.double(), B.double()) * Msk).sum((1, 2))
+        out.index_add_(0, i[sl], part.long())
+    return out.to(torch.int32)
+
+
+def _tri_band_partials_scheduled(P: torch.Tensor, Ut: torch.Tensor,
+                                 sched: TileSchedule) -> torch.Tensor:
+    """Plain version of the band-ring kernel over its schedule: for each
+    triple (output (i, s), k-block kb), sum(P[i] tile jj+kb @ Ut[i-s]
+    tile kb * P[i] tile jj), jj = Wb-1-s, into partials[i].  Equal to
+    :func:`_tri_band_partials_plain`: every tile product left out has an
+    empty operand or mask tile."""
+    nI, _, W = P.shape
+    Wb = W // T
+    P4, U4 = P.view(nI, T, Wb, T), Ut.view(nI, Wb, T, T)
+    i, s, kb = _triples(sched)
+    jj = Wb - 1 - s
+    return _scheduled_sum(nI, i, lambda sl: (
+        P4[i[sl], :, jj[sl] + kb[sl], :], U4[i[sl] - s[sl], kb[sl]],
+        P4[i[sl], :, jj[sl], :]))
+
+
+def _check_kblocks(nk: int):
+    """Raise on panels of more k-blocks than the count kernels take."""
+    if nk > _MAX_KBLOCKS:
+        raise ValueError(f"the count kernels take at most {_MAX_KBLOCKS} "
+                         f"k-blocks an output; the panels have {nk}")
+
+
+def _check_aligned(*xs):
+    if any(x.data_ptr() % 16 for x in xs):
+        raise ValueError("the window kernels read 16-byte aligned panels")
+
+
 def tricount_band_partials(plan: BandPlan) -> torch.Tensor:
     """Per-block-row triangle partials (nI,) int32 of a band plan; the
     triangle count is their int64 sum.  The mask is the P panel itself
-    (the SandiaDot mask L is the left operand)."""
+    (the SandiaDot mask L is the left operand).  On the card the kernel
+    multiplies the tile triples of :func:`~.window.band_schedule`."""
     P, Ut = plan.P, plan.Ut
     dev = _check_panels(("P", P), ("Ut", Ut))
     nI, rows, W = P.shape
@@ -81,9 +144,15 @@ def tricount_band_partials(plan: BandPlan) -> torch.Tensor:
     if dev.type == "cpu":
         record_axb_method("torch:tri_band_ring")
         return _tri_band_partials_plain(P, Ut)
+    _check_kblocks(W // T)
+    _check_aligned(P, Ut)
+    sched = band_schedule(plan)
     out = torch.zeros(nI, dtype=torch.int32, device=dev)
-    _build.launch("tri_band_ring", P, P.data_ptr(), Ut.data_ptr(),
-                  out.data_ptr(), nI, W // T)
+    if sched.nout:
+        _build.launch("tri_band_ring", P, P.data_ptr(), Ut.data_ptr(),
+                      sched.rows.data_ptr(), sched.cols.data_ptr(),
+                      sched.kptr.data_ptr(), sched.kblk.data_ptr(),
+                      out.data_ptr(), sched.nout, W // T)
     record_axb_method("cuda:tri_band_ring")
     return out
 
@@ -103,6 +172,24 @@ def _window_count_plain(P: torch.Tensor, Q: torch.Tensor,
     return _window_mm_plain(P, Q, M).sum((1, 2)).to(torch.int32)
 
 
+def _window_count_scheduled(P: torch.Tensor, Q: torch.Tensor,
+                            M: torch.Tensor,
+                            sched: TileSchedule) -> torch.Tensor:
+    """Plain version of the window-count kernel over its schedule: for
+    each triple (output (i, c), k-block kb), sum(P[i] tile kb @ Q[i] tile
+    (kb, c) * M[i] tile c) into partials[i].  Equal to
+    :func:`_window_count_plain`."""
+    nI, _, W = P.shape
+    nJ = M.shape[2]
+    P4 = P.view(nI, T, W // T, T)
+    Q5 = Q.view(nI, W // T, T, nJ // T, T)
+    M4 = M.view(nI, T, nJ // T, T)
+    i, c, kb = _triples(sched)
+    return _scheduled_sum(nI, i, lambda sl: (
+        P4[i[sl], :, kb[sl], :], Q5[i[sl], kb[sl], :, c[sl], :],
+        M4[i[sl], :, c[sl], :]))
+
+
 def _check_window(plan: WindowPlan):
     """(P, Q, M, device) of a window plan whose panels fit together."""
     P, Q, M = plan.P, plan.Q, plan.M
@@ -120,15 +207,23 @@ def _check_window(plan: WindowPlan):
 def window_count_partials(plan: WindowPlan) -> torch.Tensor:
     """Per-block-row masked-count partials (nI,) int32 of a window plan.
     Each partial is bounded by 128 * (16*128)^2 < 2^31, so int32 is safe;
-    callers take the total in int64."""
+    callers take the total in int64.  On the card the kernel multiplies
+    the tile triples of :func:`~.window.window_schedule`."""
     P, Q, M, dev = _check_window(plan)
     if dev.type == "cpu":
         record_axb_method("torch:window_count")
         return _window_count_plain(P, Q, M)
     nI, _, W = P.shape
+    _check_kblocks(W // T)
+    _check_aligned(P, Q, M)
+    sched = window_schedule(plan)
     out = torch.zeros(nI, dtype=torch.int32, device=dev)
-    _build.launch("window_count", P, P.data_ptr(), Q.data_ptr(),
-                  M.data_ptr(), out.data_ptr(), nI, W, M.shape[2])
+    if sched.nout:
+        _build.launch("window_count", P, P.data_ptr(), Q.data_ptr(),
+                      M.data_ptr(), sched.rows.data_ptr(),
+                      sched.cols.data_ptr(), sched.kptr.data_ptr(),
+                      sched.kblk.data_ptr(), out.data_ptr(), sched.nout, W,
+                      M.shape[2])
     record_axb_method("cuda:window_count")
     return out
 
@@ -144,9 +239,7 @@ def window_masked_mm_pallas(plan: WindowPlan) -> torch.Tensor:
         return _window_mm_plain(P, Q, M)
     nI, _, W = P.shape
     nJ = M.shape[2]
-    if any(x.data_ptr() % 16 for x in (P, Q, M)):
-        raise ValueError("the window product kernel reads 16-byte aligned "
-                         "panels")
+    _check_aligned(P, Q, M)
     out = torch.empty((nI, T, nJ), dtype=torch.int32, device=dev)
     _build.launch("window_mm", P, P.data_ptr(), Q.data_ptr(), M.data_ptr(),
                   out.data_ptr(), nI, W, nJ)

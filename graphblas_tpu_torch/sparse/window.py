@@ -16,7 +16,10 @@ then moved to the device of the operands.  ``build_window_plan`` and
 The per-block partial sums and the masked product panels are computed
 by the kernels of :mod:`cuda_window`; :func:`window_masked_count_sum`
 and :func:`window_masked_mm` are the plain PyTorch product (the JAX
-package's XLA versions).
+package's XLA versions).  The count kernels run over a
+:class:`TileSchedule` of the plan's nonempty 128x128 tiles
+(:func:`band_schedule`, :func:`window_schedule`), derived from the
+panels on their device at the first launch and cached on the plan.
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ from ..ops.flopcount import record_axb_method
 
 __all__ = ["WindowPlan", "BandPlan", "build_window_plan",
            "build_band_plan", "window_masked_count_sum", "window_masked_mm",
-           "tricount_window"]
+           "tricount_window", "TileSchedule", "band_schedule",
+           "window_schedule"]
 
 T = 128
 
@@ -57,6 +61,7 @@ class WindowPlan:
         self.ntriples = ntriples   # real tile-triple count (flop truth)
         self.shape = shape
         self.mshape = mshape
+        self.schedule = None  # TileSchedule, built at the first launch
 
     @property
     def panel_bytes(self):
@@ -257,6 +262,7 @@ class BandPlan:
         self.Wb = Wb
         self.ntriples = ntriples
         self.nedges = nedges
+        self.schedule = None  # TileSchedule, built at the first launch
 
     @property
     def panel_bytes(self):
@@ -308,3 +314,107 @@ def build_band_plan(L, U) -> Optional[BandPlan]:
                     nI, wb, ntr, len(rl))
     L._options[key] = plan
     return plan
+
+
+# ---------------------------------------------------------------------------
+# Tile schedules: the nonempty 128x128 tiles the count kernels multiply
+# ---------------------------------------------------------------------------
+
+#: schedule builds by plan kind ("band", "window"); a warm call adds none
+schedule_builds = {"band": 0, "window": 0}
+
+
+class TileSchedule:
+    """The output tiles of a band or window plan whose mask tile is
+    nonempty and, for each, the k-blocks whose A and B tiles are both
+    nonempty, as int32 tensors on the panels' device.  Output o is
+    (``rows[o]``, ``cols[o]``): (block-row i, band offset s) for a band
+    plan, (block-row i, column tile c) for a window plan; its k-blocks
+    are ``kblk[kptr[o]:kptr[o+1]]``, ascending.  Outputs come heaviest
+    first, and none has an empty list.  ``panels`` are the tensors it
+    was derived from."""
+
+    def __init__(self, rows, cols, kptr, kblk, panels):
+        self.rows = rows
+        self.cols = cols
+        self.kptr = kptr
+        self.kblk = kblk
+        self.panels = panels
+        self.nout = int(rows.numel())
+        self.ntriples = int(kblk.numel())
+
+    def fits(self, panels) -> bool:
+        """Whether it was derived from these very panel tensors."""
+        return len(panels) == len(self.panels) and all(
+            a is b for a, b in zip(panels, self.panels))
+
+
+def _occupied(x: torch.Tensor) -> torch.Tensor:
+    """(n, R/T, C/T) bool: the 128x128 tiles of the (n, R, C) panels
+    that hold a nonzero."""
+    n, R, C = x.shape
+    return torch.any(x.view(n, R // T, T, C // T, T), dim=(2, 4))
+
+
+def _compact(cube: torch.Tensor, panels) -> TileSchedule:
+    """TileSchedule of a (nI, nO, nK) bool cube: output (i, o) takes the
+    k-blocks k with cube[i, o, k]."""
+    counts = cube.sum(2)
+    oi, oc = torch.nonzero(counts, as_tuple=True)
+    w = counts[oi, oc]
+    order = torch.argsort(w, descending=True, stable=True)
+    oi, oc = oi[order], oc[order]
+    kptr = torch.zeros(oi.numel() + 1, dtype=torch.int32, device=cube.device)
+    kptr[1:] = torch.cumsum(w[order], 0)
+    kblk = torch.nonzero(cube[oi, oc])[:, 1]
+    return TileSchedule(oi.to(torch.int32), oc.to(torch.int32), kptr,
+                        kblk.to(torch.int32), panels)
+
+
+def _cached(plan, kind: str, panels, cube) -> TileSchedule:
+    """The plan's schedule, built from ``cube(*panels)`` unless the plan
+    holds one derived from these panels."""
+    if plan.schedule is None or not plan.schedule.fits(panels):
+        plan.schedule = _compact(cube(*panels), panels)
+        schedule_builds[kind] += 1
+    return plan.schedule
+
+
+def _band_cube(P: torch.Tensor, Ut: torch.Tensor) -> torch.Tensor:
+    """(nI, Wb, Wb) bool: the band ring's tile triples (i, s, kb)."""
+    nI, _, W = P.shape
+    Wb = W // T
+    occP = _occupied(P)[:, 0, :]      # (nI, Wb): P[i]'s column blocks
+    occU = _occupied(Ut)[:, :, 0]     # (nI, Wb): Ut[J]'s row blocks
+    dev = P.device
+    i = torch.arange(nI, device=dev)[:, None, None]
+    s = torch.arange(Wb, device=dev)[None, :, None]
+    kb = torch.arange(Wb, device=dev)[None, None, :]
+    jj, J = Wb - 1 - s, i - s
+    return ((J >= 0) & (kb <= s) & occP[i, jj]
+            & occP[i, (jj + kb).clamp(max=Wb - 1)] & occU[J.clamp(min=0), kb])
+
+
+def _window_cube(P: torch.Tensor, Q: torch.Tensor,
+                 M: torch.Tensor) -> torch.Tensor:
+    """(nI, nJ/T, W/T) bool: the window count's tile triples (i, c, kb)."""
+    # (nI, nJ/T, 1) mask tiles, (nI, 1, W/T) P's, (nI, nJ/T, W/T) Q's
+    return (_occupied(M).transpose(1, 2) & _occupied(P)
+            & _occupied(Q).transpose(1, 2))
+
+
+def band_schedule(plan: BandPlan) -> TileSchedule:
+    """The band-ring kernel's schedule, cached on the plan: output (i, s)
+    (J = i - s >= 0, jj = Wb-1-s) where P[i]'s column block jj (the mask
+    tile L(i, J)) is nonempty, with the k-blocks kb <= s where P[i]'s
+    column block jj+kb and Ut[J]'s row block kb (L(i, J+kb), U(J, J+kb))
+    are both nonempty.  Its triples are the plan's ``ntriples``."""
+    return _cached(plan, "band", (plan.P, plan.Ut), _band_cube)
+
+
+def window_schedule(plan: WindowPlan) -> TileSchedule:
+    """The window-count kernel's schedule, cached on the plan: output
+    (i, c) where M[i]'s column tile c is nonempty, with the k-blocks kb
+    where P[i]'s column block kb and Q[i]'s tile (kb, c) are both
+    nonempty."""
+    return _cached(plan, "window", (plan.P, plan.Q, plan.M), _window_cube)

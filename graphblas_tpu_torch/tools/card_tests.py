@@ -31,7 +31,7 @@ STAND_INS = ("jax", "graphblas_tpu")
 FILES = ("test_torch_bitdot.py", "test_torch_bsr.py",
          "test_torch_bsr_spmv.py", "test_torch_probes.py",
          "test_torch_tropical.py", "test_torch_valdot.py",
-         "test_torch_valdot_compact.py")
+         "test_torch_valdot_compact.py", "test_torch_window.py")
 
 TESTS = Path(__file__).resolve().parents[2] / "tests"
 

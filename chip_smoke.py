@@ -2,9 +2,10 @@
 """Drive the PyTorch port's paths once on one CUDA card (triangle
 counting, the masked valued product ``mxm``, SpMV with BFS and
 PageRank, ``mxm`` into a bitmap ``Matrix``: all-pairs shortest paths
-by min-plus squaring and an SpMM, and the BSR tile engine with k-truss
-and the gather probes), and check each hand-written kernel against its
-plain PyTorch version.
+by min-plus squaring and an SpMM, the BSR tile engine with k-truss
+and the gather probes, and the element-wise, select, reduce and
+transpose operations with the counting models built on them), and
+check each hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -131,7 +132,27 @@ uncaught exception and a nonzero exit):
    (k=5: 726,973 edges, 10 sweeps) and 18 (k=10: 2,292,950 edges, 13
    sweeps), edges being half the symmetric truss's entries, through
    ``bitdot:ktruss_incremental``; ``allktruss_esc`` on R-MAT 16 to k=5;
-   and both probes' ``run()``.
+   and both probes' ``run()``;
+20. the reference's ``tri_demo`` flow through the operations on the
+   R-MAT 18 graph of phase 6 as CSR on the card: the degree-permuted
+   symmetric ``P = A(perm, perm)`` (the permutation of
+   ``tricount_prep_csr``); ``select(tril, -1)`` / ``select(triu, 1)``
+   equal ``tricount_prep_csr``'s L and U entry for entry;
+   ``eWiseAdd(lor)`` of L and U has P's pattern;
+   ``reduce_to_vector(plus[INT64])`` of P equals the host degrees;
+   ``transpose(L)`` equals U; ``mxm(C<L>, plus_times[UINT32], L, U,
+   TRAN1)`` then ``reduce_to_scalar(plus[INT64])`` gives 82,947,332;
+   each op's first and warm time, the engine and the kernels it
+   launched;
+21. k-truss through the operations on CSR: ``models.ktruss`` (``mxm(C<C>,
+   plus_land[INT64], C, C)`` then ``select(SUPPORT, k - 2)``) on the
+   symmetrized R-MAT 16 graph, k = 5: 726,973 edges in 10 sweeps, equal
+   to ``ktruss_esc`` entry for entry (supports too);
+22. the models on the card on the symmetrized R-MAT 10 graph as a
+   bitmap ``Matrix``: the six ``models.tricount`` methods equal
+   ``tricount_esc``; ``models.ktruss`` (k = 4) equals ``ktruss_esc``
+   entry for entry; ``models.allktruss`` equals ``allktruss_esc`` in
+   edges and triangles per k; ``models.kron_generate`` equals ``kron``.
 
 Launch counters are zeroed just before each path and read just after
 it: before phase 3 and after phase 9 (triangle counting and ``mxm``:
@@ -140,7 +161,11 @@ and after phase 13 (SpMV: K5), before and after phase 16 (the bitmap
 ``mxm`` path: K6 and K3), before and after phase 19 (the tile engine,
 k-truss and the probes: K7, the popcount pass, both probe kernels and
 the dense gather-dot, which the gather-dot probe times); every kernel of
-a path must have launched there.  The line before the
+a path must have launched there.  Phases 20, 21 and 22 are read apart
+(``ops_tri_demo``, ``ops_ktruss``, ``models``), every kernel's count
+printed: their engines choose which kernels run.  Their references
+(``ktruss_esc``, ``tricount_esc``, ``allktruss_esc``, ``kron``) run
+outside the counted window, so a count is the path's own.  The line before the
 last is the per-kernel JSON summary, with each kernel's bound (the
 larger of its compulsory bytes over 3.35 TB/s and its operations over
 the card's peak for their type); the last line is
@@ -178,6 +203,8 @@ BSR_PATH = ("bsr_masked_mm", "bitdot_popcount", "row_gather",
 # k-truss of the symmetrized R-MAT graphs (ef 16, seed 7): scale -> (k,
 # undirected edges = half the truss's entries, sweeps), ROADMAP.md anchors
 KTRUSS_ANCHORS = {16: (5, 726_973, 10), 18: (10, 2_292_950, 13)}
+# every kernel, in the order of the summary line
+KERNELS = tuple(dict.fromkeys(MXM_PATH + SPMV_PATH + BITMAP_PATH + BSR_PATH))
 
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes/s,
 # int8 tensor-core ops/s, and the CUDA cores' 32-bit ops/s (the float32
@@ -1775,6 +1802,181 @@ def main() -> None:
     assert not missing, \
         f"kernels not launched on the tile-engine path: {missing}"
     path_launches["bsr_ktruss_probes"] = bsr_launches
+
+    # ---- the operations and the counting models: 20-22, counted ----
+    e64 = np.zeros(0, np.int64)
+
+    def empty_csr(t, n):
+        return gt.CsrMatrix.from_coo(e64, e64, np.zeros(0, t.dtype), n, n,
+                                     type=t, device="cuda")
+
+    def same_entries(X, Y, what):
+        """X and Y hold the same entries (rows, columns, values)."""
+        assert X.shape == Y.shape and X.nvals == Y.nvals, \
+            (what, X.shape, Y.shape, X.nvals, Y.nvals)
+        for a, b in zip(X.extractTuples(), Y.extractTuples()):
+            assert np.array_equal(a, b), f"{what}: entries differ"
+
+    def path_counts():
+        """every kernel's count since the last reset_launches()"""
+        return {k: _build.launches[k] for k in KERNELS}
+
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    # 20. the reference's tri_demo flow through the operations, R-MAT 18
+    t_phase = time.perf_counter()
+    L18, U18, _, A18s = graphs[18]
+    n = A18s.nrows
+    hp = A18s._options["host_pattern"]
+    I18 = hp[0][:A18s.nvals].astype(np.int64)
+    J18 = hp[1][:A18s.nvals].astype(np.int64)
+    t0 = time.perf_counter()
+    deg = np.bincount(I18, minlength=n)
+    perm = np.argsort(deg, kind="stable")     # sparse/tri.py:363-367
+    rank = np.empty(n, np.int64)
+    rank[perm] = np.arange(n)
+    P = gt.CsrMatrix.from_coo(rank[I18], rank[J18], np.ones(len(I18), bool),
+                              n, n, type=gt.BOOL, sum_duplicates=False,
+                              device="cuda")
+    p_secs = time.perf_counter() - t0
+    op_times = {}
+
+    def first_warm(name, fn):
+        before = dict(_build.launches)
+        out, first = timed(fn)
+        mid = dict(_build.launches)
+        _, warm = timed(fn)
+        op_times[name] = (first, warm, {k: mid[k] - before[k]
+                                        for k in KERNELS if mid[k] > before[k]})
+        return out
+    L = first_warm("select tril", lambda: gt.select(
+        empty_csr(gt.BOOL, n), None, None, gt.selectop.tril, P, -1))
+    U = first_warm("select triu", lambda: gt.select(
+        empty_csr(gt.BOOL, n), None, None, gt.selectop.triu, P, 1))
+    same_entries(L, L18, "select tril vs tricount_prep_csr's L")
+    same_entries(U, U18, "select triu vs tricount_prep_csr's U")
+    S = first_warm("eWiseAdd lor", lambda: gt.eWiseAdd(
+        empty_csr(gt.BOOL, n), None, None, gt.binary.lor[gt.BOOL], L, U))
+    assert S.nvals == P.nvals and torch.equal(
+        S.rowids[:S.nvals], P.rowids[:P.nvals]) and torch.equal(
+        S.indices[:S.nvals], P.indices[:P.nvals]), "L ∪ U is not P"
+    dvec = first_warm("reduce_to_vector plus", lambda: gt.reduce_to_vector(
+        gt.Vector.new(gt.INT64, n, device="cuda"), None, None,
+        gt.monoid.plus[gt.INT64], P))
+    assert np.array_equal(dvec.to_dense(), np.bincount(rank[I18],
+                                                       minlength=n)), \
+        "the degree reduce differs from the host degrees"
+    Lt = first_warm("transpose", lambda: gt.transpose(
+        empty_csr(gt.BOOL, n), None, None, L))
+    same_entries(Lt, U, "transpose(L) vs U")
+    C = first_warm("mxm plus_times UINT32", lambda: gt.mxm(
+        empty_csr(gt.UINT32, n), L, None, gt.semiring.plus_times[gt.UINT32],
+        L, U, gt.TRAN1))
+    mxm_engine = gt.last_axb_method()
+    ntri = first_warm("reduce_to_scalar plus", lambda: gt.reduce_to_scalar(
+        None, gt.monoid.plus[gt.INT64], C))
+    assert ntri == RMAT_ANCHORS[18][1], f"R-MAT 18 through the ops: {ntri}"
+    assert C.type.name == "UINT32" and C.nvals > 0
+    sync()
+    ops_launches = path_counts()
+    for name, (first, warm, kl) in op_times.items():
+        print(f"{tag} phase20 {name}: first {first:.4f} s, warm {warm:.4f} s"
+              f", kernels launched {json.dumps(kl)}")
+    print(f"{tag} phase20 R-MAT 18 tri_demo flow (n {n}, P {P.nvals} entries "
+          f"built in {p_secs:.3f} s): L, U == tricount_prep_csr's ({L.nvals}"
+          f" entries each), L ∪ U == P, degrees == host, transpose(L) == U; "
+          f"mxm<L> plus_times[UINT32] (L, U') via {mxm_engine}: nnzC "
+          f"{C.nvals}, sum {ntri} == {RMAT_ANCHORS[18][1]}; phase "
+          f"{time.perf_counter() - t_phase:.3f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated()} B")
+    print(f"ops-tri-demo-path launches: {json.dumps(ops_launches)}")
+    path_launches["ops_tri_demo"] = ops_launches
+    del P, L, U, S, Lt, C, dvec, L18, U18, I18, J18, rank, perm, deg
+
+    # 21. k-truss through the operations on CSR (models/ktruss.py's loop):
+    # R-MAT 16, k = 5; only models.ktruss runs inside the counted window
+    t_phase = time.perf_counter()
+    k, want_e, want_s = KTRUSS_ANCHORS[16]
+    A16s = graphs[16][3]
+    _build.reset_launches()
+    (C21, steps), secs = timed(lambda: gt.models.ktruss(A16s, k))
+    engine21 = gt.last_axb_method()
+    sync()
+    ktruss_launches = path_counts()
+    assert isinstance(C21, gt.CsrMatrix) and \
+        (C21.nvals // 2, steps) == (want_e, want_s), (C21.nvals, steps)
+    truss, sup, esc_steps = gt.ktruss_esc(A16s, k)
+    assert steps == esc_steps, (steps, esc_steps)
+    I21, J21, X21 = C21.extractTuples()
+    It, Jt, _ = truss.extractTuples()
+    assert np.array_equal(I21, It) and np.array_equal(J21, Jt), \
+        "the k-truss through the ops differs from ktruss_esc's"
+    assert np.array_equal(X21, sup[:truss.nvals].cpu().numpy()), \
+        "the supports differ from ktruss_esc's"
+    print(f"{tag} phase21 models.ktruss on CSR R-MAT 16 k={k}: "
+          f"{C21.nvals // 2} edges in {steps} sweeps == ktruss_esc entry for "
+          f"entry (supports too); {secs:.3f} s ({secs / steps:.3f} s a "
+          f"sweep, the last product via {engine21}); phase "
+          f"{time.perf_counter() - t_phase:.3f} s")
+    print(f"ops-ktruss-path launches: {json.dumps(ktruss_launches)}")
+    path_launches["ops_ktruss"] = ktruss_launches
+    del C21, truss, sup
+
+    # 22. the models on the card: symmetrized R-MAT 10 as a bitmap Matrix;
+    # the references run first, outside the counted window
+    t_phase = time.perf_counter()
+    n10 = 1 << 10
+    I10, J10 = gt.symmetrize_pattern(*gt.rmat_edges(10, 16, seed=7), n10)
+    X10 = np.ones(len(I10), bool)
+    A10 = gt.Matrix.from_coo(I10, J10, X10, n10, n10, type=gt.BOOL,
+                             device="cuda")
+    A10c = gt.CsrMatrix.from_coo(I10, J10, X10, n10, n10, type=gt.BOOL,
+                                 sum_duplicates=False, device="cuda")
+    A10f = gt.Matrix.from_coo(I10, J10, np.ones(len(I10)), n10, n10,
+                              type=gt.FP64, device="cuda")
+    rng6 = np.random.default_rng(6)
+    Bd = (rng6.random((3, 3)) < 0.5) * rng6.random((3, 3))
+    B3 = gt.Matrix.from_dense(Bd, gt.FP64, pattern=Bd != 0, device="cuda")
+    want10 = gt.tricount_esc(*gt.tricount_prep_csr(A10c))
+    t10, s10, est10 = gt.ktruss_esc(A10c, 4)
+    allk_esc = gt.allktruss_esc(A10c)
+    K2 = gt.kron(gt.Matrix.new(gt.FP64, 3 * n10, 3 * n10, device="cuda"),
+                 None, None, gt.binary.times[gt.FP64], A10f, B3)
+    sync()
+    _build.reset_launches()
+    L10, U10 = gt.models.tricount_prep(A10)
+    E10 = gt.models.edge_incidence(A10)
+    method_s, got10 = {}, {}
+    for m, name in enumerate(gt.models.METHODS):
+        got10[name], method_s[name] = timed(lambda: gt.models.tricount(
+            m, A=A10, E=E10, L=L10, U=U10))
+    C10, st10 = gt.models.ktruss(A10, 4)
+    allk = gt.models.allktruss(A10)
+    K1 = gt.models.kron_generate(A10f, B3)
+    sync()
+    models_launches = path_counts()
+    for name, got in got10.items():
+        assert got == want10, f"tricount {name}: {got} != {want10}"
+    I, J, X = C10.extractTuples()
+    It, Jt, _ = t10.extractTuples()
+    assert st10 == est10 and np.array_equal(I, It) and \
+        np.array_equal(J, Jt) and np.array_equal(
+            X, s10[:t10.nvals].cpu().numpy()), "models.ktruss != ktruss_esc"
+    assert {k: (v["nedges"], v["nt"]) for k, v in allk.items()} == \
+        {k: (v["nedges"], v["nt"]) for k, v in allk_esc.items()}, \
+        (allk, allk_esc)
+    assert torch.equal(K1.pattern, K2.pattern) and torch.equal(
+        K1.values, K2.values), "kron_generate != kron"
+    print(f"{tag} phase22 models on R-MAT 10 (n {n10}, {len(I10)} entries, "
+          f"bitmap): all six tricount methods == tricount_esc ({want10}); "
+          f"seconds " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                  method_s.items()) +
+          f"; ktruss k=4 {C10.nvals() // 2} edges in {st10} sweeps == "
+          f"ktruss_esc; allktruss to k={max(allk)} == allktruss_esc (edges, "
+          f"triangles); kron_generate == kron ({K1.nvals()} entries); phase "
+          f"{time.perf_counter() - t_phase:.3f} s")
+    print(f"models-path launches: {json.dumps(models_launches)}")
+    path_launches["models"] = models_launches
 
     sources = {
         "tri_band_ring": ("graphblas_tpu_torch/csrc/window.cu",

@@ -2,7 +2,7 @@
 
 The JAX package ``graphblas_tpu`` is the reference; this package keeps
 its module paths and function names so each counterpart is easy to find,
-and imports no JAX.  Four slices so far:
+and imports no JAX.  The slices so far:
 
 * masked structural SpGEMM triangle counting on CSR containers
   (SandiaDot ``ntri = sum (L·U') .* L``) with three hand-written CUDA
@@ -23,7 +23,16 @@ and imports no JAX.  Four slices so far:
   FP32 MIN_PLUS, MAX_PLUS, MIN_MAX and MAX_MIN (:mod:`sparse.cuda_tropical`),
   the SpMM fast path for a CSR/CSC ``A`` (:mod:`sparse.spmm`), and the
   window masked-product kernel ``window_masked_mm_pallas``
-  (:mod:`sparse.cuda_window`).
+  (:mod:`sparse.cuda_window`);
+* the BSR tile engine, k-truss on the counting engines and the gather
+  probes;
+* the rest of the algebra (unary and select ops, :mod:`core.options`),
+  ``eWiseAdd``/``eWiseMult``/``apply``/``select``, ``reduce``,
+  ``transpose``/``kron`` on bitmap, CSR and CSC containers
+  (:mod:`ops.ewise`, :mod:`sparse.ewise`, :mod:`ops.reduce`,
+  :mod:`ops.transpose`), and the counting models built on them
+  (:mod:`models`: ``tricount``'s six methods, ``ktruss``,
+  ``allktruss``, ``kron_generate``).
 
 The kernels are built with ``nvcc`` on first use, never at import.
 
@@ -33,15 +42,18 @@ work on the CPU.  On CPU tensors each kernel wrapper runs the kernel's
 plain PyTorch version.
 """
 
-from . import convert
+from . import convert, models
 from .core.errors import (DimensionMismatch, DomainMismatch,
                           GraphBLASError, IndexOutOfBounds, Info,
                           InvalidValue)
 from .core.descriptor import (NULL_DESC, REPLACE, RST, RT, SCMP, ST,
                               TRAN0, TRAN1, TT, Descriptor)
 from .core.matrix import Matrix, Vector
-from .core.monoids import monoid
-from .core.ops import binary
+from .core.monoids import MONOIDS, Monoid, monoid, monoid_new
+from .core.ops import (BinaryOp, SelectOp, UnaryOp, binary, binary_op,
+                       select as selectop, unary, unary_op)
+from .core.options import (BLOCKING, BY_COL, BY_ROW, NONBLOCKING, Options,
+                           get_option, global_options, init, set_option)
 from .core.resolve import UnsupportedOp
 from .core.semirings import semiring
 from .core.types import (BOOL, FP32, FP64, INT8, INT16, INT32, INT64,
@@ -51,7 +63,10 @@ from .models.generate import wathen_coo
 from .models.rmat import rmat_edges, symmetrize_pattern
 from .ops.containers import UnsupportedContainer
 from .ops.flopcount import jax_engine_name, last_axb_method
+from .ops.ewise import apply, eWiseAdd, eWiseMult, select
 from .ops.mxm import mxm, mxv, semiring_mm, vxm
+from .ops.reduce import reduce, reduce_to_scalar, reduce_to_vector
+from .ops.transpose import kron, transpose
 from .sparse import *  # noqa: F401,F403
 from .sparse import __all__ as _sparse_all
 
@@ -61,9 +76,14 @@ __all__ = [
     "BOOL", "FP32", "FP64", "INT8", "INT16", "INT32", "INT64", "UINT8",
     "UINT16", "UINT32", "UINT64", "Type", "type_of_dtype",
     "Descriptor", "NULL_DESC", "REPLACE", "SCMP", "TRAN0", "TRAN1", "RT",
-    "ST", "RST", "TT", "Matrix", "Vector", "monoid", "binary", "semiring",
+    "ST", "RST", "TT", "Matrix", "Vector", "Monoid", "monoid", "MONOIDS",
+    "monoid_new", "UnaryOp", "BinaryOp", "SelectOp", "unary", "binary",
+    "selectop", "binary_op", "unary_op", "semiring",
+    "Options", "global_options", "init", "set_option", "get_option",
+    "BLOCKING", "NONBLOCKING", "BY_ROW", "BY_COL",
     "UnsupportedOp", "UnsupportedContainer", "mxm", "mxv", "vxm",
-    "semiring_mm",
+    "semiring_mm", "eWiseAdd", "eWiseMult", "apply", "select", "reduce",
+    "reduce_to_vector", "reduce_to_scalar", "transpose", "kron", "models",
     "wathen_coo", "rmat_edges", "symmetrize_pattern",
     "jax_engine_name", "last_axb_method", *_sparse_all,
 ]

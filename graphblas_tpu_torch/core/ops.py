@@ -1,4 +1,4 @@
-"""GraphBLAS operators: unary and binary ops over torch tensors.
+"""GraphBLAS operators: unary, binary and select ops over torch tensors.
 
 Counterpart of ``graphblas_tpu/core/ops.py``: an operator is a function
 of tensors in its types' storage dtypes plus type metadata.  Integer
@@ -8,9 +8,14 @@ max/min) otherwise; INT_MIN / -1 wraps; bool division z = x.
 
 Unsigned types live in signed storage (:mod:`types`), so MIN, MAX, DIV
 and the ordered comparisons read UINT values through
-:func:`types.ordered`; PLUS, MINUS and TIMES wrap identically on either
-reading of the bits.  The unary families and select ops come with a
-later slice.
+:func:`types.ordered`; PLUS, MINUS, TIMES and AINV wrap identically on
+either reading of the bits.  Integer MINV is the reference's 1/x with
+x/0 the type's maximum.
+
+User-defined operators (reference ``GrB_UnaryOp_new``,
+``GrB_BinaryOp_new``, ``GxB_SelectOp_new``) are made by calling
+:class:`UnaryOp`, :class:`BinaryOp` or :class:`SelectOp` with a function
+of torch tensors.
 """
 
 from __future__ import annotations
@@ -24,7 +29,8 @@ import torch
 from .types import (BOOL, BUILTIN_TYPES, Type, cast, from_ordered, ordered,
                     type_by_name)
 
-__all__ = ["UnaryOp", "BinaryOp", "binary", "binary_op"]
+__all__ = ["UnaryOp", "BinaryOp", "SelectOp", "unary", "binary", "select",
+           "binary_op", "unary_op"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +62,20 @@ class BinaryOp:
 
     def __repr__(self):  # pragma: no cover
         return f"BinaryOp({self.name}_{self.xtype.name})"
+
+
+@dataclasses.dataclass(frozen=True)
+class SelectOp:
+    """keep = f(i, j, x, thunk), elementwise over the pattern: ``i``,
+    ``j`` integer index tensors, ``x`` the values in storage form.
+
+    Reference: ``GxB_SelectOp`` (GB.h:625-649), ``GxB_TRIL`` etc.
+    """
+    name: str
+    fn: Callable  # fn(i, j, x, k) -> bool tensor
+
+    def __call__(self, i, j, x, k):
+        return self.fn(i, j, x, k)
 
 
 def _t(x, t: Type) -> torch.Tensor:
@@ -109,6 +129,20 @@ def _idiv(t: Type):
     return udiv
 
 
+def _iminv(t: Type):
+    """Integer 1/x, truncated: 1 at x = 1, -1 at x = -1 (signed), 0
+    otherwise, and the type's maximum at x = 0 (MATLAB's 1/0)."""
+    tmax = t.storage_scalar(np.iinfo(t.dtype).max)
+
+    def minv(x):
+        x = _t(x, t)
+        q = (x == 1).to(t.storage)
+        if t.is_signed:
+            q = torch.where(x == -1, -1, q).to(t.storage)
+        return torch.where(x == 0, tmax, q).to(t.storage)
+    return minv
+
+
 # ---------------------------------------------------------------------------
 # families: op name -> per-type concrete op
 # ---------------------------------------------------------------------------
@@ -132,6 +166,12 @@ class _Family:
         return f"OpFamily({self.name})"
 
 
+def _unary_family(name: str, fn_of_t) -> _Family:
+    def make(t: Type) -> UnaryOp:
+        return UnaryOp(name, fn_of_t(t), t, t)
+    return _Family(name, make)
+
+
 def _binary_family(name: str, fn_of_t, ztype_of_t=lambda t: t) -> _Family:
     def make(t: Type) -> BinaryOp:
         return BinaryOp(name, fn_of_t(t), ztype_of_t(t), t, t)
@@ -148,6 +188,50 @@ class _Namespace:
 
     def names(self):
         return list(self._all)
+
+
+# ---- unary ops (reference GB_ops_template.h: IDENTITY AINV MINV LNOT ONE ABS)
+
+def _u_identity(t):
+    return lambda x: x
+
+
+def _u_ainv(t):
+    if t.is_bool:
+        return lambda x: x
+    return lambda x: (-_t(x, t)).to(t.storage)
+
+
+def _u_minv(t):
+    if t.is_bool:
+        return lambda x: torch.ones_like(_t(x, t))
+    if t.is_integer:
+        return _iminv(t)
+    return lambda x: (1 / _t(x, t)).to(t.storage)
+
+
+def _u_lnot(t):
+    return lambda x: cast(~(_t(x, t) != 0), t, BOOL)
+
+
+def _u_one(t):
+    return lambda x: torch.ones_like(_t(x, t))
+
+
+def _u_abs(t):
+    if t.is_bool or t.is_unsigned:
+        return lambda x: x
+    return lambda x: torch.abs(_t(x, t)).to(t.storage)
+
+
+unary = _Namespace(
+    identity=_unary_family("IDENTITY", _u_identity),
+    ainv=_unary_family("AINV", _u_ainv),
+    minv=_unary_family("MINV", _u_minv),
+    lnot=_unary_family("LNOT", _u_lnot),
+    one=_unary_family("ONE", _u_one),
+    abs=_unary_family("ABS", _u_abs),
+)
 
 
 # ---- binary ops -----------------------------------------------------------
@@ -292,6 +376,17 @@ binary = _Namespace(
 
 _U64 = type_by_name("UINT64")
 
+
+# ---- select ops (GxB_TRIL/TRIU/DIAG/OFFDIAG/NONZERO + user) ----------------
+
+select = _Namespace(
+    tril=SelectOp("TRIL", lambda i, j, x, k: (j - i) <= k),
+    triu=SelectOp("TRIU", lambda i, j, x, k: (j - i) >= k),
+    diag=SelectOp("DIAG", lambda i, j, x, k: (j - i) == k),
+    offdiag=SelectOp("OFFDIAG", lambda i, j, x, k: (j - i) != k),
+    nonzero=SelectOp("NONZERO", lambda i, j, x, k: x != 0),
+)
+
 # ---- typed-name lookup: e.g. binary_op("PLUS", FP64), "GrB_PLUS_FP64" ------
 
 _TYPES_BY_NAME = {t.name: t for t in BUILTIN_TYPES}
@@ -306,3 +401,12 @@ def binary_op(name: str, typ: Optional[Type] = None) -> BinaryOp:
         name = base
     return binary[name.lower()][typ]
 
+
+def unary_op(name: str, typ: Optional[Type] = None) -> UnaryOp:
+    """Look up a unary op by GraphBLAS-style name, e.g. ``AINV_INT32``."""
+    name = name.upper().replace("GRB_", "").replace("GXB_", "")
+    if typ is None:
+        base, _, tname = name.rpartition("_")
+        typ = _TYPES_BY_NAME[tname]
+        name = base
+    return unary[name.lower()][typ]

@@ -1,7 +1,6 @@
 """Typed resolution of operator arguments at the public API boundary.
 
-Counterpart of ``graphblas_tpu/core/resolve.py`` (unary and select ops
-come with a later slice).
+Counterpart of ``graphblas_tpu/core/resolve.py``.
 
 The reference checks every operator handle at API entry and returns
 ``GrB_NULL_POINTER`` / ``GrB_UNINITIALIZED_OBJECT`` with a message naming
@@ -20,12 +19,13 @@ from typing import Optional
 
 from .errors import GraphBLASError, Info
 from .monoids import Monoid, monoid
-from .ops import BinaryOp, binary
+from .ops import BinaryOp, SelectOp, UnaryOp, binary, select, unary
 from .semirings import SEMIRINGS, Semiring, semiring
 from .types import Type
 
-__all__ = ["UnsupportedOp", "resolve_binary", "resolve_monoid",
-           "resolve_semiring", "resolve_accum", "operand_type"]
+__all__ = ["UnsupportedOp", "resolve_binary", "resolve_unary",
+           "resolve_monoid", "resolve_semiring", "resolve_select",
+           "resolve_accum", "operand_type"]
 
 
 class UnsupportedOp(GraphBLASError):
@@ -87,6 +87,27 @@ def resolve_binary(op, arg: str = "op", typ: Optional[Type] = None,
     raise _bad(arg, "a BinaryOp", op)
 
 
+def resolve_unary(op, arg: str = "op", typ: Optional[Type] = None,
+                  *operands) -> UnaryOp:
+    """UnaryOp | catalog name -> UnaryOp."""
+    if isinstance(op, UnaryOp):
+        return op
+    if isinstance(op, str):
+        name = op.strip().lower().replace("grb_", "").replace("gxb_", "")
+        t = typ or operand_type(*operands)
+        try:
+            if _named_type(name) is not None:
+                from .ops import unary_op
+                return unary_op(name)
+            if t is None:
+                raise KeyError(name)
+            return unary[name][t]
+        except (KeyError, AttributeError):
+            raise _bad(arg, f"a unary op; {op!r} is not in the catalog",
+                       op) from None
+    raise _bad(arg, "a UnaryOp", op)
+
+
 def resolve_monoid(op, arg: str = "op", typ: Optional[Type] = None,
                    *operands):
     """Monoid | BinaryOp (reduce accepts either, per spec) | catalog
@@ -137,6 +158,20 @@ def resolve_semiring(op, arg: str = "semiring",
             raise _bad(arg, "a semiring; "
                        f"{op!r} is not in the catalog" + hint, op) from None
     raise _bad(arg, "a Semiring", op)
+
+
+def resolve_select(op, arg: str = "op") -> SelectOp:
+    """SelectOp | catalog name ("tril", "GxB_TRIU", ...) -> SelectOp."""
+    if isinstance(op, SelectOp):
+        return op
+    if isinstance(op, str):
+        name = op.strip().lower().replace("gxb_", "")
+        try:
+            return select[name]
+        except (KeyError, AttributeError):
+            raise _bad(arg, f"a select op; {op!r} is not in the catalog",
+                       op) from None
+    raise _bad(arg, "a SelectOp", op)
 
 
 def resolve_accum(accum, arg: str = "accum",

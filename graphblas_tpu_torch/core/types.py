@@ -11,7 +11,11 @@ matmul, so UINT16/32/64 values live in int16/32/64 tensors holding the
 same bits.  Code that compares, divides or takes min/max of UINT values
 must apply unsigned semantics itself (:func:`ordered` gives an int64 key
 with the unsigned order).  UINT8 follows the same rule for uniformity.
-User-defined and complex types come with a later slice.
+Host scalars (:func:`cast_value`, :func:`zero_of`) are numpy scalars of
+the type's own dtype, so a UINT64 value keeps its unsigned meaning until
+:meth:`Type.to_storage` puts it in storage form.  User-defined types
+(ROADMAP.md queue 1, item 7) and the complex types FC32/FC64 come with a
+later slice.
 
 Typecasting follows the reference's C-style semantics as the JAX
 package implements them (``Source/GB.h:2900-2960``): float->int
@@ -30,7 +34,8 @@ import torch
 __all__ = [
     "Type", "BOOL", "INT8", "UINT8", "INT16", "UINT16", "INT32", "UINT32",
     "INT64", "UINT64", "FP32", "FP64", "BUILTIN_TYPES", "type_of_dtype",
-    "type_by_name", "type_of_storage", "cast", "ordered", "from_ordered",
+    "type_by_name", "type_of_storage", "promote", "cast", "cast_value",
+    "zero_of", "cast_result", "ordered", "from_ordered",
     "zeros_like_typed",
 ]
 
@@ -153,6 +158,17 @@ def type_of_storage(dtype: torch.dtype) -> Type:
     return _BY_STORAGE[dtype]
 
 
+# Code lattice for implicit output-type deduction, mirroring the
+# reference's GB_code_* ordering (Source/GB_code_type.c): bool < int8 <
+# uint8 < ... < fp64.
+_ORDER = {t.name: i for i, t in enumerate(BUILTIN_TYPES)}
+
+
+def promote(a: Type, b: Type) -> Type:
+    """The later of two types in the reference's type-code order."""
+    return a if _ORDER[a.name] >= _ORDER[b.name] else b
+
+
 def ordered(x: torch.Tensor, t: Type) -> torch.Tensor:
     """Values of type ``t`` as keys that compare in ``t``'s order: the
     storage itself, except for unsigned types, whose values become int64
@@ -232,6 +248,40 @@ def cast(x: torch.Tensor, to_type: Type,
             return _float_value(x, src).to(dst)
         return x.to(dst)
     return x.to(dst)
+
+
+def cast_result(z: torch.Tensor, t: Type) -> torch.Tensor:
+    """An operator's result in ``t``'s storage: as it is when its dtype
+    is that storage, else cast from the type its dtype names (a user op
+    may return, say, a bool tensor for a UINT32 ztype)."""
+    if z.dtype == t.storage:
+        return z
+    return cast(z, t, type_of_storage(z.dtype))
+
+
+def cast_value(x, to_type: Type):
+    """Cast a Python or numpy scalar to a numpy scalar of ``to_type``
+    (its own dtype: a UINT64 value stays unsigned), with :func:`cast`'s
+    rules: NaN -> 0 and saturation for float -> int, ``x != 0`` for
+    bool."""
+    if to_type.is_bool:
+        return np.bool_(x != 0)
+    if to_type.is_integer and isinstance(x, (float, np.floating)):
+        info = np.iinfo(to_type.dtype)
+        if np.isnan(x):
+            return np.asarray(0, to_type.dtype)[()]
+        xi = np.trunc(x)
+        if xi >= float(info.max):
+            return np.asarray(info.max, to_type.dtype)[()]
+        if xi <= float(info.min):
+            return np.asarray(info.min, to_type.dtype)[()]
+        return np.asarray(int(xi), dtype=to_type.dtype)[()]
+    return np.asarray(x).astype(to_type.dtype)[()]
+
+
+def zero_of(t: Type):
+    """The type's zero as a numpy scalar (the padding value)."""
+    return t.zero()
 
 
 def zeros_like_typed(shape, t: Type, device) -> torch.Tensor:

@@ -14,8 +14,8 @@ from __future__ import annotations
 from ..core.errors import GraphBLASError
 from ..core.matrix import Matrix, Vector
 
-__all__ = ["UnsupportedContainer", "require_container", "to_csr_operand",
-           "to_bitmap_operand"]
+__all__ = ["UnsupportedContainer", "require_container", "require_builtin",
+           "to_csr_operand", "to_bitmap_operand", "new_like"]
 
 
 class UnsupportedContainer(GraphBLASError):
@@ -38,6 +38,23 @@ def require_container(X, what: str = "operand",
             f"{type(X).__name__}; the hypersparse containers (HyperMatrix, "
             f"HyperCscMatrix, SparseVec) come with a later slice of the "
             f"port (ROADMAP.md queue 1, item 10)")
+
+
+def require_builtin(what: str, *ops) -> None:
+    """Typed guard on operators: every type an op, monoid or accum names
+    must be one of the port's builtin types; a user-defined type raises
+    :class:`UnsupportedOp` naming ROADMAP.md queue 1, item 7."""
+    from ..core.resolve import UnsupportedOp
+    from ..core.types import Type
+    for op in ops:
+        op = getattr(op, "op", op)          # a Monoid's binary op
+        for attr in ("ztype", "xtype", "ytype"):
+            t = getattr(op, attr, None)
+            if t is not None and not isinstance(t, Type):
+                raise UnsupportedOp(
+                    f"{what}: {attr} {t!r} is not a builtin type of this "
+                    f"port; user-defined types come with a later slice "
+                    f"(ROADMAP.md queue 1, item 7)")
 
 
 def to_csr_operand(X, tran: bool = False, what: str = "operand"):
@@ -65,3 +82,15 @@ def to_bitmap_operand(X, what: str = "operand") -> Matrix:
         return X
     raise UnsupportedContainer(
         f"{what}: expected a matrix container, got {type(X).__name__}")
+
+
+def new_like(X, type, nrows: int, ncols: int):
+    """An empty nrows x ncols output of ``type`` in X's kind of container
+    (CsrMatrix, CscMatrix or bitmap Matrix) on X's device."""
+    from ..sparse.container import CscMatrix, CsrMatrix
+    from ..sparse.esc import _empty_csr
+    if isinstance(X, CsrMatrix):
+        return _empty_csr(nrows, ncols, type, X.device)
+    if isinstance(X, CscMatrix):
+        return CscMatrix(_empty_csr(ncols, nrows, type, X.device))
+    return Matrix.new(type, nrows, ncols, device=X.device)

@@ -1,0 +1,131 @@
+"""Reductions: matrix -> vector (per-row monoid reduce) and -> scalar.
+
+Counterpart of ``graphblas_tpu/ops/reduce.py``.  Reference:
+``Source/GB_reduce_to_column.c`` (w<m> = accum(w, sum(A)) across rows)
+and ``GB_reduce_to_scalar.c``.  A bitmap ``Matrix`` reduces with the
+monoid's tensor reduction over its pattern; a ``CsrMatrix`` or
+``CscMatrix`` through one segment reduce on the device
+(:func:`graphblas_tpu_torch.sparse.ewise.csr_reduce_rows` /
+``csr_reduce_scalar``), never densified.  A scalar crosses to the host
+only at the end, as a numpy scalar of the monoid's type (a UINT64 sum
+is unsigned).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Union
+
+import torch
+
+from ..core.descriptor import Descriptor, desc_of
+from ..core.errors import DimensionMismatch
+from ..core.mask import accum_mask
+from ..core.matrix import Vector
+from ..core.monoids import Monoid
+from ..core.ops import BinaryOp
+from ..core.types import cast, cast_result, cast_value
+from ..utils import counters
+from .containers import (UnsupportedContainer, require_builtin,
+                         require_container, to_csr_operand)
+
+__all__ = ["reduce_to_vector", "reduce_to_scalar", "reduce"]
+
+
+def _as_monoid(op: Union[Monoid, BinaryOp], *operands) -> Monoid:
+    from ..core.resolve import UnsupportedOp, resolve_monoid
+    op = resolve_monoid(op, "reduce op", None, *operands)
+    require_builtin("reduce op", op)
+    if isinstance(op, Monoid):
+        return op
+    # a bare associative binary op: look up the matching built-in monoid
+    from ..core.monoids import monoid as monoid_ns
+    try:
+        return monoid_ns[op.name.lower()][op.ztype]
+    except (KeyError, AttributeError):
+        raise UnsupportedOp(
+            f"reduce op: {op.name} has no matching built-in monoid; "
+            "pass a Monoid (monoid_new) instead") from None
+
+
+@counters.counted("reduce_to_vector")
+def reduce_to_vector(w: Vector, m: Optional[Vector],
+                     accum: Optional[BinaryOp],
+                     op: Union[Monoid, BinaryOp], A,
+                     desc: Optional[Descriptor] = None) -> Vector:
+    """w<m> = accum(w, reduce-rows(A)); TRAN0 reduces columns instead."""
+    require_container(w, "reduce output w")
+    require_container(m, "reduce mask", none_ok=True)
+    require_container(A, "reduce input A")
+    if not isinstance(w, Vector) or isinstance(A, Vector):
+        raise UnsupportedContainer(
+            f"reduce_to_vector: a Vector output and a matrix input, got "
+            f"{type(w).__name__} and {type(A).__name__}")
+    d = desc_of(desc)
+    from ..core.resolve import resolve_accum
+    accum = resolve_accum(accum, "reduce accum", None, w, A)
+    require_builtin("reduce accum", accum)
+    mon = _as_monoid(op, A, w)
+    from ..sparse.container import CscMatrix, CsrMatrix
+    if isinstance(A, (CsrMatrix, CscMatrix)):
+        from ..sparse.ewise import csr_reduce_rows
+        A = to_csr_operand(A, d.tran0, "reduce input")
+        if A.nrows != w.size:
+            raise DimensionMismatch(
+                f"w has size {w.size}, A has {A.nrows} rows")
+        red, tpat = csr_reduce_rows(mon, A)
+        return accum_mask(w, m, Vector(red, tpat, mon.type), accum, d)
+    vals, pat = A.values, A.pattern
+    if d.tran0:
+        vals, pat = vals.T, pat.T
+    if pat.shape[0] != w.size:
+        raise DimensionMismatch(
+            f"w has size {w.size}, A has {pat.shape[0]} rows")
+    red = mon.reduce(cast(vals, mon.type, A.type), axis=1, where=pat)
+    T = Vector(red, pat.any(dim=1), mon.type).canonical()
+    return accum_mask(w, m, T, accum, d)
+
+
+def _accum_scalar(accum: BinaryOp, c, t):
+    """accum(c, t) on host scalars, through the op itself; a numpy
+    scalar of its ztype."""
+    from ..sparse.ewise import host_scalar
+
+    def arg(v, typ):
+        return torch.tensor(typ.storage_scalar(cast_value(v, typ)),
+                            dtype=typ.storage)
+    z = cast_result(accum(arg(c, accum.xtype), arg(t, accum.ytype)),
+                    accum.ztype)
+    return host_scalar(z, accum.ztype)
+
+
+@counters.counted("reduce_to_scalar")
+def reduce_to_scalar(accum: Optional[BinaryOp], op: Union[Monoid, BinaryOp],
+                     A, c: Any = None):
+    """c = accum(c, reduce-all(A)); returns a host scalar of the
+    monoid's type.  An empty A reduces to the monoid identity
+    (``GB_reduce_to_scalar.c:35``)."""
+    require_container(A, "reduce input A")
+    from ..core.resolve import resolve_accum
+    accum = resolve_accum(accum, "reduce accum", None, A)
+    require_builtin("reduce accum", accum)
+    mon = _as_monoid(op, A)
+    from ..sparse.container import CscMatrix, CsrMatrix
+    if isinstance(A, (CsrMatrix, CscMatrix)):
+        from ..sparse.ewise import csr_reduce_scalar
+        # reduce-all is orientation-invariant: a CSC reduces its arrays
+        t = csr_reduce_scalar(mon, A.tr if isinstance(A, CscMatrix) else A)
+    else:
+        from ..sparse.ewise import host_scalar
+        vals = cast(A.values, mon.type, A.type)
+        t = host_scalar(mon.reduce(vals, where=A.pattern), mon.type)
+    if accum is not None and c is not None:
+        t = _accum_scalar(accum, c, t)
+    return t
+
+
+def reduce(*args, **kw):
+    """Polymorphic GrB_reduce: dispatches on the output, as the C
+    API's _Generic macro does."""
+    if isinstance(args[0], Vector):
+        return reduce_to_vector(*args, **kw)
+    return reduce_to_scalar(*args, **kw)

@@ -1,0 +1,127 @@
+"""Transpose and Kronecker product.
+
+Counterpart of ``graphblas_tpu/ops/transpose.py``.  Reference:
+``Source/GB_transpose.c`` (bucket transpose, optionally fused with a
+unary op + typecast) and ``GB_kron.c`` / ``GB_kron_kernel.c``.  On the
+bitmap ``Matrix`` a transpose permutes the dense tensors and kron is a
+broadcast-reshape.  Sparse containers transpose by the tuple resort of
+``CsrMatrix.T`` (the JAX package's, host side; the reference's bucket
+transpose is a counting sort too) and kron by tuple arithmetic: the
+output's (i, j) list is the outer sum of the operands' tuple lists,
+``GB_kron_kernel.c:9-17``'s loop, vectorized.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core.descriptor import Descriptor, desc_of
+from ..core.errors import DimensionMismatch
+from ..core.mask import accum_mask
+from ..core.matrix import Matrix
+from ..core.ops import BinaryOp, UnaryOp
+from ..core.types import cast, cast_result
+from ..utils import counters
+from .containers import require_builtin, to_bitmap_operand, to_csr_operand
+from .ewise import csr_frame, finish_csr, require_args
+
+__all__ = ["transpose", "kron"]
+
+
+@counters.counted("transpose")
+def transpose(C, M, accum: Optional[BinaryOp], A,
+              desc: Optional[Descriptor] = None,
+              op: Optional[UnaryOp] = None):
+    """C<M> = accum(C, A').  With INP0=TRAN this is C<M> = accum(C, A)
+    (the double-transpose shortcut, ``GrB_transpose.c``)."""
+    require_args("transpose", C, M, A)
+    from ..core.resolve import resolve_accum, resolve_unary
+    accum = resolve_accum(accum, "transpose accum", None, C, A)
+    if op is not None:
+        op = resolve_unary(op, "transpose op", None, A, C)
+    require_builtin("transpose op", op, accum)
+    d = desc_of(desc)
+    from ..sparse.container import CscMatrix, CsrMatrix
+    if isinstance(C, (CsrMatrix, CscMatrix)):
+        from ..sparse.ewise import csr_apply
+        Cw, T, Mw, csc = csr_frame(C, A, not d.tran0, M, "transpose")
+        if op is not None:
+            T = csr_apply(op, T)
+        if T.shape != Cw.shape:
+            raise DimensionMismatch(f"A' is {T.shape}, C is {C.shape}")
+        return finish_csr(Cw, Mw, T, accum, d, csc)
+    A = to_bitmap_operand(A, "transpose input")
+    M = to_bitmap_operand(M, "mask") if M is not None else None
+    vals, pat, t = A.values, A.pattern, A.type
+    if not d.tran0:
+        vals, pat = vals.T, pat.T
+    if op is not None:
+        vals = cast_result(op(cast(vals, op.xtype, t)), op.ztype)
+        t = op.ztype
+    T = Matrix(vals.contiguous(), pat.contiguous(), t).canonical()
+    return accum_mask(C, M, T, accum, d)
+
+
+def _kron_tuples(op: BinaryOp, A, B):
+    """(I, J, Z) of kron(A, B) from the operand tuple lists: the
+    vectorized ``GB_kron_kernel.c`` loop; Z is computed by the op on A's
+    device and returned as host values of its ztype.  Output nnz =
+    nnzA * nnzB exactly (pairs are unique when the inputs are)."""
+    IA, JA, XA = A.extractTuples()
+    IB, JB, XB = B.extractTuples()
+    bm, bn = B.shape
+    I = (IA[:, None] * bm + IB[None, :]).ravel()
+    J = (JA[:, None] * bn + JB[None, :]).ravel()
+    dev = A.device
+
+    def typed(X, src, dst):
+        x = torch.from_numpy(np.array(src.to_storage(X))).to(dev)
+        return cast(x, dst, src)
+    z = cast_result(op(typed(XA, A.type, op.xtype)[:, None],
+                       typed(XB, B.type, op.ytype)[None, :]), op.ztype)
+    Z = z.reshape(-1).cpu().numpy()
+    if op.ztype.is_unsigned:
+        Z = Z.view(op.ztype.dtype)
+    return I, J, Z
+
+
+@counters.counted("kron")
+def kron(C, M, accum: Optional[BinaryOp], op: BinaryOp, A, B,
+         desc: Optional[Descriptor] = None):
+    """C<M> = accum(C, kron(A, B)) with multiply op (``GxB_kron``)."""
+    require_args("kron", C, M, A, B)
+    from ..core.resolve import resolve_accum, resolve_binary
+    op = resolve_binary(op, "kron op", None, A, B, C)
+    accum = resolve_accum(accum, "kron accum", None, C, A)
+    require_builtin("kron op", op, accum)
+    d = desc_of(desc)
+    from ..sparse.container import CscMatrix, CsrMatrix, csr_from_coo
+    if isinstance(C, (CsrMatrix, CscMatrix)):
+        # kron(A, B)' = kron(A', B'): the by-col frame transposes operands
+        Cw, Aw, Mw, csc = csr_frame(C, A, d.tran0, M, "kron A")
+        Bw = to_csr_operand(B, csc ^ d.tran1, "kron input B")
+        I, J, Z = _kron_tuples(op, Aw, Bw)
+        T = csr_from_coo(I, J, Z, Aw.nrows * Bw.nrows, Aw.ncols * Bw.ncols,
+                         type=op.ztype, sum_duplicates=False,
+                         device=Cw.device)
+        if T.shape != Cw.shape:
+            raise DimensionMismatch(f"kron is {T.shape}, C is {C.shape}")
+        return finish_csr(Cw, Mw, T, accum, d, csc)
+    A = to_bitmap_operand(A, "kron input A")
+    B = to_bitmap_operand(B, "kron input B")
+    M = to_bitmap_operand(M, "mask") if M is not None else None
+    Av, Ap = (A.values.T, A.pattern.T) if d.tran0 else (A.values, A.pattern)
+    Bv, Bp = (B.values.T, B.pattern.T) if d.tran1 else (B.values, B.pattern)
+    am, an = Ap.shape
+    bm, bn = Bp.shape
+    a = cast(Av, op.xtype, A.type)[:, None, :, None]
+    b = cast(Bv, op.ytype, B.type)[None, :, None, :]
+    vals = cast_result(op(a, b), op.ztype)
+    vals = vals.expand(am, bm, an, bn).reshape(am * bm, an * bn)
+    pat = (Ap[:, None, :, None] & Bp[None, :, None, :]).reshape(
+        am * bm, an * bn)
+    T = Matrix(vals, pat, op.ztype).canonical()
+    return accum_mask(C, M, T, accum, d)

@@ -418,3 +418,67 @@ def test_rmat_ktruss_slice_matches_jax(monkeypatch):
     assert got == jtri.allktruss_esc(Aj, kmax=6)
     tt, _, _ = gt.ktruss_esc(At, 5)
     assert got[5]["nedges"] == tt.nvals // 2
+
+
+def _tuples_equal(Xt, Xj):
+    It, Jt, Vt = Xt.extractTuples()
+    Ij, Jj, Vj = Xj.extractTuples()
+    assert np.array_equal(It, np.asarray(Ij))
+    assert np.array_equal(Jt, np.asarray(Jj))
+    assert np.array_equal(Vt, np.asarray(Vj))
+
+
+def test_rmat_ops_flow_matches_jax():
+    """The reference's tri_demo flow through the operations on the
+    symmetrized R-MAT 10 graph as CSR, step by step against the JAX
+    package: select tril/triu, eWiseAdd(lor), the degree reduce, the
+    SandiaDot product mxm(C<L>, plus_times[UINT32], L, U') and its sum
+    (exact; the count equals tricount_esc's)."""
+    n = 1 << 10
+    I, J = gt.symmetrize_pattern(*gt.rmat_edges(10, 16, seed=7), n)
+    X = np.ones(len(I), bool)
+    At = gt.csr_from_coo(I, J, X, n, n, type=gt.BOOL, sum_duplicates=False,
+                         device="cpu")
+    Aj = jsp.CsrMatrix.from_coo(I, J, X, n, n, type=gb.BOOL,
+                                sum_duplicates=False)
+
+    def empty(pkg, t, **kw):
+        e = np.zeros(0, np.int64)
+        cls = gt.CsrMatrix if pkg is gt else jsp.CsrMatrix
+        return cls.from_coo(e, e, np.zeros(0, t.dtype), n, n, type=t, **kw)
+
+    # 1. L = tril(A, -1), U = triu(A, 1)
+    Lt = gt.select(empty(gt, gt.BOOL, device="cpu"), None, None,
+                   gt.selectop.tril, At, -1)
+    Ut = gt.select(empty(gt, gt.BOOL, device="cpu"), None, None,
+                   gt.selectop.triu, At, 1)
+    Lj = gb.select(empty(gb, gb.BOOL), None, None, gb.selectop.tril, Aj, -1)
+    Uj = gb.select(empty(gb, gb.BOOL), None, None, gb.selectop.triu, Aj, 1)
+    _tuples_equal(Lt, Lj)
+    _tuples_equal(Ut, Uj)
+    # 2. L ∪ U has A's pattern
+    St = gt.eWiseAdd(empty(gt, gt.BOOL, device="cpu"), None, None,
+                     gt.binary.lor[gt.BOOL], Lt, Ut)
+    Sj = gb.eWiseAdd(empty(gb, gb.BOOL), None, None, gb.binary.lor[gb.BOOL],
+                     Lj, Uj)
+    _tuples_equal(St, Sj)
+    _tuples_equal(St, At)
+    # 3. the degrees
+    dt = gt.reduce_to_vector(gt.Vector.new(gt.INT64, n, device="cpu"), None,
+                             None, gt.monoid.plus[gt.INT64], At)
+    dj = gb.reduce_to_vector(gb.Vector.new(gb.INT64, n), None, None,
+                             gb.monoid.plus[gb.INT64], Aj)
+    assert np.array_equal(dt.to_dense(), np.asarray(dj.values))
+    assert np.array_equal(dt.to_dense(), np.bincount(I, minlength=n))
+    # 4. C<L> = L * U' over plus_times[UINT32], 5. its sum
+    Ct = gt.mxm(empty(gt, gt.UINT32, device="cpu"), Lt, None,
+                gt.semiring.plus_times[gt.UINT32], Lt, Ut, gt.TRAN1)
+    Cj = gb.mxm(empty(gb, gb.UINT32), Lj, None,
+                gb.semiring.plus_times[gb.UINT32], Lj, Uj, gb.TRAN1)
+    _tuples_equal(Ct, Cj)
+    ntri = gt.reduce_to_scalar(None, gt.monoid.plus[gt.INT64], Ct)
+    assert ntri == gb.reduce_to_scalar(None, gb.monoid.plus[gb.INT64], Cj)
+    assert ntri == gt.tricount_esc(Lt, Ut) > 0
+    # transpose(L) = U
+    _tuples_equal(gt.transpose(empty(gt, gt.BOOL, device="cpu"), None, None,
+                               Lt), Ut)

@@ -3,9 +3,11 @@
 counting, the masked valued product ``mxm``, SpMV with BFS and
 PageRank, ``mxm`` into a bitmap ``Matrix``: all-pairs shortest paths
 by min-plus squaring and an SpMM, the BSR tile engine with k-truss
-and the gather probes, and the element-wise, select, reduce and
-transpose operations with the counting models built on them), and
-check each hand-written kernel against its plain PyTorch version.
+and the gather probes, the element-wise, select, reduce and
+transpose operations with the counting models built on them, and
+pending tuples, extract/assign and the graph models BFS, MIS and
+PageRank), and check each hand-written kernel against its plain
+PyTorch version.
 
     python3 chip_smoke.py
 
@@ -152,7 +154,27 @@ uncaught exception and a nonzero exit):
    bitmap ``Matrix``: the six ``models.tricount`` methods equal
    ``tricount_esc``; ``models.ktruss`` (k = 4) equals ``ktruss_esc``
    entry for entry; ``models.allktruss`` equals ``allktruss_esc`` in
-   edges and triangles per k; ``models.kron_generate`` equals ``kron``.
+   edges and triangles per k; ``models.kron_generate`` equals ``kron``;
+23. pending tuples, extract and assign on the R-MAT 18 graph as an INT64
+   CSR on the card (values U{1..99} from ``default_rng(23)``): 100,000
+   ``setElement`` calls (half on existing entries, runs of 10,000
+   alternating between overwrite and ``accum=plus``) and one ``wait``,
+   ``removeElement``, ``resize``, ``extract`` of the induced subgraph on
+   2^16 random vertices and an ``assign`` of it, doubled, back into the
+   graph under the graph's own mask; each result equals a scipy rebuild
+   from the host tuples exactly; each op's first and warm time;
+24. ``models.bfs5m`` and ``models.bfs6`` from vertex 0 on the R-MAT 18
+   CSR: the anchor levels, entry for entry equal to ``bfs_csr``;
+   ``models.bfs_jit`` on the symmetrized R-MAT 14 as a bitmap
+   ``Matrix``, equal to ``bfs_csr`` on its CSR;
+25. ``models.mis(A, seed=42)`` on the R-MAT 18 and 16 CSR: independent
+   and maximal (checked with the entries on the card), and the JAX
+   package's set (its size and a digest of its members); on R-MAT 12
+   the card's set, ``ipagerank`` and ``dpagerank`` (rtol 1e-12) equal
+   the port's own CPU run, whose top-10 pages are the JAX package's;
+   ``dpagerank`` and ``ipagerank`` on the bitmap R-MAT 14 against scipy
+   oracles (float64 within rtol 1e-9; the scaled-integer arithmetic in
+   uint64 exactly), ranks descending.
 
 Launch counters are zeroed just before each path and read just after
 it: before phase 3 and after phase 9 (triangle counting and ``mxm``:
@@ -161,9 +183,11 @@ and after phase 13 (SpMV: K5), before and after phase 16 (the bitmap
 ``mxm`` path: K6 and K3), before and after phase 19 (the tile engine,
 k-truss and the probes: K7, the popcount pass, both probe kernels and
 the dense gather-dot, which the gather-dot probe times); every kernel of
-a path must have launched there.  Phases 20, 21 and 22 are read apart
-(``ops_tri_demo``, ``ops_ktruss``, ``models``), every kernel's count
-printed: their engines choose which kernels run.  Their references
+a path must have launched there.  Phases 20 to 25 are read apart
+(``ops_tri_demo``, ``ops_ktruss``, ``models``, ``ops_assign``,
+``models_bfs``, ``models_mis_pagerank``), every kernel's count
+printed: their engines choose which kernels run (no kernel lies on the
+paths of phases 23-25).  Their references
 (``ktruss_esc``, ``tricount_esc``, ``allktruss_esc``, ``kron``) run
 outside the counted window, so a count is the path's own.  The line before the
 last is the per-kernel JSON summary, with each kernel's bound (the
@@ -173,6 +197,7 @@ the card's peak for their type); the last line is
 when no CUDA device is present.
 """
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -192,6 +217,15 @@ WATHEN_256 = (197_633, 3_084_289, 15_425)
 RMAT18_BFS_LEVELS = {0: 88_501, 1: 1, 2: 25_261, 3: 140_309, 4: 8_041,
                      5: 31}
 RMAT18_PAGERANK_TOP10 = [0, 32, 16384, 1024, 512, 2048, 2, 16, 8192, 4]
+# from the JAX package on the CPU (tools/graph_model_anchors.py): mis(A,
+# seed=42) on the symmetrized R-MAT graphs as CSR -> (|iset|, the first
+# 16 hex digits of the sha256 of its int64 members), and the dpagerank /
+# ipagerank (20 iterations) top-10 pages on the bitmap R-MAT 12
+MIS_ANCHORS = {16: (49_344, "850f62bd306b7c72"),
+               18: (205_774, "a2027e8d4b68e5f3")}
+RMAT12_PAGERANK_TOP10 = [0, 2048, 2, 128, 16, 256, 1, 4, 64, 1024]
+# setElement calls of phase 23
+PHASE23_UPDATES = 100_000
 # the kernels each path must launch
 MXM_PATH = ("tri_band_ring", "window_count", "bitdot_popcount",
             "valdot_gatherdot_rows")
@@ -663,6 +697,93 @@ def values_err(got, want, mag, K):
     return float(err.max()) if err.numel() else 0.0
 
 
+def replay_pending(lin0, vals0, keys, xs, accum):
+    """The host oracle of a run of setElement calls: {key: value} of the
+    keys they touch, applied one by one in input order (an overwrite,
+    or + the old value where ``accum``), from the sorted linear keys
+    ``lin0`` / values ``vals0`` of the matrix before them."""
+    state = {}
+    pos = np.searchsorted(lin0, keys)
+    pos = np.minimum(pos, len(lin0) - 1)
+    present = lin0[pos] == keys
+    for k, x, acc, p, hit in zip(keys.tolist(), xs.tolist(), accum,
+                                 pos.tolist(), present.tolist()):
+        if acc:
+            if k in state:
+                x = state[k] + x
+            elif hit:
+                x = int(vals0[p]) + x
+        state[k] = x
+    return state
+
+
+def scipy_rebuild(lin, vals, nrows, ncols, rows=None, cols=None):
+    """A scipy CSR of the entries at the linear keys ``lin`` (in an
+    ncols-wide frame), cut to ``rows`` x ``cols`` when given."""
+    import scipy.sparse as ssp
+    A = ssp.csr_matrix((vals, (lin // ncols, lin % ncols)),
+                       shape=(nrows, ncols))
+    A.sort_indices()
+    if rows is not None:
+        A = A[:rows, :cols]
+    return A
+
+
+def same_csr(X, S, what: str) -> None:
+    """The port's CsrMatrix X holds exactly scipy CSR S's entries."""
+    S = S.tocsr()
+    S.sort_indices()
+    assert X.shape == S.shape and X.nvals == S.nnz, \
+        (what, X.shape, S.shape, X.nvals, S.nnz)
+    assert np.array_equal(X.indptr.cpu().numpy(), S.indptr), what
+    I, J, V = X.extractTuples()
+    assert np.array_equal(J, S.indices) and np.array_equal(V, S.data), what
+
+
+def pagerank_oracles(I, J, n: int, iters: int = 20):
+    """scipy's PageRank of the reference demos on the graph (I, J): the
+    float64 ranks of ``dpagerank`` (normalized) and the uint64 ranks of
+    ``ipagerank`` (its scaled-integer arithmetic, wrapping mod 2^64),
+    each as a dense vector over the pages."""
+    import scipy.sparse as ssp
+    from graphblas_tpu_torch.models.pagerank import _crand_stream
+    deg = np.bincount(I, minlength=n)
+    r0 = _crand_stream(n, n)
+    Cd = ssp.csr_matrix((1.0 / deg[I], (I, J)), shape=(n, n)).T.tocsr()
+    r = r0.astype(np.float64) / 2147483647.0
+    for _ in range(iters):
+        s = (0.15 / n) * r.sum()
+        r = Cd @ (0.85 * r) + s
+    rd = r / r.sum()
+    zs = np.uint64(1 << 30)
+    ic = np.uint64(912680550)
+    Ci = ssp.csr_matrix(((zs // np.maximum(deg, 1).astype(np.uint64))[I],
+                         (I, J)), shape=(n, n), dtype=np.uint64).T.tocsr()
+    x = r0.astype(np.uint64) // np.uint64(n)
+    x[x == 0] = 1
+    ia = max((zs - ic) // np.uint64(n), np.uint64(1))
+    with np.errstate(over="ignore"):
+        for _ in range(iters):
+            s = np.uint64(x.sum(dtype=np.uint64)) * ia
+            x = np.maximum((x * ic) >> np.uint64(30), np.uint64(1))
+            x = Ci @ x + s
+            x = np.maximum(x >> np.uint64(30), np.uint64(1))
+    return rd, x
+
+
+def check_ranks(ranks, want, rtol=None) -> None:
+    """A model's [(page, rank)] list: every page once, descending, and
+    equal to the dense ``want`` (within ``rtol`` when given)."""
+    pages = np.array([p for p, _ in ranks])
+    vals = np.array([v for _, v in ranks], dtype=want.dtype)
+    assert np.array_equal(np.sort(pages), np.arange(len(want)))
+    assert (np.diff(vals.astype(np.float64)) <= 0).all(), "not descending"
+    if rtol is None:
+        assert np.array_equal(vals, want[pages])
+    else:
+        assert np.allclose(vals, want[pages], rtol=rtol, atol=0)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; the port's kernels need one")
@@ -670,6 +791,7 @@ def main() -> None:
     print(card, flush=True)
     import graphblas_tpu_torch as gt
     from graphblas_tpu_torch import _build
+    from graphblas_tpu_torch.models.bfs import vxm_operand
     from graphblas_tpu_torch.sparse import bitdot as bd
     from graphblas_tpu_torch.sparse import cuda_spmv as cs
     from graphblas_tpu_torch.sparse import cuda_window as cw
@@ -1977,6 +2099,236 @@ def main() -> None:
           f"{time.perf_counter() - t_phase:.3f} s")
     print(f"models-path launches: {json.dumps(models_launches)}")
     path_launches["models"] = models_launches
+
+    # ---- pending tuples, extract/assign and the graph models: 23-25 ----
+    # (no kernel lies on these paths; every count is read and printed)
+    # 23. the containers at R-MAT 18: an INT64-valued copy of the graph
+    # on the card takes 100,000 setElement calls and one wait, then
+    # removeElement, resize, the induced subgraph by extract and an
+    # assign of it back under the graph's mask; each result against a
+    # scipy rebuild from the host tuples (exact)
+    t_phase = time.perf_counter()
+    A18s = graphs[18][3]
+    n = A18s.nrows
+    hp = A18s._options["host_pattern"]
+    I18 = hp[0][:A18s.nvals].astype(np.int64)
+    J18 = hp[1][:A18s.nvals].astype(np.int64)
+    lin18 = I18 * n + J18                       # sorted: CSR order
+    rng23 = np.random.default_rng(23)
+    X18 = rng23.integers(1, 100, len(I18)).astype(np.int64)
+    V = gt.CsrMatrix.from_coo(I18, J18, X18, n, n, type=gt.INT64,
+                              sum_duplicates=False, device="cuda")
+    k = PHASE23_UPDATES
+    old = rng23.integers(0, len(I18), k // 2)
+    ui = np.concatenate([I18[old], rng23.integers(0, n, k - k // 2)])
+    uj = np.concatenate([J18[old], rng23.integers(0, n, k - k // 2)])
+    ux = rng23.integers(-50, 50, k)
+    order = rng23.permutation(k)
+    ui, uj, ux = ui[order], uj[order], ux[order]
+    # runs of 10,000 calls alternate between overwrite and accum=plus
+    use_acc = (np.arange(k) // 10_000) % 2 == 1
+    plus64 = gt.binary.plus[gt.INT64]
+    _build.reset_launches()
+    op_times = {}
+
+    def set_all():
+        B = V
+        for e in range(k):
+            B = B.setElement(np.int64(ux[e]), int(ui[e]), int(uj[e]),
+                             accum=plus64 if use_acc[e] else None)
+        return B
+
+    def first_warm23(name, fn):
+        out, first = timed(fn)
+        _, warm = timed(fn)
+        op_times[name] = (first, warm)
+        return out
+    B = first_warm23(f"setElement x{k}", set_all)
+    assert len(B._pending) == k and not V._pending
+    W = first_warm23("wait", B.wait)
+    state = replay_pending(lin18, X18, ui * n + uj, ux, use_acc)
+    skeys = np.fromiter(state, np.int64, len(state))
+    svals = np.fromiter(state.values(), np.int64, len(state))
+    keep = ~np.isin(lin18, skeys)
+    lin_w = np.concatenate([lin18[keep], skeys])
+    val_w = np.concatenate([X18[keep], svals])
+    Wsp = scipy_rebuild(lin_w, val_w, n, n)
+    same_csr(W, Wsp, "setElement + wait vs the scipy rebuild")
+    gone = int(lin18[12345])
+    R = first_warm23("removeElement", lambda: W.removeElement(
+        gone // n, gone % n))
+    kr = lin_w != gone
+    same_csr(R, scipy_rebuild(lin_w[kr], val_w[kr], n, n),
+             "removeElement vs scipy")
+    m_r, n_r = n - 1000, n - 2000
+    Z = first_warm23("resize", lambda: R.resize(m_r, n_r))
+    same_csr(Z, scipy_rebuild(lin_w[kr], val_w[kr], n, n, m_r, n_r),
+             "resize vs scipy")
+    # the induced subgraph on 2^16 random vertices (in random order)
+    S = rng23.choice(n, 1 << 16, replace=False)
+    m = len(S)
+    G = first_warm23("extract", lambda: gt.extract(
+        empty_csr(gt.INT64, m), None, None, W, S, S))
+    same_csr(G, Wsp[S][:, S], "extract of the induced subgraph vs scipy")
+    D = gt.apply(G, None, plus64, gt.unary.identity[gt.INT64], G)  # 2 G
+    C23 = first_warm23("assign", lambda: gt.assign(W, A18s, None, D, S, S))
+    # the oracle: Z = W with Z(S, S) = D; C<M> = Z under the mask M of
+    # the graph's own pattern, W kept outside it
+    Dh = D.extractTuples()
+    dlin = S[Dh[0]] * n + S[Dh[1]]
+    ins = np.zeros(n, bool)
+    ins[S] = True
+    in_reg = ins[lin_w // n] & ins[lin_w % n]
+    zl = np.concatenate([lin_w[~in_reg], dlin])
+    zv = np.concatenate([val_w[~in_reg], Dh[2]])
+    zm = np.isin(zl, lin18)
+    wm = np.isin(lin_w, lin18)
+    same_csr(C23, scipy_rebuild(np.concatenate([zl[zm], lin_w[~wm]]),
+                                np.concatenate([zv[zm], val_w[~wm]]), n, n),
+             "assign<M> of the doubled subgraph vs scipy")
+    sync()
+    assign_launches = path_counts()
+    for name, (first, warm) in op_times.items():
+        print(f"{tag} phase23 {name}: first {first:.4f} s, warm "
+              f"{warm:.4f} s")
+    print(f"{tag} phase23 R-MAT 18 INT64 (n {n}, {len(I18)} entries): "
+          f"{k} setElement calls ({len(state)} keys, runs of 10,000 with "
+          f"and without accum=plus) + wait -> {W.nvals} entries, "
+          f"removeElement -> {R.nvals}, resize to {m_r}x{n_r} -> {Z.nvals}, "
+          f"extract of {m} vertices -> {G.nvals} entries, assign<M> -> "
+          f"{C23.nvals}: each == the scipy rebuild; phase "
+          f"{time.perf_counter() - t_phase:.3f} s")
+    print(f"ops-assign-path launches: {json.dumps(assign_launches)}")
+    path_launches["ops_assign"] = assign_launches
+    del V, B, W, R, Z, G, D, C23, Wsp, state, lin_w, val_w, zl, zv
+
+    # 24. BFS through the operations: bfs5m and bfs6 on the R-MAT 18 CSR
+    # (the anchor levels, entry for entry with bfs_csr), bfs_jit on the
+    # bitmap R-MAT 14 (equal to bfs_csr on its CSR)
+    t_phase = time.perf_counter()
+    _build.reset_launches()
+    want_lev = gt.bfs_csr(A18s, 0)
+    # the models' one host resort of A into its by-column twin, alone
+    _, resort_s = timed(lambda: vxm_operand(A18s))
+    bfs_times = {}
+    for name in ("bfs5m", "bfs6"):
+        fn = getattr(gt.models, name)
+        v, first = timed(lambda: fn(A18s, 0))
+        _, warm = timed(lambda: fn(A18s, 0))
+        lev = np.zeros(n, np.int64)
+        vi, vx = v.extractTuples()
+        lev[vi] = vx
+        vals, cnts = np.unique(lev, return_counts=True)
+        assert dict(zip(vals.tolist(), cnts.tolist())) == \
+            RMAT18_BFS_LEVELS, (name, vals, cnts)
+        assert np.array_equal(lev, want_lev), f"{name} != bfs_csr"
+        assert (vx > 0).all(), f"{name} kept explicit zeros"
+        bfs_times[name] = (first, warm, len(vi))
+    n14 = 1 << 14
+    I14, J14 = gt.symmetrize_pattern(*gt.rmat_edges(14, 16, seed=7), n14)
+    t0 = time.perf_counter()
+    A14 = gt.Matrix.from_coo(I14, J14, np.ones(len(I14), bool), n14, n14,
+                             type=gt.BOOL, device="cuda")
+    sync()
+    a14_s = time.perf_counter() - t0
+    A14c = gt.CsrMatrix.from_coo(I14, J14, np.ones(len(I14), bool), n14,
+                                 n14, type=gt.BOOL, sum_duplicates=False,
+                                 device="cuda")
+    lev14, jfirst = timed(lambda: gt.models.bfs_jit(A14, 0))
+    _, jwarm = timed(lambda: gt.models.bfs_jit(A14, 0))
+    assert np.array_equal(lev14, gt.bfs_csr(A14c, 0)), "bfs_jit != bfs_csr"
+    sync()
+    bfs_launches = path_counts()
+    for name, (first, warm, reached) in bfs_times.items():
+        print(f"{tag} phase24 {name} on CSR R-MAT 18: {reached} reached, "
+              f"levels == {RMAT18_BFS_LEVELS} == bfs_csr entry for entry; "
+              f"first {first:.4f} s, warm {warm:.4f} s")
+    print(f"{tag} phase24 the models' host resort of the R-MAT 18 CSR "
+          f"into its by-column twin alone: {resort_s:.4f} s")
+    print(f"{tag} phase24 bfs_jit on bitmap R-MAT 14 (n {n14}, "
+          f"{len(I14)} entries, built in {a14_s:.3f} s): "
+          f"{int((lev14 > 0).sum())} reached, == bfs_csr; first "
+          f"{jfirst:.4f} s, warm {jwarm:.4f} s; phase "
+          f"{time.perf_counter() - t_phase:.3f} s")
+    print(f"models-bfs-path launches: {json.dumps(bfs_launches)}")
+    path_launches["models_bfs"] = bfs_launches
+
+    # 25. MIS and PageRank: mis on the R-MAT 18 / 16 CSR (independent,
+    # maximal, the JAX package's set), on R-MAT 12 equal to the port's
+    # CPU run; dpagerank / ipagerank on the bitmap R-MAT 14 against the
+    # scipy oracles and on R-MAT 12 against the port's CPU run
+    t_phase = time.perf_counter()
+    _build.reset_launches()
+    mis_info = {}
+    for scale, Ag in ((18, A18s), (16, graphs[16][3])):
+        iset, secs = timed(lambda: gt.models.mis(Ag, seed=42))
+        si, sx = iset.extractTuples()
+        members = si[sx]
+        inset = torch.zeros(Ag.nrows, dtype=torch.bool, device="cuda")
+        inset[torch.from_numpy(members).cuda()] = True
+        rows = Ag.rowids[:Ag.nvals].long()
+        cols = Ag.indices[:Ag.nvals].long()
+        assert not bool((inset[rows] & inset[cols]).any()), \
+            f"R-MAT {scale}: the set is not independent"
+        covered = torch.zeros(Ag.nrows, dtype=torch.int32, device="cuda")
+        covered.index_add_(0, rows, inset[cols].to(torch.int32))
+        deg = Ag.row_degrees()
+        assert not bool(((~inset) & (deg > 0) & (covered == 0)).any()), \
+            f"R-MAT {scale}: the set is not maximal"
+        digest = hashlib.sha256(members.astype(np.int64).tobytes()
+                                ).hexdigest()[:16]
+        assert (len(members), digest) == MIS_ANCHORS[scale], \
+            (scale, len(members), digest)
+        mis_info[scale] = (len(members), secs)
+    n12 = 1 << 12
+    I12, J12 = gt.symmetrize_pattern(*gt.rmat_edges(12, 16, seed=7), n12)
+    X12 = np.ones(len(I12), bool)
+    runs12 = []
+    for dev in ("cuda", "cpu"):     # the card, then the port on the CPU
+        A12c = gt.CsrMatrix.from_coo(I12, J12, X12, n12, n12, type=gt.BOOL,
+                                     sum_duplicates=False, device=dev)
+        A12 = gt.Matrix.from_coo(I12, J12, X12, n12, n12, type=gt.BOOL,
+                                 device=dev)
+        runs12.append((gt.models.mis(A12c, seed=42).extractTuples(),
+                       gt.models.dpagerank(A12), gt.models.ipagerank(A12)))
+    (mis_card, dcard, icard), (mis_cpu, dcpu, icpu) = runs12
+    assert all(np.array_equal(a, b) for a, b in zip(mis_card, mis_cpu)), \
+        "mis on the card != the port's CPU run at R-MAT 12"
+    assert icard == icpu, "ipagerank on the card != the CPU run"
+    dref = np.zeros(n12)
+    for p, v in dcpu:
+        dref[p] = v
+    check_ranks(dcard, dref, rtol=1e-12)
+    for ranks in (dcard, icard):
+        assert [p for p, _ in ranks[:10]] == RMAT12_PAGERANK_TOP10
+    pr_times = {}
+    rd14, ri14 = pagerank_oracles(I14, J14, n14)
+    for name, want, rtol in (("dpagerank", rd14, 1e-9),
+                             ("ipagerank", ri14, None)):
+        fn = getattr(gt.models, name)
+        ranks, first = timed(lambda: fn(A14))
+        _, warm = timed(lambda: fn(A14))
+        check_ranks(ranks, want, rtol)
+        pr_times[name] = (first, warm, [p for p, _ in ranks[:10]])
+    sync()
+    mis_pr_launches = path_counts()
+    for scale, (size, secs) in mis_info.items():
+        print(f"{tag} phase25 mis on CSR R-MAT {scale}: |iset| {size} == "
+              f"the JAX package's set, independent and maximal; "
+              f"{secs:.3f} s")
+    print(f"{tag} phase25 R-MAT 12: mis (|iset| {len(mis_card[0])}) "
+          f"and ipagerank == the port's CPU run, dpagerank within rtol "
+          f"1e-12 of it, top-10 {RMAT12_PAGERANK_TOP10}")
+    for name, (first, warm, top) in pr_times.items():
+        how = ("uint64 exactly" if name == "ipagerank"
+               else "float64 within rtol 1e-9")
+        print(f"{tag} phase25 {name} on bitmap R-MAT 14: == scipy {how}, "
+              f"descending, top-10 {top}; first {first:.4f} s, warm "
+              f"{warm:.4f} s")
+    print(f"{tag} phase25 phase {time.perf_counter() - t_phase:.3f} s, peak "
+          f"device memory {torch.cuda.max_memory_allocated()} B")
+    print(f"models-mis-pagerank-path launches: {json.dumps(mis_pr_launches)}")
+    path_launches["models_mis_pagerank"] = mis_pr_launches
 
     sources = {
         "tri_band_ring": ("graphblas_tpu_torch/csrc/window.cu",

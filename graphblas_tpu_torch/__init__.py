@@ -32,7 +32,12 @@ and imports no JAX.  The slices so far:
   (:mod:`ops.ewise`, :mod:`sparse.ewise`, :mod:`ops.reduce`,
   :mod:`ops.transpose`), and the counting models built on them
   (:mod:`models`: ``tricount``'s six methods, ``ktruss``,
-  ``allktruss``, ``kron_generate``).
+  ``allktruss``, ``kron_generate``);
+* pending tuples (``setElement``/``wait`` on every container, with the
+  element accessors, ``resize`` and ``clear``), ``extract`` and
+  ``assign`` in all their forms (:mod:`ops.extract`, :mod:`ops.assign`,
+  :mod:`sparse.assign`), and the graph models ``bfs5m``/``bfs6``/
+  ``bfs_jit``, ``mis``, ``dpagerank``/``ipagerank``/``pagerank_jit``.
 
 The kernels are built with ``nvcc`` on first use, never at import.
 
@@ -61,7 +66,12 @@ from .core.types import (BOOL, FP32, FP64, INT8, INT16, INT32, INT64,
                          type_of_dtype)
 from .models.generate import wathen_coo
 from .models.rmat import rmat_edges, symmetrize_pattern
+from .utils.indices import ALL
+from .ops.assign import (assign, assign_scalar, assign_vector, col_assign,
+                         row_assign, subassign, subassign_scalar,
+                         subassign_vector)
 from .ops.containers import UnsupportedContainer
+from .ops.extract import extract, extract_col, extract_vector
 from .ops.flopcount import jax_engine_name, last_axb_method
 from .ops.ewise import apply, eWiseAdd, eWiseMult, select
 from .ops.mxm import mxm, mxv, semiring_mm, vxm
@@ -84,6 +94,9 @@ __all__ = [
     "UnsupportedOp", "UnsupportedContainer", "mxm", "mxv", "vxm",
     "semiring_mm", "eWiseAdd", "eWiseMult", "apply", "select", "reduce",
     "reduce_to_vector", "reduce_to_scalar", "transpose", "kron", "models",
+    "ALL", "extract", "extract_vector", "extract_col", "assign",
+    "subassign", "assign_scalar", "subassign_scalar", "assign_vector",
+    "subassign_vector", "row_assign", "col_assign",
     "wathen_coo", "rmat_edges", "symmetrize_pattern",
     "jax_engine_name", "last_axb_method", *_sparse_all,
 ]

@@ -9,7 +9,9 @@ off a JAX package ``CsrMatrix`` (pattern-only or valued: FP32, INT32,
 FP64, BOOL and the other builtin types), ``CscMatrix``, bitmap
 ``Matrix``, ``Vector``, ``BandPlan``, ``WindowPlan``, ``TilePattern``,
 ``Semiring`` (by its operator names and type) or BSR SpMV plan (the
-8-tuple ``bsr_spmv_plan`` returns).
+8-tuple ``bsr_spmv_plan`` returns).  A container's pending tuples come
+across as host tuples (their accum ops as the port's builtin op of the
+same name and types), to be folded by the port's ``wait``.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core.matrix import Matrix, Vector
+from .core.matrix import Matrix, Vector, as_pending
+from .core.ops import binary
 from .core.semirings import Semiring, semiring
 from .core.types import type_by_name
 from .sparse.bsr import TilePattern
@@ -122,9 +125,40 @@ def semiring_by_name(add_name: str, mult_name: str,
         type_by_name(type_name)]
 
 
+def _accum_of(op):
+    """The port's builtin binary op of a JAX package accum op's name and
+    types (or None)."""
+    if op is None:
+        return None
+    out = binary[op.name.lower()][type_by_name(op.xtype.name)]
+    if (out.ytype.name, out.ztype.name) != (op.ytype.name, op.ztype.name):
+        raise TypeError(f"no builtin binary op {op.name} of types "
+                        f"({op.xtype.name}, {op.ytype.name}) -> "
+                        f"{op.ztype.name}")
+    return out
+
+
+def _host_scalar(x):
+    """A JAX-side scalar (Python, numpy or a device array) on the host."""
+    return np.asarray(x)[()]
+
+
+def _pending_from_jax(pending):
+    """A JAX container's pending list with host scalars and the port's
+    accum ops; a bitmap index comes as a tuple of ints."""
+    out = []
+    for *idx, x, op in pending:
+        if len(idx) == 1:     # the bitmap form: (index, scalar, accum)
+            idx = [tuple(int(i) for i in np.atleast_1d(idx[0]))]
+        else:                 # the sparse form: (i, j, scalar, accum)
+            idx = [int(i) for i in idx]
+        out.append((*idx, _host_scalar(x), _accum_of(op)))
+    return as_pending(out)
+
+
 def from_jax(obj, device=None):
     """The port's counterpart of a JAX package CsrMatrix, CscMatrix,
-    bitmap Matrix (its pending tuples folded first), Vector, BandPlan,
+    bitmap Matrix, Vector (each with its pending tuples), BandPlan,
     WindowPlan, TilePattern, BSR SpMV plan (read through numpy) or
     builtin Semiring (by name)."""
     kind = type(obj).__name__
@@ -139,21 +173,20 @@ def from_jax(obj, device=None):
         return sr
     if kind == "CsrMatrix":
         hp = obj._options.get("host_pattern")
-        return csr_from_arrays(
+        A = csr_from_arrays(
             np.asarray(obj.indptr), np.asarray(obj.indices),
             np.asarray(obj.rowids), np.asarray(obj.values), obj.nvals,
             obj.nrows, obj.ncols, obj.type.name, hp, device)
+        A._pending = _pending_from_jax(obj._pending)
+        return A
     if kind == "CscMatrix":
         return CscMatrix(from_jax(obj.tr, device))
-    if kind == "Matrix":
-        obj = obj.wait()
-        return matrix_from_arrays(np.asarray(obj.values),
-                                  np.asarray(obj.pattern), obj.type.name,
-                                  device)
-    if kind == "Vector":
-        return vector_from_arrays(np.asarray(obj.values),
-                                  np.asarray(obj.pattern), obj.type.name,
-                                  device)
+    if kind in ("Matrix", "Vector"):
+        make = matrix_from_arrays if kind == "Matrix" else vector_from_arrays
+        X = make(np.asarray(obj.values), np.asarray(obj.pattern),
+                 obj.type.name, device)
+        X._pending = _pending_from_jax(obj._pending)
+        return X
     if kind == "BandPlan":
         return band_plan_from_arrays(
             np.asarray(obj.P), np.asarray(obj.Ut), obj.nI, obj.Wb,

@@ -7,9 +7,14 @@ storage dtype and a bool pattern of the same shape, with absent values
 the bitmap ``mxm`` (the dense engines, the tropical kernel and the SpMM
 fast path); ``Vector`` carries SpMV (``mxv``/``vxm`` inputs, masks and
 outputs).  Both are functional: every method returns a new container.
-Pending tuples (``setElement`` folded by ``wait``) come with the
-containers slice, so ``wait()`` returns the container itself.
-User-defined types come with a later slice too: a type that is not a
+``setElement`` appends a pending tuple to a host-side list (the
+reference's ``GB_pending_add``, non-blocking mode) and ``wait`` folds
+the list: duplicates fold on the host in input order, each run of one
+accum op lands in one scatter to distinct positions (scattering to a
+repeated index is undefined on CUDA), as the JAX package's
+``Matrix.wait``.  Every read of a container (``nvals``, the element and
+tuple accessors, ``to_dense``, the operations) folds first.
+User-defined types come with a later slice: a type that is not a
 builtin ``Type`` raises.
 
 Like the sparse containers, a container lives on the CUDA card unless
@@ -26,7 +31,8 @@ import torch
 
 from .errors import DimensionMismatch, IndexOutOfBounds
 from .ops import BinaryOp, binary
-from .types import Type, cast, type_of_dtype, type_of_storage
+from .types import (Type, cast, cast_result, cast_value, type_of_dtype,
+                    type_of_storage)
 
 __all__ = ["Matrix", "Vector"]
 
@@ -64,6 +70,91 @@ def _fold_duplicates(dup: BinaryOp, Xs: np.ndarray, starts: np.ndarray,
         res = dup(a, b).numpy()
         out[sel] = res.view(t.dtype) if t.is_unsigned else res
     return out
+
+
+def _fold_runs(xs: np.ndarray, starts: np.ndarray,
+               accum: Optional[BinaryOp], t: Type) -> np.ndarray:
+    """The value each sorted run of one key folds to: the last write
+    when ``accum`` is None (``GB_setElement`` overwrites), else the run
+    folded left to right with ``accum``."""
+    if accum is None:
+        return xs[np.append(starts[1:], len(xs)) - 1]
+    return _fold_duplicates(accum, xs, starts, t)
+
+
+def accum_apply(accum: BinaryOp, c: torch.Tensor, x: torch.Tensor,
+                t: Type) -> torch.Tensor:
+    """accum(c, x) for values c, x of type ``t``, the result in ``t``."""
+    z = accum(cast(c, accum.xtype, t), cast(x, accum.ytype, t))
+    return cast(cast_result(z, accum.ztype), t, accum.ztype)
+
+
+class Pending:
+    """A container's pending tuples: a read-only sequence over a host
+    list that the containers derived from one another share.  Adding a
+    tuple to the newest of them extends the shared list in place, O(1);
+    adding one to an older container copies its own prefix first, so
+    every container keeps exactly its tuples (``setElement`` stays
+    functional without copying the list on every call)."""
+
+    __slots__ = ("_buf", "_n")
+
+    def __init__(self, items=()):
+        self._buf = list(items)
+        self._n = len(self._buf)
+
+    def plus(self, item) -> "Pending":
+        """This list with ``item`` appended, as a new Pending."""
+        if self._n == len(self._buf):
+            buf = self._buf
+            buf.append(item)
+        else:
+            buf = self._buf[:self._n] + [item]
+        out = Pending.__new__(Pending)
+        out._buf, out._n = buf, len(buf)
+        return out
+
+    def __len__(self) -> int:
+        return self._n
+
+    def __iter__(self):
+        return iter(self._buf[:self._n])
+
+    def __getitem__(self, k):
+        return self._buf[:self._n][k]
+
+    def __eq__(self, other) -> bool:
+        return list(self) == list(other)
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return f"Pending({list(self)!r})"
+
+
+def as_pending(pending) -> Pending:
+    """``pending`` (None, a list of tuples or a Pending) as a Pending."""
+    if isinstance(pending, Pending):
+        return pending
+    return Pending(pending or ())
+
+
+def pending_runs(pending) -> list:
+    """Consecutive pending tuples that share an accum op, as
+    [(accum, [tuple without its accum, ...]), ...]: a later overwrite
+    must not fold across an intervening accum run."""
+    runs: list = []
+    for *rest, accum in pending:
+        if runs and runs[-1][0] is accum:
+            runs[-1][1].append(tuple(rest))
+        else:
+            runs.append((accum, [tuple(rest)]))
+    return runs
+
+
+def global_blocking() -> bool:
+    """Whether the global mode folds each ``setElement`` at once
+    (``GrB_BLOCKING``)."""
+    from .options import BLOCKING, global_options
+    return global_options().mode == BLOCKING
 
 
 def _resolve(device) -> torch.device:
@@ -139,7 +230,14 @@ class _Bitmap:
     ``type.storage`` and a bool ``pattern`` of one shape, on one
     device."""
 
-    __slots__ = ("values", "pattern", "type")
+    __slots__ = ("values", "pattern", "type", "_pending")
+
+    def _init(self, values, pattern, type, pending):
+        self.values = values
+        self.pattern = pattern
+        self.type = _builtin(type)
+        # the non-blocking delta list: (index tuple, scalar, accum op)
+        self._pending = as_pending(pending)
 
     @property
     def shape(self):
@@ -150,20 +248,71 @@ class _Bitmap:
         return self.pattern.device
 
     def nvals(self) -> int:
-        return int(self.pattern.sum())
+        """The number of entries (``GrB_*_nvals``; folds first)."""
+        return int(self.wait().pattern.sum())
+
+    def _replace(self, values=None, pattern=None, pending=None):
+        return type(self)(self.values if values is None else values,
+                          self.pattern if pattern is None else pattern,
+                          self.type,
+                          self._pending if pending is None else pending)
 
     def wait(self):
-        """No pending tuples yet: the container itself."""
-        return self
+        """Fold the pending tuples (reference ``GB_wait``): per run of
+        one accum op, duplicates fold on the host in input order and the
+        run lands in one scatter to distinct positions; a position
+        already present takes accum(old, new), or new without accum."""
+        if not self._pending:
+            return self
+        t = self.type
+        shape = self.shape
+        dev = self.device
+        vals = self.values.flatten().clone()
+        pat = self.pattern.flatten().clone()
+        for accum, tuples in pending_runs(self._pending):
+            idx = np.asarray([i for i, _ in tuples], np.int64)
+            key = np.ravel_multi_index(idx.T, shape).astype(np.int64)
+            xs = np.asarray([cast_value(x, t) for _, x in tuples],
+                            dtype=t.dtype)
+            order = np.argsort(key, kind="stable")
+            key, xs = key[order], xs[order]
+            first = np.ones(len(key), bool)
+            first[1:] = key[1:] != key[:-1]
+            starts = np.nonzero(first)[0]
+            tgt = torch.from_numpy(key[starts]).to(dev)
+            new = torch.from_numpy(
+                t.to_storage(_fold_runs(xs, starts, accum, t))).to(dev)
+            if accum is not None:
+                new = torch.where(pat[tgt], accum_apply(accum, vals[tgt],
+                                                        new, t), new)
+            vals[tgt] = new
+            pat[tgt] = True
+        return self._replace(vals.reshape(shape), pat.reshape(shape),
+                             Pending()).canonical()
+
+    def setElement(self, value, *index, accum: Optional[BinaryOp] = None,
+                   blocking: Optional[bool] = None):
+        """Functional setElement: the tuple joins the pending list
+        (reference ``GB_setElement`` -> ``GB_pending_add``) and folds at
+        the next :meth:`wait`; ``blocking`` (default: the global mode)
+        folds it at once."""
+        idx = self._index(index)
+        if accum is not None and not isinstance(accum, BinaryOp):
+            raise TypeError(f"setElement accum must be a BinaryOp, got "
+                            f"{accum!r}")
+        if blocking is None:
+            blocking = global_blocking()
+        out = self._replace(pending=self._pending.plus((idx, value, accum)))
+        return out.wait() if blocking else out
 
     def canonical(self):
         """Zero the values at absent positions (the storage invariant)."""
         zero = torch.zeros((), dtype=self.values.dtype, device=self.device)
-        return type(self)(torch.where(self.pattern, self.values, zero),
-                          self.pattern, self.type)
+        return self._replace(values=torch.where(self.pattern, self.values,
+                                                zero))
 
     def dup(self):
-        return type(self)(self.values, self.pattern, self.type)
+        return self._replace()
 
     def clear(self):
         """Every entry removed; shape and type kept (``GrB_*_clear``)."""
@@ -184,15 +333,17 @@ class _Bitmap:
         """The entry's value as a numpy scalar of the type, or None when
         it is absent (``GrB_NO_VALUE``)."""
         idx = self._index(index)
-        if not bool(self.pattern[idx]):
+        m = self.wait()
+        if not bool(m.pattern[idx]):
             return None
-        return self._host(self.values[idx].reshape(1))[0]
+        return m._host(m.values[idx].reshape(1))[0]
 
     def removeElement(self, *index):
         idx = self._index(index)
-        pat = self.pattern.clone()
+        m = self.wait()
+        pat = m.pattern.clone()
         pat[idx] = False
-        return type(self)(self.values, pat, self.type).canonical()
+        return m._replace(pattern=pat).canonical()
 
     # -- conversion ---------------------------------------------------------
     def _host(self, x: torch.Tensor) -> np.ndarray:
@@ -201,14 +352,15 @@ class _Bitmap:
 
     def to_dense(self, fill=None) -> np.ndarray:
         """Host values; absent entries hold 0, or ``fill``."""
-        out = self._host(self.values)
+        m = self.wait()
+        out = m._host(m.values)
         if fill is not None:
-            out = np.where(self.pattern_np(), out,
-                           np.asarray(fill, self.type.dtype))
+            out = np.where(m.pattern_np(), out,
+                           np.asarray(fill, m.type.dtype))
         return out
 
     def pattern_np(self) -> np.ndarray:
-        return self.pattern.cpu().numpy()
+        return self.wait().pattern.cpu().numpy()
 
 
 class Matrix(_Bitmap):
@@ -218,14 +370,12 @@ class Matrix(_Bitmap):
     __slots__ = ()
 
     def __init__(self, values: torch.Tensor, pattern: torch.Tensor,
-                 type: Type):
+                 type: Type, pending=None):
         if values.dim() != 2 or values.shape != pattern.shape:
             raise ValueError(f"a Matrix needs 2-D values and pattern of "
                              f"one shape, got {tuple(values.shape)} and "
                              f"{tuple(pattern.shape)}")
-        self.values = values
-        self.pattern = pattern
-        self.type = _builtin(type)
+        self._init(values, pattern, type, pending)
 
     # -- constructors -------------------------------------------------------
     @staticmethod
@@ -281,28 +431,31 @@ class Matrix(_Bitmap):
 
     def resize(self, nrows: int, ncols: int) -> "Matrix":
         """``GxB_Matrix_resize``: grow with empties, shrink pruning."""
-        vals = torch.zeros((nrows, ncols), dtype=self.values.dtype,
-                           device=self.device)
+        m = self.wait()
+        vals = torch.zeros((nrows, ncols), dtype=m.values.dtype,
+                           device=m.device)
         pat = torch.zeros((nrows, ncols), dtype=torch.bool,
-                          device=self.device)
-        r, c = min(nrows, self.nrows), min(ncols, self.ncols)
-        vals[:r, :c] = self.values[:r, :c]
-        pat[:r, :c] = self.pattern[:r, :c]
-        return Matrix(vals, pat, self.type)
+                          device=m.device)
+        r, c = min(nrows, m.nrows), min(ncols, m.ncols)
+        vals[:r, :c] = m.values[:r, :c]
+        pat[:r, :c] = m.pattern[:r, :c]
+        return Matrix(vals, pat, m.type)
 
     def T(self) -> "Matrix":
         """Structural transpose (no mask or accum)."""
-        return Matrix(self.values.T.contiguous(),
-                      self.pattern.T.contiguous(), self.type)
+        m = self.wait()
+        return Matrix(m.values.T.contiguous(), m.pattern.T.contiguous(),
+                      m.type)
 
     # -- tuples and iteration -------------------------------------------------
     def extractTuples(self):
         """(I, J, X) of the entries in row-major order as host arrays, X
         in the type's numpy dtype."""
-        I, J = torch.nonzero(self.pattern, as_tuple=True)
+        m = self.wait()
+        I, J = torch.nonzero(m.pattern, as_tuple=True)
         return (I.cpu().numpy().astype(np.int64),
                 J.cpu().numpy().astype(np.int64),
-                self._host(self.values[I, J]))
+                m._host(m.values[I, J]))
 
     def rows(self):
         """Iterate (i, cols, vals) over the nonempty rows (the
@@ -319,7 +472,8 @@ class Matrix(_Bitmap):
 
     def __repr__(self):  # pragma: no cover
         return (f"Matrix<{self.type.name}> {self.nrows}x{self.ncols} on "
-                f"{self.device}")
+                f"{self.device}" + (f", {len(self._pending)} pending"
+                                    if self._pending else ""))
 
 
 class Vector(_Bitmap):
@@ -330,14 +484,12 @@ class Vector(_Bitmap):
     __slots__ = ()
 
     def __init__(self, values: torch.Tensor, pattern: torch.Tensor,
-                 type: Type):
+                 type: Type, pending=None):
         if values.dim() != 1 or values.shape != pattern.shape:
             raise ValueError(f"a Vector needs 1-D values and pattern of "
                              f"one shape, got {tuple(values.shape)} and "
                              f"{tuple(pattern.shape)}")
-        self.values = values
-        self.pattern = pattern
-        self.type = _builtin(type)
+        self._init(values, pattern, type, pending)
 
     # -- constructors -------------------------------------------------------
     @staticmethod
@@ -376,14 +528,25 @@ class Vector(_Bitmap):
 
     def all_present(self) -> bool:
         """Whether every entry is present (read from the pattern)."""
-        return bool(self.pattern.all())
+        return bool(self.wait().pattern.all())
 
     def extractTuples(self):
         """(I, X) of the entries in index order as host arrays, X in the
         type's numpy dtype."""
-        (I,) = torch.nonzero(self.pattern, as_tuple=True)
+        v = self.wait()
+        (I,) = torch.nonzero(v.pattern, as_tuple=True)
         return (I.cpu().numpy().astype(np.int64),
-                self._host(self.values[I]))
+                v._host(v.values[I]))
+
+    def resize(self, n: int) -> "Vector":
+        """``GxB_Vector_resize``: grow with empties, shrink pruning."""
+        v = self.wait()
+        vals = torch.zeros(n, dtype=v.values.dtype, device=v.device)
+        pat = torch.zeros(n, dtype=torch.bool, device=v.device)
+        k = min(n, v.size)
+        vals[:k] = v.values[:k]
+        pat[:k] = v.pattern[:k]
+        return Vector(vals, pat, v.type)
 
     def __repr__(self):  # pragma: no cover
         return f"Vector<{self.type.name}> n={self.size} on {self.device}"

@@ -12,12 +12,13 @@ is the default transpose orientation; MODE blocking/non-blocking says
 whether ``setElement`` folds immediately; NTHREADS and ``chunk`` are
 block-size hints.  The options are per thread.
 
-No operation of the port reads any of the six fields yet: setting one is
-accepted, kept and returned by ``get_option``, and changes nothing.  MODE
-waits for pending tuples (ROADMAP.md queue 1, item 5) and HYPER ratio
-for the hypersparse container (item 10); FORMAT, NTHREADS, ``backend`` and
-``chunk`` are not consulted, since each operation takes its orientation
-from its descriptor and its engine and block sizes from its operands.
+MODE is read by ``setElement`` (every container): in blocking mode a
+pending tuple folds at once.  The other five fields are accepted, kept
+and returned by ``get_option``, and change nothing: HYPER ratio waits
+for the hypersparse container (ROADMAP.md queue 1, item 10); FORMAT,
+NTHREADS, ``backend`` and ``chunk`` are not consulted, since each
+operation takes its orientation from its descriptor and its engine and
+block sizes from its operands.
 """
 
 from __future__ import annotations

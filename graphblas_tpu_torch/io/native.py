@@ -4,9 +4,11 @@ package.
 Counterpart of ``graphblas_tpu/io/native.py``.  The C++ sources live in
 ``native/`` at the repository root (built by ``native/Makefile`` into
 ``libgbtpu_native.so``); this module loads the same library for the
-host-side tuple assembly (radix sort-dedup and pair sort).
-Python falls back to numpy when the library hasn't been built: the
-results are identical, only slower.  This is host-side sorting, not a
+host-side triplet parser and tuple assembly (radix sort-dedup, pair
+sort, symmetrize-dedup).  Each function returns None when the library
+hasn't been built, and its caller runs the numpy form, whose results are
+identical, only slower (the card's machine builds no native library, so
+the port takes the numpy forms there).  This is host-side work, not a
 device path.
 """
 
@@ -18,7 +20,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["native_lib", "sort_dedup_native", "sort_pairs_native"]
+__all__ = ["native_lib", "parse_triplets_native", "sort_dedup_native",
+           "sort_pairs_native", "sym_dedup_native"]
 
 _LIB = None
 _TRIED = False
@@ -41,6 +44,16 @@ def native_lib() -> Optional[ctypes.CDLL]:
         return None
     try:
         lib = ctypes.CDLL(path)
+        lib.gbtpu_count_triplets.restype = ctypes.c_int64
+        lib.gbtpu_count_triplets.argtypes = [ctypes.c_char_p]
+        lib.gbtpu_parse_triplets.restype = ctypes.c_int64
+        lib.gbtpu_parse_triplets.argtypes = [
+            ctypes.c_char_p,
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_double),
+            ctypes.c_int64,
+        ]
         lib.gbtpu_sort_dedup.restype = ctypes.c_int64
         lib.gbtpu_sort_dedup.argtypes = [
             ctypes.POINTER(ctypes.c_int64),   # I (in/out)
@@ -53,6 +66,40 @@ def native_lib() -> Optional[ctypes.CDLL]:
     except OSError:
         _LIB = None
     return _LIB
+
+
+def parse_triplets_native(path: str):
+    """Parse an "i j [x]" triplet file with the C parser: (I, J, X), or
+    None if the library is unavailable.
+
+    Malformed input (a non-numeric token, or inconsistent column counts)
+    raises ValueError — the same conditions ``np.loadtxt`` raises on in
+    the numpy form, so behavior is identical either way.  Values are
+    parsed with strtod, so rounding and nan/inf agree with numpy to the
+    ULP.
+    """
+    lib = native_lib()
+    if lib is None:
+        return None
+    n = lib.gbtpu_count_triplets(path.encode())
+    if n < 0:
+        return None
+    I = np.empty(n, dtype=np.int64)
+    J = np.empty(n, dtype=np.int64)
+    X = np.empty(n, dtype=np.float64)
+    got = lib.gbtpu_parse_triplets(
+        path.encode(),
+        I.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        J.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        X.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        n)
+    if got == -2:
+        raise ValueError(
+            f"malformed triplet file {path!r}: non-numeric token or "
+            f"inconsistent column count")
+    if got < 0:
+        return None
+    return I[:got], J[:got], X[:got]
 
 
 _DUP_MODES = {"PLUS": 0, "FIRST": 1, "LOR": 2, "SECOND": 3,
@@ -103,3 +150,27 @@ def sort_pairs_native(I: np.ndarray, J: np.ndarray, nrows: int,
     if rc != 0:
         return None
     return Ic, Jc, perm
+
+
+def sym_dedup_native(I: np.ndarray, J: np.ndarray, n: int):
+    """Symmetrize + self-loop removal + dedup of an edge pattern —
+    exactly ``np.unique(np.concatenate([I*n+J, J*n+I]))`` minus the
+    diagonal (``models.rmat.symmetrize_pattern``'s numpy form),
+    parallel.  Returns (I, J) or None."""
+    lib = native_lib()
+    if lib is None or len(I) == 0:
+        return None
+    fn = getattr(lib, "gbtpu_sym_dedup_pattern", None)
+    if fn is None:
+        return None
+    fn.restype = ctypes.c_int64
+    ne = len(I)
+    Ib = np.empty(2 * ne, np.int64)
+    Jb = np.empty(2 * ne, np.int64)
+    Ib[:ne] = I
+    Jb[:ne] = J
+    p = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+    out = fn(p(Ib), p(Jb), ctypes.c_int64(ne), ctypes.c_int64(n))
+    if out < 0:
+        return None
+    return Ib[:out].copy(), Jb[:out].copy()

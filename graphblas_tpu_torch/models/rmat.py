@@ -1,7 +1,8 @@
 """R-MAT / Kronecker power-law graph generator (Graph500-style).
 
-Counterpart of ``graphblas_tpu/models/rmat.py`` (pure numpy; the
-``rmat_graph`` container constructor comes with a later slice).
+Counterpart of ``graphblas_tpu/models/rmat.py`` (the edges in numpy;
+``rmat_graph`` builds the CsrMatrix on ``device``, the card by
+default).
 
 The reference generates Kronecker graphs by explicit tuple expansion
 (``Extras/ExactKronGen``); the R-MAT recursive form generates the same
@@ -17,7 +18,7 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["rmat_edges", "symmetrize_pattern"]
+__all__ = ["rmat_edges", "rmat_graph", "symmetrize_pattern"]
 
 
 def rmat_edges(scale: int, edge_factor: int = 16,
@@ -51,6 +52,17 @@ def rmat_edges(scale: int, edge_factor: int = 16,
         lin = np.unique(lin)
         I2, J2 = lin // n, lin % n
     return I2, J2
+
+
+def rmat_graph(scale: int, edge_factor: int = 16, seed: int = 1,
+               device=None):
+    """R-MAT graph as a CsrMatrix (boolean structure, fp32 ones)."""
+    from ..core.types import FP32
+    from ..sparse.container import csr_from_coo
+    I, J = rmat_edges(scale, edge_factor, seed=seed)
+    n = 1 << scale
+    return csr_from_coo(I, J, np.ones(len(I), np.float32), n, n,
+                        type=FP32, sum_duplicates=False, device=device)
 
 
 def symmetrize_pattern(I: np.ndarray, J: np.ndarray, n: int):

@@ -5,7 +5,8 @@ the port carries: the CSR ``CsrMatrix``, its by-column twin
 ``CscMatrix``, the bitmap ``Matrix`` and the bitmap ``Vector``.  The
 reference canonicalizes every operand internally
 (``GB_AxB_meta.c:86-185``); here the OUTPUT container decides the
-compute representation and operands convert toward it.  The hypersparse
+compute representation and operands convert toward it, their pending
+tuples folded first.  The hypersparse
 containers (``HyperMatrix``, ``SparseVec``) come with a later slice.
 """
 
@@ -59,8 +60,11 @@ def require_builtin(what: str, *ops) -> None:
 
 def to_csr_operand(X, tran: bool = False, what: str = "operand"):
     """A CsrMatrix, CscMatrix or bitmap Matrix -> CsrMatrix, optionally
-    transposed (a CscMatrix transposes for free)."""
+    transposed (a CscMatrix transposes for free); pending tuples are
+    folded first (the GB_WAIT discipline)."""
     from ..sparse.container import CscMatrix, CsrMatrix
+    if isinstance(X, (CsrMatrix, CscMatrix, Matrix)):
+        X = X.wait()
     if isinstance(X, CsrMatrix):
         return X.T() if tran else X
     if isinstance(X, CscMatrix):
@@ -74,12 +78,12 @@ def to_csr_operand(X, tran: bool = False, what: str = "operand"):
 
 def to_bitmap_operand(X, what: str = "operand") -> Matrix:
     """A CsrMatrix, CscMatrix or bitmap Matrix -> bitmap Matrix (small
-    dimensions only: the bitmap is dense)."""
+    dimensions only: the bitmap is dense), pending tuples folded."""
     from ..sparse.container import CscMatrix, CsrMatrix
     if isinstance(X, (CsrMatrix, CscMatrix)):
         return X.to_matrix()
     if isinstance(X, Matrix):
-        return X
+        return X.wait()
     raise UnsupportedContainer(
         f"{what}: expected a matrix container, got {type(X).__name__}")
 

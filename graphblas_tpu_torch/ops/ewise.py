@@ -36,8 +36,8 @@ __all__ = ["eWiseAdd", "eWiseMult", "apply", "select"]
 
 def bitmap_operand(X, what: str):
     """A bitmap Vector as it is; any matrix container as a bitmap
-    Matrix."""
-    return X if isinstance(X, Vector) else to_bitmap_operand(X, what)
+    Matrix (pending tuples folded)."""
+    return X.wait() if isinstance(X, Vector) else to_bitmap_operand(X, what)
 
 
 def transposed(X, tran: bool):
@@ -73,7 +73,7 @@ def csr_frame(C, A, tran: bool, M, what: str):
     transpose with it (the reference's is_csc flag flip)."""
     from ..sparse.container import CscMatrix
     csc = isinstance(C, CscMatrix)
-    Cw = C.tr if csc else C
+    Cw = (C.tr if csc else C).wait()
     Aw = to_csr_operand(A, csc ^ tran, f"{what} input")
     Mw = to_csr_operand(M, csc, "mask") if M is not None else None
     return Cw, Aw, Mw, csc

@@ -285,6 +285,7 @@ def _mxm_sparse(C, M, accum, sr: Semiring, A, B, d: Descriptor):
     from ..sparse.esc import csr_spgemm
     from ..sparse.mask import csr_accum_mask
     from ..sparse.valdot import valdot_masked_spgemm
+    C = C.wait()
     A = to_csr_operand(A, what="mxm input A")
     B = to_csr_operand(B, what="mxm input B")
     Mc = to_csr_operand(M, what="mxm mask") if M is not None else None
@@ -345,6 +346,7 @@ def _mxm_spmm(C: Matrix, M, accum, sr: Semiring, A, B: Matrix,
     all present is read from its pattern on every call."""
     from ..sparse.spmm import csr_spmm_dense
     Ac = to_csr_operand(A, tran=d.tran0, what="mxm input A")
+    B = B.wait()
     Bv, Bp = (B.values.T, B.pattern.T) if d.tran1 else (B.values, B.pattern)
     if Ac.ncols != Bv.shape[0]:
         raise DimensionMismatch(f"A is {Ac.shape}, B is {tuple(Bv.shape)}")
@@ -452,6 +454,7 @@ def mxv(w, m, accum: Optional[BinaryOp], semiring: Semiring, A, u,
     semiring = resolve_semiring(semiring, "mxv semiring", None, A, u, w)
     accum = resolve_accum(accum, "mxv accum", None, w, A)
     _vector_args("mxv", w, m, u)
+    u = u.wait()
     from ..sparse.container import CscMatrix, CsrMatrix
     d = desc_of(desc)
     if isinstance(A, CscMatrix):
@@ -460,6 +463,7 @@ def mxv(w, m, accum: Optional[BinaryOp], semiring: Semiring, A, u,
         A, d = ((A.T(), dataclasses.replace(d, tran0=False)) if d.tran0
                 else (A.to_csr(), d))
     if isinstance(A, CsrMatrix):
+        A = A.wait()
         if d.tran0:
             A = A.T()  # host resort; large callers should cache A'
         if u.size != A.ncols:
@@ -491,6 +495,7 @@ def vxm(w, m, accum: Optional[BinaryOp], semiring: Semiring, u, A,
     semiring = resolve_semiring(semiring, "vxm semiring", None, u, A, w)
     accum = resolve_accum(accum, "vxm accum", None, w, A)
     _vector_args("vxm", w, m, u)
+    u = u.wait()
     from ..sparse.container import CscMatrix, CsrMatrix
     d = desc_of(desc)
     if isinstance(A, CscMatrix):
@@ -499,6 +504,7 @@ def vxm(w, m, accum: Optional[BinaryOp], semiring: Semiring, u, A,
         A, d = ((A.to_csr(), d) if d.tran1
                 else (A.T(), dataclasses.replace(d, tran1=True)))
     if isinstance(A, CsrMatrix):
+        A = A.wait()
         if not d.tran1:
             A = A.T()  # host resort; large callers should cache A'
         if u.size != A.ncols:

@@ -74,6 +74,7 @@ def reduce_to_vector(w: Vector, m: Optional[Vector],
                 f"w has size {w.size}, A has {A.nrows} rows")
         red, tpat = csr_reduce_rows(mon, A)
         return accum_mask(w, m, Vector(red, tpat, mon.type), accum, d)
+    A = A.wait()
     vals, pat = A.values, A.pattern
     if d.tran0:
         vals, pat = vals.T, pat.T
@@ -109,6 +110,7 @@ def reduce_to_scalar(accum: Optional[BinaryOp], op: Union[Monoid, BinaryOp],
     accum = resolve_accum(accum, "reduce accum", None, A)
     require_builtin("reduce accum", accum)
     mon = _as_monoid(op, A)
+    A = A.wait()
     from ..sparse.container import CscMatrix, CsrMatrix
     if isinstance(A, (CsrMatrix, CscMatrix)):
         from ..sparse.ewise import csr_reduce_scalar

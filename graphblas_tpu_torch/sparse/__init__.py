@@ -1,15 +1,17 @@
 """Sparse containers, the triangle-counting and k-truss engines, the
 masked SpGEMM engines (the edge-centric bitpacked counts and the BSR
 tile engine with its kernel), the SpMV engines and the whole-loop graph
-algorithms (PyTorch); the SpMM engine (:mod:`spmm`) and the tropical
+algorithms, and the sparse extract/assign forms (PyTorch); the SpMM engine (:mod:`spmm`) and the tropical
 kernel (:mod:`cuda_tropical`) are reached through ``mxm``, as in the JAX
 package."""
 
 from .algorithms import bfs_csr, pagerank_csr
+from .assign import (csr_assign, csr_assign_scalar, csr_extract,
+                     csr_subassign, csr_subassign_scalar, csr_subref)
 from .bitdot import (BitdotPlan, CompactRows, PackLevel, bitdot_counts,
                      bitdot_popcount, build_bitdot_plan, compact_rows,
                      masked_pair_counts_auto)
-from .bitpack import pack_pattern, popcount, words_for
+from .bitpack import pack_pattern, pack_rows, popcount, words_for
 from .bsr import (TilePattern, bsr_masked_count, tile_matrix, tile_pattern,
                   tile_pattern_from_coo, tricount_bsr)
 from .container import CscMatrix, CsrMatrix, csr_from_coo, default_device
@@ -50,7 +52,9 @@ __all__ = [
     "valdot_gatherdot_rows", "valdot_masked_spgemm", "csr_mxv",
     "csr_vxm", "bsr_spmv",
     "bsr_spmv_ok", "bsr_spmv_plan", "bfs_csr", "pagerank_csr",
-    "pack_pattern", "popcount", "words_for", "edge_intersection_counts",
+    "pack_pattern", "pack_rows", "popcount", "words_for",
+    "csr_subref", "csr_extract", "csr_assign", "csr_subassign",
+    "csr_assign_scalar", "csr_subassign_scalar", "edge_intersection_counts",
     "masked_spgemm_counts", "tricount_sparse", "ktruss_sparse",
     "tile_pattern", "tile_pattern_from_coo", "tile_matrix",
     "bsr_masked_count", "tricount_bsr", "TilePattern",

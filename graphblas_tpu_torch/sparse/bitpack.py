@@ -14,7 +14,7 @@ import torch
 
 from .container import resolve_device
 
-__all__ = ["pack_pattern", "popcount", "words_for"]
+__all__ = ["pack_rows", "pack_pattern", "popcount", "words_for"]
 
 
 def words_for(n: int) -> int:
@@ -36,6 +36,11 @@ def pack_pattern(pattern, device=None) -> torch.Tensor:
     shifts = (np.uint32(1) << np.arange(32, dtype=np.uint32))
     words = (bits * shifts).sum(axis=2, dtype=np.uint32).view(np.int32)
     return torch.from_numpy(words).to(resolve_device(device))
+
+
+def pack_rows(pattern, device=None) -> torch.Tensor:
+    """:func:`pack_pattern` under the JAX package's other name."""
+    return pack_pattern(pattern, device)
 
 
 def popcount(x: torch.Tensor) -> torch.Tensor:

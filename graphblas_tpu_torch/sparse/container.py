@@ -14,7 +14,12 @@ The default device is the CUDA card: a constructor called without
 ``device`` on a machine with no card raises (pass ``device="cpu"`` to
 work on the CPU); helpers that make tensors from a container's take its
 device.  ``CscMatrix`` is the by-column twin (the stored transpose).
-Pending tuples come with the containers slice.
+
+Element mutation is functional, as in the JAX package: ``setElement``
+returns a new container with one more pending tuple (host-side, no
+device work), ``wait`` folds them (:mod:`.pending`), and every read of
+the stored arrays (``extractTuples``, ``to_matrix``, ``T``, the
+operations) folds first.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import numpy as np
 import torch
 
 from ..core.errors import IndexOutOfBounds
-from ..core.matrix import Matrix
+from ..core.matrix import Matrix, as_pending
 from ..core.types import Type, type_of_dtype
 from ..io.native import sort_dedup_native, sort_pairs_native
 
@@ -60,11 +65,11 @@ class CsrMatrix:
     values[nzmax] in the type's storage dtype."""
 
     __slots__ = ("indptr", "indices", "rowids", "values", "nvals",
-                 "nrows", "ncols", "type", "_options")
+                 "nrows", "ncols", "type", "_options", "_pending")
 
     def __init__(self, indptr: torch.Tensor, indices: torch.Tensor,
                  rowids: torch.Tensor, values: torch.Tensor, nvals: int,
-                 nrows: int, ncols: int, type: Type):
+                 nrows: int, ncols: int, type: Type, pending=None):
         self.indptr = indptr
         self.indices = indices
         self.rowids = rowids
@@ -74,6 +79,70 @@ class CsrMatrix:
         self.ncols = int(ncols)
         self.type = type
         self._options = {}
+        # the non-blocking delta list: (i, j, scalar, accum op)
+        # (reference GB_pending_add / GB_matrix.h:249-315)
+        self._pending = as_pending(pending)
+
+    def _shallow(self) -> "CsrMatrix":
+        out = CsrMatrix(self.indptr, self.indices, self.rowids,
+                        self.values, self.nvals, self.nrows, self.ncols,
+                        self.type, pending=self._pending)
+        out._options = dict(self._options)
+        return out
+
+    # -- pending tuples / element mutation (GB_setElement + GB_wait) ------
+    def wait(self) -> "CsrMatrix":
+        """Fold the pending delta list (reference ``GB_wait``)."""
+        if not self._pending:
+            return self
+        from .pending import fold_pending_csr
+        return fold_pending_csr(self)
+
+    def setElement(self, value, i: int, j: int, *, accum=None,
+                   blocking=None) -> "CsrMatrix":
+        """Functional setElement -> pending tuple (``GB_setElement.c``)."""
+        from .pending import append_pending
+        return append_pending(self, i, j, value, accum, blocking)
+
+    def extractElement(self, i: int, j: int):
+        """The value at (i, j) as a numpy scalar, or None for
+        GrB_NO_VALUE (``GB_extractElement.c``): a binary search within
+        row i, which alone crosses to the host."""
+        from .pending import check_index
+        check_index(self, i, j)
+        A = self.wait()
+        s, e = (int(x) for x in A.indptr[i:i + 2].cpu())
+        if s == e:
+            return None
+        row = A.indices[s:e].cpu().numpy()
+        pos = int(np.searchsorted(row, j))
+        if pos >= len(row) or row[pos] != j:
+            return None
+        x = A.values[s + pos:s + pos + 1].cpu().numpy()
+        return (x.view(A.type.dtype) if A.type.is_unsigned else x)[0]
+
+    def removeElement(self, i: int, j: int) -> "CsrMatrix":
+        """Delete one entry — the functional form of a zombie +
+        immediate ``GB_wait`` (``GB_FLIP``, GB.h:2513-2543)."""
+        from .pending import check_index
+        from .tri import csr_filter_lanes
+        check_index(self, i, j)
+        A = self.wait()
+        keep = ~((A.rowids == i) & (A.indices == j))
+        return csr_filter_lanes(A, keep)
+
+    def resize(self, nrows_new: int, ncols_new: int) -> "CsrMatrix":
+        """GxB_Matrix_resize: prune outside entries, remap on device."""
+        from .pending import csr_resize
+        return csr_resize(self, nrows_new, ncols_new)
+
+    def clear(self) -> "CsrMatrix":
+        from .mask import csr_clear
+        return csr_clear(self)
+
+    def row_degrees(self) -> torch.Tensor:
+        """Entries per row (int32, on the device)."""
+        return self.indptr[1:] - self.indptr[:-1]
 
     @property
     def shape(self):
@@ -97,12 +166,13 @@ class CsrMatrix:
 
     def extractTuples(self):
         """(I, J, X) of the live entries as host arrays, X in the type's
-        numpy dtype."""
-        X = self.values[:self.nvals].cpu().numpy()
-        if self.type.is_unsigned:
-            X = X.view(self.type.dtype)
-        return (self.rowids[:self.nvals].cpu().numpy().astype(np.int64),
-                self.indices[:self.nvals].cpu().numpy().astype(np.int64),
+        numpy dtype (pending tuples folded first)."""
+        A = self.wait()
+        X = A.values[:A.nvals].cpu().numpy()
+        if A.type.is_unsigned:
+            X = X.view(A.type.dtype)
+        return (A.rowids[:A.nvals].cpu().numpy().astype(np.int64),
+                A.indices[:A.nvals].cpu().numpy().astype(np.int64),
                 X)
 
     @staticmethod
@@ -116,6 +186,7 @@ class CsrMatrix:
 
     def to_matrix(self) -> Matrix:
         """Padded CSR -> bitmap Matrix on the same device."""
+        self = self.wait()
         m, n = self.shape
         dev = self.device
         lin = (self.rowids[:self.nvals].long() * n
@@ -129,14 +200,17 @@ class CsrMatrix:
     def T(self) -> "CsrMatrix":
         """Transpose = re-sorted COO (host side, a counting sort in the
         reference's ``GB_transpose_bucket.c``)."""
-        I, J, X = self.extractTuples()
-        return csr_from_coo(J, I, X, self.ncols, self.nrows,
-                            type=self.type, nzmax=self.nzmax,
-                            sum_duplicates=False, device=self.device)
+        A = self.wait()
+        I, J, X = A.extractTuples()
+        return csr_from_coo(J, I, X, A.ncols, A.nrows, type=A.type,
+                            nzmax=A.nzmax, sum_duplicates=False,
+                            device=A.device)
 
     def __repr__(self):  # pragma: no cover
         return (f"CsrMatrix<{self.type.name}> {self.nrows}x{self.ncols}, "
-                f"{self.nvals}/{self.nzmax} entries on {self.device}")
+                f"{self.nvals}/{self.nzmax} entries on {self.device}"
+                + (f", {len(self._pending)} pending" if self._pending
+                   else ""))
 
 
 class CscMatrix:
@@ -210,6 +284,46 @@ class CscMatrix:
         """(I, J, X) in column order (the CSC storage order)."""
         J, I, X = self.tr.extractTuples()
         return I, J, X
+
+    #: CSC component views (the reference's export names)
+    @property
+    def colptr(self) -> torch.Tensor:
+        return self.tr.indptr
+
+    @property
+    def rowidx(self) -> torch.Tensor:
+        return self.tr.indices
+
+    @property
+    def values(self) -> torch.Tensor:
+        return self.tr.values
+
+    def col_degrees(self) -> torch.Tensor:
+        """Entries per column (int32, on the device)."""
+        return self.tr.row_degrees()
+
+    # -- pending tuples / element mutation (the stored transpose's, with
+    #    the coordinates swapped) -------------------------------------------
+    def wait(self) -> "CscMatrix":
+        t = self.tr.wait()
+        return self if t is self.tr else CscMatrix(t)
+
+    def setElement(self, value, i: int, j: int, *, accum=None,
+                   blocking=None) -> "CscMatrix":
+        return CscMatrix(self.tr.setElement(value, j, i, accum=accum,
+                                            blocking=blocking))
+
+    def extractElement(self, i: int, j: int):
+        return self.tr.extractElement(j, i)
+
+    def removeElement(self, i: int, j: int) -> "CscMatrix":
+        return CscMatrix(self.tr.removeElement(j, i))
+
+    def resize(self, nrows_new: int, ncols_new: int) -> "CscMatrix":
+        return CscMatrix(self.tr.resize(ncols_new, nrows_new))
+
+    def clear(self) -> "CscMatrix":
+        return CscMatrix(self.tr.clear())
 
     def __repr__(self):  # pragma: no cover
         return (f"CscMatrix<{self.type.name}> {self.nrows}x{self.ncols}, "

@@ -21,12 +21,18 @@ The fifth slice, the BSR tile engine and k-truss, counts Wathen
 triangles through ``tricount_bsr_pallas`` from COO tiles, runs
 ``masked_mxm`` in its four modes on Wathen with bench.py's values
 (counts and patterns exact, values within rtol=1e-5, atol=1e-4), and
-runs ``ktruss_esc`` / ``allktruss_esc`` on R-MAT (exact)."""
+runs ``ktruss_esc`` / ``allktruss_esc`` on R-MAT (exact).
+
+The ninth slice runs the reference's ``tri_demo`` flow through the
+operations; the tenth, pending tuples, extract/assign and the graph
+models BFS, MIS and PageRank on R-MAT (exact, ``dpagerank`` within
+rtol 1e-12)."""
 
 import numpy as np
 import pytest
 
 import graphblas_tpu as gb
+from graphblas_tpu import models as gb_models
 from graphblas_tpu import sparse as jsp
 from graphblas_tpu.models.generate import wathen_coo as jax_wathen_coo
 from graphblas_tpu.models.rmat import rmat_edges as jax_rmat_edges
@@ -482,3 +488,94 @@ def test_rmat_ops_flow_matches_jax():
     # transpose(L) = U
     _tuples_equal(gt.transpose(empty(gt, gt.BOOL, device="cpu"), None, None,
                                Lt), Ut)
+
+
+def test_rmat_graph_models_flow_matches_jax():
+    """The tenth slice end to end on the symmetrized R-MAT 9 graph as
+    CSR, step by step against the JAX package (all exact): 4,000
+    buffered ``setElement`` calls (half on existing entries, runs with
+    and without ``accum=plus``) and one ``wait``; ``removeElement`` and
+    ``resize``; the induced subgraph on a random vertex set by
+    ``extract`` and an ``assign`` of it, doubled, back into the graph
+    under the graph's own mask; ``bfs5m``, ``bfs6`` and ``mis`` on the
+    graph; ``dpagerank`` (within rtol 1e-12) and ``ipagerank`` on its
+    bitmap."""
+    scale = 9
+    n = 1 << scale
+    I, J = gt.symmetrize_pattern(*gt.rmat_edges(scale, 16, seed=7), n)
+    rng = np.random.default_rng(23)
+    X = rng.integers(1, 100, len(I)).astype(np.int64)
+    At = gt.csr_from_coo(I, J, X, n, n, type=gt.INT64, sum_duplicates=False,
+                         device="cpu")
+    Aj = jsp.CsrMatrix.from_coo(I, J, X, n, n, type=gb.INT64,
+                                sum_duplicates=False)
+    # 1. setElement: half on existing entries; runs of 500 alternate
+    # between overwrite and accum=plus
+    k = 4000
+    old = rng.integers(0, len(I), k // 2)
+    ui = np.concatenate([I[old], rng.integers(0, n, k // 2)])
+    uj = np.concatenate([J[old], rng.integers(0, n, k // 2)])
+    ux = rng.integers(-50, 50, k)
+    perm = rng.permutation(k)
+    ui, uj, ux = ui[perm], uj[perm], ux[perm]
+    Bt, Bj = At, Aj
+    for e in range(k):
+        acc = (e // 500) % 2 == 1
+        Bt = Bt.setElement(np.int64(ux[e]), int(ui[e]), int(uj[e]),
+                           accum=gt.binary.plus[gt.INT64] if acc else None)
+        Bj = Bj.setElement(np.int64(ux[e]), int(ui[e]), int(uj[e]),
+                           accum=gb.binary.plus[gb.INT64] if acc else None)
+    assert len(Bt._pending) == k
+    Bt, Bj = Bt.wait(), Bj.wait()
+    _tuples_equal(Bt, Bj)
+    # 2. removeElement, resize
+    Rt = Bt.removeElement(int(I[0]), int(J[0])).resize(n - 7, n - 3)
+    Rj = Bj.removeElement(int(I[0]), int(J[0])).resize(n - 7, n - 3)
+    _tuples_equal(Rt, Rj)
+    # 3. the induced subgraph, and an assign of it (doubled) back into
+    # the graph under the graph's own mask
+    S = np.sort(rng.choice(n, n // 4, replace=False))
+    m = len(S)
+    e64 = np.zeros(0, np.int64)
+    Gt = gt.extract(gt.CsrMatrix.from_coo(e64, e64, e64, m, m, type=gt.INT64,
+                                          device="cpu"), None, None, Bt, S, S)
+    Gj = gb.extract(jsp.CsrMatrix.from_coo(e64, e64, e64, m, m,
+                                           type=gb.INT64), None, None, Bj, S,
+                    S)
+    _tuples_equal(Gt, Gj)
+    Dt = gt.apply(Gt, None, gt.binary.plus[gt.INT64], gt.unary.identity[
+        gt.INT64], Gt)
+    Dj = gb.apply(Gj, None, gb.binary.plus[gb.INT64], gb.unary.identity[
+        gb.INT64], Gj)
+    _tuples_equal(Dt, Dj)
+    Ct = gt.assign(Bt, At, None, Dt, S, S)
+    Cj = gb.assign(Bj, Aj, None, Dj, S, S)
+    _tuples_equal(Ct, Cj)
+    # 4. the graph models on the BOOL graph
+    Xb = np.ones(len(I), bool)
+    Ab_t = gt.csr_from_coo(I, J, Xb, n, n, type=gt.BOOL,
+                           sum_duplicates=False, device="cpu")
+    Ab_j = jsp.CsrMatrix.from_coo(I, J, Xb, n, n, type=gb.BOOL,
+                                  sum_duplicates=False)
+    for name in ("bfs5m", "bfs6"):
+        _tuples_equal_vec(getattr(gt.models, name)(Ab_t, 0),
+                          getattr(gb_models, name)(Ab_j, 0))
+    _tuples_equal_vec(gt.models.mis(Ab_t, seed=42),
+                      gb_models.mis(Ab_j, seed=42))
+    # 5. PageRank on the bitmap R-MAT 8
+    n8 = 256
+    I8, J8 = gt.symmetrize_pattern(*gt.rmat_edges(8, 16, seed=7), n8)
+    X8 = np.ones(len(I8), bool)
+    Mt = gt.Matrix.from_coo(I8, J8, X8, n8, n8, type=gt.BOOL, device="cpu")
+    Mj = gb.Matrix.from_coo(I8, J8, X8, n8, n8, type=gb.BOOL)
+    dt, dj = dict(gt.models.dpagerank(Mt)), dict(gb_models.dpagerank(Mj))
+    assert dt.keys() == dj.keys()
+    assert np.allclose([dt[p] for p in sorted(dt)],
+                       [dj[p] for p in sorted(dt)], rtol=1e-12, atol=0)
+    assert gt.models.ipagerank(Mt) == gb_models.ipagerank(Mj)
+
+
+def _tuples_equal_vec(vt, vj):
+    assert vt.type.name == vj.type.name
+    for x, y in zip(vt.extractTuples(), vj.extractTuples()):
+        assert np.array_equal(x, np.asarray(y))

@@ -174,7 +174,29 @@ uncaught exception and a nonzero exit):
    the port's own CPU run, whose top-10 pages are the JAX package's;
    ``dpagerank`` and ``ipagerank`` on the bitmap R-MAT 14 against scipy
    oracles (float64 within rtol 1e-9; the scaled-integer arithmetic in
-   uint64 exactly), ranks descending.
+   uint64 exactly), ranks descending;
+26. the hypersparse containers on the R-MAT 18 graph with INT64 values
+   U{1..99} (``default_rng(26)``) mapped into the 2^60 id space by a
+   strictly increasing map (``id_map``: n distinct ids drawn with
+   ``default_rng(61)``, sorted): ``hyper_from_coo``, 10,000
+   ``setElement`` calls (half on existing entries, runs of 1,000
+   alternating between overwrite and ``accum=plus``) and one ``wait``,
+   ``transpose``, ``select(tril)``, ``eWiseAdd`` of the strict L and U,
+   ``reduce_to_vector(plus)`` into a ``SparseVec``, ``extract`` of 2^16
+   random ids and an ``assign`` of the doubled subgraph under the
+   graph's mask; each result equals a scipy rebuild in the compact id
+   space, mapped back; each op's first and warm time;
+27. the models at 2^60: BFS from id[0] on the BOOL R-MAT 18 by the
+   bfs5m loop on hypersparse containers (a ``SparseVec`` frontier,
+   ``vxm`` over ``lor_land`` with the complemented structural visited
+   mask and REPLACE, ``eWiseAdd`` into visited): the anchor levels,
+   equal to ``bfs_csr``; the masked SandiaDot count ``mxm(C<L>,
+   plus_times[INT64], L, U, TRAN1)`` into a hypersparse C on the
+   degree-prepped R-MAT 14, then ``reduce_to_scalar(plus)``: 2,860,691,
+   equal to ``tricount_esc``; the same count on R-MAT 16 mapped into
+   [0, 2^27) expands 95.2 M lanes, over the ESC lane cap, and hands off
+   to the chunked CSR ESC (15,623,664); mapped into 2^60 it raises
+   ``NotImplementedError``.
 
 Launch counters are zeroed just before each path and read just after
 it: before phase 3 and after phase 9 (triangle counting and ``mxm``:
@@ -187,9 +209,11 @@ a path must have launched there.  Phases 20 to 25 are read apart
 (``ops_tri_demo``, ``ops_ktruss``, ``models``, ``ops_assign``,
 ``models_bfs``, ``models_mis_pagerank``), every kernel's count
 printed: their engines choose which kernels run (no kernel lies on the
-paths of phases 23-25).  Their references
-(``ktruss_esc``, ``tricount_esc``, ``allktruss_esc``, ``kron``) run
-outside the counted window, so a count is the path's own.  The line before the
+paths of phases 23-25).  Phases 26 and 27 are read apart too and
+summed as ``hyper`` (no kernel lies on their paths either; the
+hand-off's chunked CSR ESC reaches none).  Their references
+(``ktruss_esc``, ``tricount_esc``, ``allktruss_esc``, ``kron``,
+``bfs_csr``) run outside the counted window, so a count is the path's own.  The line before the
 last is the per-kernel JSON summary, with each kernel's bound (the
 larger of its compulsory bytes over 3.35 TB/s and its operations over
 the card's peak for their type); the last line is
@@ -224,6 +248,9 @@ RMAT18_PAGERANK_TOP10 = [0, 32, 16384, 1024, 512, 2048, 2, 16, 8192, 4]
 MIS_ANCHORS = {16: (49_344, "850f62bd306b7c72"),
                18: (205_774, "a2027e8d4b68e5f3")}
 RMAT12_PAGERANK_TOP10 = [0, 2048, 2, 128, 16, 256, 1, 4, 64, 1024]
+# SandiaDot count of the degree-prepped symmetrized R-MAT 14 (ef 16,
+# seed 7), tricount_esc of the JAX package on the CPU
+RMAT14_NTRI = 2_860_691
 # setElement calls of phase 23
 PHASE23_UPDATES = 100_000
 # the kernels each path must launch
@@ -738,6 +765,34 @@ def same_csr(X, S, what: str) -> None:
     assert np.array_equal(X.indptr.cpu().numpy(), S.indptr), what
     I, J, V = X.extractTuples()
     assert np.array_equal(J, S.indices) and np.array_equal(V, S.data), what
+
+
+def id_map(n: int, bound: int = 1 << 60) -> np.ndarray:
+    """A strictly increasing map of n vertices into [0, bound): n distinct
+    int64 drawn with ``default_rng(61)``, sorted, vertex v -> ids[v]
+    (order is kept, so tril/triu and the degree prep carry over)."""
+    rng = np.random.default_rng(61)
+    ids = np.unique(rng.integers(0, bound, 2 * n, dtype=np.int64))
+    ids = np.sort(rng.choice(ids, n, replace=False))
+    assert len(ids) == n and np.all(np.diff(ids) > 0)
+    return ids
+
+
+def same_hyper(H, S, rid, cid, what: str) -> None:
+    """The port's HyperMatrix H holds exactly scipy CSR S's entries, its
+    row and column ids mapped by ``rid`` / ``cid`` (compact id v ->
+    rid[v]); the present-row list is S's nonempty rows."""
+    S = S.tocsr()
+    S.sort_indices()
+    assert H.nvals == S.nnz, (what, H.nvals, S.nnz)
+    I, J, V = H.extractTuples()
+    srow = np.repeat(np.arange(S.shape[0]), np.diff(S.indptr))
+    assert np.array_equal(I, rid[srow]), what
+    assert np.array_equal(J, cid[S.indices]), what
+    assert np.array_equal(V, S.data), what
+    assert H.nvec == int((np.diff(S.indptr) > 0).sum()), what
+    assert np.array_equal(H.rows_present(),
+                          rid[np.nonzero(np.diff(S.indptr))[0]]), what
 
 
 def pagerank_oracles(I, J, n: int, iters: int = 20):
@@ -2329,6 +2384,238 @@ def main() -> None:
           f"device memory {torch.cuda.max_memory_allocated()} B")
     print(f"models-mis-pagerank-path launches: {json.dumps(mis_pr_launches)}")
     path_launches["models_mis_pagerank"] = mis_pr_launches
+
+    # ---- the hypersparse containers at 2^60: 26-27 ----
+    # (no kernel lies on these paths; every count is read and printed)
+    # 26. the R-MAT 18 graph with INT64 values U{1..99} mapped into the
+    # 2^60 id space by a strictly increasing map: build, 10,000
+    # setElement calls + wait, transpose, select(tril), eWiseAdd of L and
+    # U, reduce_to_vector(plus) into a SparseVec, extract and a masked
+    # assign on 2^16 random vertices; each result == a scipy rebuild in
+    # the compact id space, mapped back
+    t_phase = time.perf_counter()
+    dim = gt.GxB_INDEX_MAX
+    ids18 = id_map(n)
+    rng26 = np.random.default_rng(26)
+    X26 = rng26.integers(1, 100, len(I18)).astype(np.int64)
+    S26 = scipy_rebuild(lin18, X26, n, n)
+    e64 = np.zeros(0, np.int64)
+
+    def hyper_empty(t, m):
+        return gt.hyper_from_coo(e64, e64, np.zeros(0, t.dtype), m, m,
+                                 type=t, device="cuda")
+    _build.reset_launches()
+    op_times = {}
+
+    def first_warm(name, fn):
+        out, first = timed(fn)
+        _, warm = timed(fn)
+        op_times[name] = (first, warm)
+        return out
+    H = first_warm("hyper_from_coo", lambda: gt.hyper_from_coo(
+        ids18[I18], ids18[J18], X26, dim, dim, type=gt.INT64, dup=None,
+        device="cuda"))
+    same_hyper(H, S26, ids18, ids18, "hyper_from_coo vs scipy")
+    k26 = 10_000
+    old = rng26.integers(0, len(I18), k26 // 2)
+    ui = np.concatenate([I18[old], rng26.integers(0, n, k26 - k26 // 2)])
+    uj = np.concatenate([J18[old], rng26.integers(0, n, k26 - k26 // 2)])
+    ux = rng26.integers(-50, 50, k26)
+    order = rng26.permutation(k26)
+    ui, uj, ux = ui[order], uj[order], ux[order]
+    use_acc = (np.arange(k26) // 1_000) % 2 == 1
+    plus64 = gt.binary.plus[gt.INT64]
+
+    def set_all():
+        B = H
+        for e in range(k26):
+            B = B.setElement(np.int64(ux[e]), int(ids18[ui[e]]),
+                             int(ids18[uj[e]]),
+                             accum=plus64 if use_acc[e] else None)
+        return B
+    B = first_warm(f"setElement x{k26}", set_all)
+    assert len(B._pending) == k26 and not H._pending
+    W = first_warm("wait", B.wait)
+    state = replay_pending(lin18, X26, ui * n + uj, ux, use_acc)
+    skeys = np.fromiter(state, np.int64, len(state))
+    svals = np.fromiter(state.values(), np.int64, len(state))
+    keep = ~np.isin(lin18, skeys)
+    lin_w = np.concatenate([lin18[keep], skeys])
+    val_w = np.concatenate([X26[keep], svals])
+    Wsp = scipy_rebuild(lin_w, val_w, n, n)
+    same_hyper(W, Wsp, ids18, ids18, "setElement + wait vs scipy")
+    Cn = hyper_empty(gt.INT64, dim)
+    T = first_warm("transpose", lambda: gt.transpose(Cn, None, None, W))
+    same_hyper(T, Wsp.T, ids18, ids18, "transpose vs scipy")
+    import scipy.sparse as ssp
+    Lh = first_warm("select(tril)", lambda: gt.select(
+        Cn, None, None, gt.selectop.tril, W, 0))
+    same_hyper(Lh, ssp.tril(Wsp), ids18, ids18, "select(tril) vs scipy")
+    Ls = gt.select(Cn, None, None, gt.selectop.tril, W, -1)
+    Us = gt.select(Cn, None, None, gt.selectop.triu, W, 1)
+    P = first_warm("eWiseAdd(L, U)", lambda: gt.eWiseAdd(
+        Cn, None, None, plus64, Ls, Us))
+    Wc = Wsp.tocoo()
+    off = Wc.row != Wc.col              # explicit zeros kept
+    same_hyper(P, scipy_rebuild(Wc.row[off].astype(np.int64) * n
+                                + Wc.col[off], Wc.data[off], n, n),
+               ids18, ids18, "eWiseAdd of L and U vs scipy")
+    w0 = gt.SparseVec.from_coo(e64, e64, dim, type=gt.INT64, device="cuda")
+    r = first_warm("reduce_to_vector(plus)", lambda: gt.reduce_to_vector(
+        w0, None, None, gt.monoid.plus[gt.INT64], W))
+    rsum = np.asarray(Wsp.sum(axis=1)).ravel()
+    nz = np.nonzero(np.diff(Wsp.indptr))[0]
+    ri, rx = r.extractTuples()
+    assert np.array_equal(ri, ids18[nz]) and np.array_equal(rx, rsum[nz]), \
+        "reduce_to_vector(plus) vs scipy"
+    S = rng26.choice(n, 1 << 16, replace=False)
+    m = len(S)
+    G = first_warm("extract", lambda: gt.extract(
+        hyper_empty(gt.INT64, m), None, None, W, ids18[S], ids18[S]))
+    local = np.arange(m)
+    same_hyper(G, Wsp[S][:, S], local, local,
+               "extract of the induced subgraph vs scipy")
+    D = gt.apply(G, None, plus64, gt.unary.identity[gt.INT64], G)  # 2 G
+    Mh = gt.hyper_from_coo(ids18[I18], ids18[J18], np.ones(len(I18), bool),
+                           dim, dim, type=gt.BOOL, dup=None, device="cuda")
+    C26 = first_warm("assign<M>", lambda: gt.assign(
+        W, Mh, None, D, ids18[S], ids18[S]))
+    Dh = D.extractTuples()
+    dlin = S[Dh[0]] * n + S[Dh[1]]
+    ins = np.zeros(n, bool)
+    ins[S] = True
+    in_reg = ins[lin_w // n] & ins[lin_w % n]
+    zl = np.concatenate([lin_w[~in_reg], dlin])
+    zv = np.concatenate([val_w[~in_reg], Dh[2]])
+    zm = np.isin(zl, lin18)
+    wm = np.isin(lin_w, lin18)
+    same_hyper(C26, scipy_rebuild(np.concatenate([zl[zm], lin_w[~wm]]),
+                                  np.concatenate([zv[zm], val_w[~wm]]),
+                                  n, n), ids18, ids18,
+               "assign<M> of the doubled subgraph vs scipy")
+    sync()
+    hyper_ops_launches = path_counts()
+    for name, (first, warm) in op_times.items():
+        print(f"{tag} phase26 {name}: first {first:.4f} s, warm "
+              f"{warm:.4f} s")
+    print(f"{tag} phase26 R-MAT 18 INT64 in the 2^60 id space ("
+          f"{len(I18)} entries, {H.nvec} present rows): {k26} setElement "
+          f"+ wait -> {W.nvals}, transpose, select(tril) -> {Lh.nvals}, "
+          f"eWiseAdd(L, U) -> {P.nvals}, reduce_to_vector -> {r.nvals} "
+          f"rows, extract of {m} ids -> {G.nvals}, assign<M> -> "
+          f"{C26.nvals}: each == the scipy rebuild mapped back; phase "
+          f"{time.perf_counter() - t_phase:.3f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated()} B")
+    del H, B, W, T, Lh, Ls, Us, P, G, D, Mh, C26, Wsp, S26, state
+
+    # 27. the models at 2^60: BFS from id[0] by the bfs5m loop on the
+    # BOOL R-MAT 18 (SparseVec frontier, vxm over lor_land with the
+    # complemented structural visited mask and REPLACE, eWiseAdd into
+    # visited) == the anchor; the masked SandiaDot count at R-MAT 14
+    # into a hypersparse C == tricount_esc and the anchor; the R-MAT 16
+    # count mapped into [0, 2^27) over the lane cap hands off to the
+    # chunked CSR ESC, and at 2^60 raises
+    t_phase = time.perf_counter()
+    model_times = {}
+    Hb = gt.hyper_from_coo(ids18[I18], ids18[J18], np.ones(len(I18), bool),
+                           dim, dim, type=gt.BOOL, dup=None, device="cuda")
+    lorland = gt.semiring.lor_land[gt.BOOL]
+    scmp = gt.Descriptor(mask_scmp=True, replace=True, mask_structure=True)
+
+    def bfs_hyper(A, src):
+        """{id: level} by the bfs5m loop on the hypersparse containers"""
+        frontier = gt.SparseVec.from_coo(np.array([src], np.int64),
+                                         np.array([True]), dim,
+                                         type=gt.BOOL, device="cuda")
+        visited, level, depth = frontier, {src: 1}, 1
+        while frontier.nvals:
+            depth += 1
+            nxt = gt.vxm(gt.SparseVec.from_coo(
+                e64, np.zeros(0, bool), dim, type=gt.BOOL, device="cuda"),
+                visited, None, lorland, frontier, A, scmp)
+            for i in nxt.ids():
+                level[int(i)] = depth
+            visited = gt.eWiseAdd(visited, None, None,
+                                  gt.binary.lor[gt.BOOL], visited, nxt)
+            frontier = nxt
+        return level
+    # the references run before the counted window
+    want_lev = gt.bfs_csr(A18s, 0)
+    n14 = 1 << 14
+    A14s = gt.CsrMatrix.from_coo(I14, J14, np.ones(len(I14), bool), n14,
+                                 n14, type=gt.BOOL, sum_duplicates=False,
+                                 device="cuda")
+    L14, U14 = gt.tricount_prep_csr(A14s)
+    want14 = int(gt.tricount_esc(L14, U14))
+    _build.reset_launches()
+    levels, bfs_first = timed(lambda: bfs_hyper(Hb, int(ids18[0])))
+    _, bfs_warm = timed(lambda: bfs_hyper(Hb, int(ids18[0])))
+    model_times["bfs5m loop (SparseVec)"] = (bfs_first, bfs_warm)
+    lev = np.zeros(n, np.int64)
+    lev[np.searchsorted(ids18, np.fromiter(levels, np.int64))] = \
+        np.fromiter(levels.values(), np.int64)
+    vals, cnts = np.unique(lev, return_counts=True)
+    assert dict(zip(vals.tolist(), cnts.tolist())) == RMAT18_BFS_LEVELS, \
+        (vals, cnts)
+    assert np.array_equal(lev, want_lev), "hyper BFS != bfs_csr"
+    del Hb
+
+    def hyper_lu(L, U, rid, bound):
+        out = []
+        for X in (L, U):
+            i_, j_, _ = X.extractTuples()
+            out.append(gt.hyper_from_coo(rid[i_], rid[j_],
+                                         np.ones(len(i_), np.int64), bound,
+                                         bound, type=gt.INT64, dup=None,
+                                         device="cuda"))
+        return out
+    plus_times64 = gt.semiring.plus_times[gt.INT64]
+    tran1 = gt.Descriptor(tran1=True)
+
+    def hyper_count(Lh, Uh, bound):
+        C = gt.mxm(hyper_empty(gt.INT64, bound), Lh, None, plus_times64, Lh,
+                   Uh, tran1)
+        return int(gt.reduce_to_scalar(None, gt.monoid.plus[gt.INT64], C))
+    L14h, U14h = hyper_lu(L14, U14, id_map(n14), dim)
+    ntri14, c_first = timed(lambda: hyper_count(L14h, U14h, dim))
+    engine14 = gt.last_axb_method()
+    ntri14b, c_warm = timed(lambda: hyper_count(L14h, U14h, dim))
+    model_times["masked count R-MAT 14"] = (c_first, c_warm)
+    assert ntri14 == ntri14b == want14 == RMAT14_NTRI, \
+        (ntri14, ntri14b, want14)
+    assert engine14 == "esc:hyper_spgemm", engine14
+    L16, U16 = graphs[16][0], graphs[16][1]
+    n16 = L16.nrows
+    L27, U27 = hyper_lu(L16, U16, id_map(n16, 1 << 27), 1 << 27)
+    ntri16, h_first = timed(lambda: hyper_count(L27, U27, 1 << 27))
+    engine16 = gt.last_axb_method()
+    model_times["hand-off R-MAT 16 in 2^27"] = (h_first, None)
+    assert ntri16 == RMAT_ANCHORS[16][1], ntri16
+    assert engine16 == "esc:chunked", engine16
+    del L27, U27
+    L60, U60 = hyper_lu(L16, U16, id_map(n16), dim)
+    try:
+        hyper_count(L60, U60, dim)
+        raise AssertionError("the 2^60 product over the lane cap ran")
+    except NotImplementedError as err:
+        assert "lane cap" in str(err), err
+    del L60, U60
+    sync()
+    hyper_models_launches = path_counts()
+    for name, (first, warm) in model_times.items():
+        print(f"{tag} phase27 {name}: first {first:.4f} s" +
+              (f", warm {warm:.4f} s" if warm is not None else ""))
+    print(f"{tag} phase27 BFS from id[0] on the BOOL R-MAT 18 in the 2^60 "
+          f"id space: levels == {RMAT18_BFS_LEVELS} == bfs_csr; R-MAT 14 "
+          f"masked count into a hypersparse C via {engine14}: {ntri14} == "
+          f"tricount_esc == the anchor; R-MAT 16 in [0, 2^27) via "
+          f"{engine16}: {ntri16}; at 2^60 it raises NotImplementedError "
+          f"(lane cap); phase {time.perf_counter() - t_phase:.3f} s, peak "
+          f"device memory {torch.cuda.max_memory_allocated()} B")
+    path_launches["hyper"] = {
+        k_: hyper_ops_launches[k_] + hyper_models_launches[k_]
+        for k_ in KERNELS}
+    print(f"hyper-path launches: {json.dumps(path_launches['hyper'])}")
 
     sources = {
         "tri_band_ring": ("graphblas_tpu_torch/csrc/window.cu",

@@ -37,7 +37,11 @@ and imports no JAX.  The slices so far:
   element accessors, ``resize`` and ``clear``), ``extract`` and
   ``assign`` in all their forms (:mod:`ops.extract`, :mod:`ops.assign`,
   :mod:`sparse.assign`), and the graph models ``bfs5m``/``bfs6``/
-  ``bfs_jit``, ``mis``, ``dpagerank``/``ipagerank``/``pagerank_jit``.
+  ``bfs_jit``, ``mis``, ``dpagerank``/``ipagerank``/``pagerank_jit``;
+* the hypersparse containers ``HyperMatrix``, ``HyperCscMatrix`` and
+  ``SparseVec`` (dimension up to 2^60) with their pair-key engines
+  (:mod:`sparse.hyper`, :mod:`sparse.hyper_assign`), as outputs of every
+  operation, and import/export (:mod:`core.io_export`).
 
 The kernels are built with ``nvcc`` on first use, never at import.
 
@@ -57,6 +61,10 @@ from .core.matrix import Matrix, Vector
 from .core.monoids import MONOIDS, Monoid, monoid, monoid_new
 from .core.ops import (BinaryOp, SelectOp, UnaryOp, binary, binary_op,
                        select as selectop, unary, unary_op)
+from .core.io_export import (export_csc, export_csr, export_hyper_csc,
+                             export_hyper_csr, export_vector, import_csc,
+                             import_csr, import_hyper_csc, import_hyper_csr,
+                             import_vector)
 from .core.options import (BLOCKING, BY_COL, BY_ROW, NONBLOCKING, Options,
                            get_option, global_options, init, set_option)
 from .core.resolve import UnsupportedOp
@@ -90,8 +98,10 @@ __all__ = [
     "monoid_new", "UnaryOp", "BinaryOp", "SelectOp", "unary", "binary",
     "selectop", "binary_op", "unary_op", "semiring",
     "Options", "global_options", "init", "set_option", "get_option",
-    "BLOCKING", "NONBLOCKING", "BY_ROW", "BY_COL",
-    "UnsupportedOp", "UnsupportedContainer", "mxm", "mxv", "vxm",
+    "BLOCKING", "NONBLOCKING", "BY_ROW", "BY_COL", "import_csr",
+    "import_csc", "import_hyper_csr", "import_hyper_csc", "export_csr",
+    "export_hyper_csr", "export_hyper_csc", "export_csc",
+    "import_vector", "export_vector", "UnsupportedOp", "UnsupportedContainer", "mxm", "mxv", "vxm",
     "semiring_mm", "eWiseAdd", "eWiseMult", "apply", "select", "reduce",
     "reduce_to_vector", "reduce_to_scalar", "transpose", "kron", "models",
     "ALL", "extract", "extract_vector", "extract_col", "assign",

@@ -9,9 +9,12 @@ off a JAX package ``CsrMatrix`` (pattern-only or valued: FP32, INT32,
 FP64, BOOL and the other builtin types), ``CscMatrix``, bitmap
 ``Matrix``, ``Vector``, ``BandPlan``, ``WindowPlan``, ``TilePattern``,
 ``Semiring`` (by its operator names and type) or BSR SpMV plan (the
-8-tuple ``bsr_spmv_plan`` returns).  A container's pending tuples come
+8-tuple ``bsr_spmv_plan`` returns), and the hypersparse ``HyperMatrix``,
+``HyperCscMatrix`` and ``SparseVec``.  A container's pending tuples come
 across as host tuples (their accum ops as the port's builtin op of the
-same name and types), to be folded by the port's ``wait``.
+same name and types), to be folded by the port's ``wait``; a
+hypersparse container also carries its options (``hyper_ratio``,
+``format``).
 """
 
 from __future__ import annotations
@@ -26,9 +29,13 @@ from .core.types import type_by_name
 from .sparse.bsr import TilePattern
 from .sparse.container import CscMatrix, CsrMatrix, resolve_device
 from .sparse.cuda_spmv import BsrSpmvPlan
+from .sparse.hyper import HyperMatrix
+from .sparse.hyper_csc import HyperCscMatrix
+from .sparse.vector import SparseVec
 from .sparse.window import BandPlan, WindowPlan
 
-__all__ = ["csr_from_arrays", "matrix_from_arrays", "vector_from_arrays",
+__all__ = ["csr_from_arrays", "hyper_from_arrays", "matrix_from_arrays",
+           "vector_from_arrays",
            "band_plan_from_arrays", "window_plan_from_arrays",
            "bsr_spmv_plan_from_arrays", "tile_pattern_from_arrays",
            "semiring_by_name", "from_jax"]
@@ -53,6 +60,20 @@ def csr_from_arrays(indptr, indices, rowids, values, nvals: int,
         A._options["host_pattern"] = (np.asarray(host_pattern[0]),
                                       np.asarray(host_pattern[1]))
     return A
+
+
+def hyper_from_arrays(h, hptr, rowids, indices, values, nvals: int,
+                      nvec: int, nrows: int, ncols: int, type_name: str,
+                      device=None) -> HyperMatrix:
+    """HyperMatrix from the padded arrays of the same layout."""
+    device = resolve_device(device)
+    t = type_by_name(type_name)
+    return HyperMatrix(_dev(np.asarray(h, np.int64), device),
+                       _dev(np.asarray(hptr, np.int32), device),
+                       _dev(np.asarray(rowids, np.int64), device),
+                       _dev(np.asarray(indices, np.int64), device),
+                       _dev(t.to_storage(values), device),
+                       nvals, nvec, nrows, ncols, t)
 
 
 def matrix_from_arrays(values, pattern, type_name: str,
@@ -158,7 +179,8 @@ def _pending_from_jax(pending):
 
 def from_jax(obj, device=None):
     """The port's counterpart of a JAX package CsrMatrix, CscMatrix,
-    bitmap Matrix, Vector (each with its pending tuples), BandPlan,
+    HyperMatrix, HyperCscMatrix, SparseVec, bitmap Matrix, Vector (each
+    with its pending tuples), BandPlan,
     WindowPlan, TilePattern, BSR SpMV plan (read through numpy) or
     builtin Semiring (by name)."""
     kind = type(obj).__name__
@@ -181,6 +203,18 @@ def from_jax(obj, device=None):
         return A
     if kind == "CscMatrix":
         return CscMatrix(from_jax(obj.tr, device))
+    if kind == "HyperMatrix":
+        A = hyper_from_arrays(
+            np.asarray(obj.h), np.asarray(obj.hptr), np.asarray(obj.rowids),
+            np.asarray(obj.indices), np.asarray(obj.values), obj.nvals,
+            obj.nvec, obj.nrows, obj.ncols, obj.type.name, device)
+        A._pending = _pending_from_jax(obj._pending)
+        A._options.update(obj._options)
+        return A
+    if kind == "HyperCscMatrix":
+        return HyperCscMatrix(from_jax(obj.tr, device))
+    if kind == "SparseVec":
+        return SparseVec(from_jax(obj.hm, device))
     if kind in ("Matrix", "Vector"):
         make = matrix_from_arrays if kind == "Matrix" else vector_from_arrays
         X = make(np.asarray(obj.values), np.asarray(obj.pattern),

@@ -53,7 +53,11 @@ class Monoid:
         """Reduce a tensor with this monoid along ``axis`` (all axes when
         None).  ``where`` masks out absent entries (they contribute the
         identity).  Exact torch reductions for the standard monoids, a
-        log-depth pairwise fold otherwise."""
+        log-depth pairwise fold otherwise.  LOR and LAND fold by the op
+        on every type: 1 where any (LOR) or every (LAND) term is
+        nonzero, 0 otherwise, in the monoid's type (the reference's
+        ``(x != 0) || (y != 0)``; the JAX package takes a max/min of
+        the values over non-bool types)."""
         nm = self.op.name
         t = self.type
         if where is not None:
@@ -69,10 +73,12 @@ class Monoid:
             return _minmax(x, axis, t, "min")
         if nm == "MAX" or (nm in ("LOR", "PLUS") and t.is_bool):
             return _minmax(x, axis, t, "max")
-        if nm == "LOR":
-            return torch.amax(x, dim=axis)
-        if nm == "LAND":
-            return torch.amin(x, dim=axis)
+        if nm in ("LOR", "LAND"):
+            # the op's own fold from the identity on a non-bool type: 1
+            # where any (LOR) or every (LAND) term is nonzero, else 0
+            nz = x != 0
+            r = nz.any(dim=axis) if nm == "LOR" else nz.all(dim=axis)
+            return r.to(x.dtype)
         if nm in ("LXOR", "MINUS") and t.is_bool:
             return x.to(torch.int32).sum(dim=axis) % 2 != 0
         if nm == "LXOR":

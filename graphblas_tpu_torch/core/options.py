@@ -6,19 +6,21 @@ scopes (``Include/GraphBLAS.h:2917-2930``) — global
 per-matrix ``GxB_Matrix_Option_set``, per-call descriptors.
 
 The fields are the JAX package's, so a caller's settings carry over:
-HYPER ratio is the CSR<->hypersparse conformance threshold of the
-hypersparse slice (ROADMAP.md queue 1, item 10); FORMAT by-row/by-col
-is the default transpose orientation; MODE blocking/non-blocking says
-whether ``setElement`` folds immediately; NTHREADS and ``chunk`` are
-block-size hints.  The options are per thread.
+HYPER ratio is the CSR<->hypersparse conformance threshold; FORMAT
+by-row/by-col is the default transpose orientation; MODE
+blocking/non-blocking says whether ``setElement`` folds immediately;
+NTHREADS and ``chunk`` are block-size hints.  The options are per
+thread.
 
 MODE is read by ``setElement`` (every container): in blocking mode a
-pending tuple folds at once.  The other five fields are accepted, kept
-and returned by ``get_option``, and change nothing: HYPER ratio waits
-for the hypersparse container (ROADMAP.md queue 1, item 10); FORMAT,
-NTHREADS, ``backend`` and ``chunk`` are not consulted, since each
-operation takes its orientation from its descriptor and its engine and
-block sizes from its operands.
+pending tuple folds at once.  HYPER ratio is read by
+``sparse.hyper.hyper_conform`` (the ``GB_to_hyper_conform`` rule) when
+a matrix carries no ``hyper_ratio`` option of its own; conformance runs
+at the import boundary (``core.io_export``) and wherever a caller asks.
+The other four fields are accepted, kept and returned by
+``get_option``, and change nothing: FORMAT, NTHREADS, ``backend`` and
+``chunk`` are not consulted, since each operation takes its orientation
+from its descriptor and its engine and block sizes from its operands.
 """
 
 from __future__ import annotations

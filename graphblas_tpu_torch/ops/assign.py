@@ -11,9 +11,10 @@ C(I,J), the accum/mask epilogue, and a scatter back, so the 48-way case
 explosion (and the zombie/pending machinery it manages) disappears.
 A ``CsrMatrix`` output takes the sparse forms of
 :mod:`graphblas_tpu_torch.sparse.assign`, a ``CscMatrix`` runs them in
-the transposed frame (I and J swapped); the hypersparse containers and
-``SparseVec`` come with a later slice (ROADMAP.md queue 1, item 10) and
-raise.
+the transposed frame (I and J swapped); a ``HyperMatrix`` output (and
+a ``HyperCscMatrix`` in its transposed frame, a ``SparseVec`` as its
+n x 1 matrix) takes the pair-key forms of
+:mod:`graphblas_tpu_torch.sparse.hyper_assign`, at any dimension.
 
 Assign with duplicate indices is undefined in the spec: the sparse
 forms raise ``InvalidValue``, the bitmap scatter keeps one of the
@@ -36,7 +37,8 @@ from ..core.ops import BinaryOp
 from ..core.types import Type, cast_value
 from ..utils import counters
 from ..utils.indices import normalize_indices
-from .containers import require_container, to_csr_operand
+from .containers import (require_container, to_csr_operand,
+                         to_hyper_operand, vec_hyper_operand)
 
 __all__ = ["assign", "subassign", "assign_scalar", "subassign_scalar",
            "row_assign", "col_assign", "assign_vector", "subassign_vector"]
@@ -106,21 +108,26 @@ def _operand(A, Ii, Jj, C: Matrix, tran: bool, scalar: bool) -> Matrix:
     return A
 
 
-def _sparse_route(fn, C, M, accum, A, I, J, desc, scalar: bool):
-    """The sparse forms: a CsrMatrix runs ``fn`` as it is, a CscMatrix in
-    its stored transpose's frame (I and J swapped); None for a bitmap
-    output."""
+def _sparse_route(fn, hfn, C, M, accum, A, I, J, desc, scalar: bool):
+    """The sparse forms: a CsrMatrix runs ``fn`` as it is, a HyperMatrix
+    runs ``hfn``, a CscMatrix or HyperCscMatrix its form in the stored
+    transpose's frame (I and J swapped); None for a bitmap output."""
     from ..sparse.container import CscMatrix, CsrMatrix
+    from ..sparse.hyper import HyperMatrix
+    from ..sparse.hyper_csc import HyperCscMatrix
     if isinstance(C, CsrMatrix):
         return fn(C, M, accum, A, I, J, desc, scalar=scalar)
-    if isinstance(C, CscMatrix):
+    if isinstance(C, HyperMatrix):
+        return hfn(C, M, accum, A, I, J, desc, scalar=scalar)
+    if isinstance(C, (CscMatrix, HyperCscMatrix)):
+        hyper = isinstance(C, HyperCscMatrix)
+        conv = to_hyper_operand if hyper else to_csr_operand
         d0 = desc_of(desc)
-        Aw = A if scalar else to_csr_operand(A, not d0.tran0,
-                                             "assign input")
-        Mw = to_csr_operand(M, True, "mask") if M is not None else None
-        return CscMatrix(fn(C.tr, Mw, accum, Aw, J, I,
-                            dataclasses.replace(d0, tran0=False),
-                            scalar=scalar))
+        Aw = A if scalar else conv(A, not d0.tran0, "assign input")
+        Mw = conv(M, True, "mask") if M is not None else None
+        return type(C)((hfn if hyper else fn)(
+            C.tr, Mw, accum, Aw, J, I, dataclasses.replace(d0, tran0=False),
+            scalar=scalar))
     return None
 
 
@@ -144,7 +151,9 @@ def assign(C, M, accum: Optional[BinaryOp], A: Union[Matrix, Any],
     """
     accum = _prologue("assign", C, M, accum, A, scalar)
     from ..sparse.assign import csr_assign
-    out = _sparse_route(csr_assign, C, M, accum, A, I, J, desc, scalar)
+    from ..sparse.hyper_assign import hyper_assign
+    out = _sparse_route(csr_assign, hyper_assign, C, M, accum, A, I, J,
+                        desc, scalar)
     if out is not None:
         return out
     d = desc_of(desc)
@@ -168,7 +177,9 @@ def subassign(C, M, accum: Optional[BinaryOp], A: Union[Matrix, Any],
     entries outside C(I,J) are never modified (``GB_spec_subassign.m``)."""
     accum = _prologue("subassign", C, M, accum, A, scalar)
     from ..sparse.assign import csr_subassign
-    out = _sparse_route(csr_subassign, C, M, accum, A, I, J, desc, scalar)
+    from ..sparse.hyper_assign import hyper_subassign
+    out = _sparse_route(csr_subassign, hyper_subassign, C, M, accum, A, I,
+                        J, desc, scalar)
     if out is not None:
         return out
     d = desc_of(desc)
@@ -202,8 +213,16 @@ def subassign_scalar(C, M, accum, x, I=None, J=None, desc=None):
     return subassign(C, M, accum, x, I, J, desc, scalar=True)
 
 
-def _vector_form(fn, what: str, w, m, accum, u, I, desc, scalar: bool):
+def _vector_form(fn, hfn, what: str, w, m, accum, u, I, desc,
+                 scalar: bool):
     require_container(w, f"{what} output w")
+    from ..sparse.vector import SparseVec
+    if isinstance(w, SparseVec):
+        accum = _prologue(what, w, m, accum, u, scalar)
+        uh = u if scalar else vec_hyper_operand(u, f"{what} input")
+        mh = vec_hyper_operand(m, "mask") if m is not None else None
+        return SparseVec(hfn(w.hm, mh, accum, uh, I, [0], desc,
+                             scalar=scalar))
     Cm = _as_matrix(w)
     Mm = _as_matrix(m)
     Am = u if scalar else _as_matrix(u)
@@ -213,15 +232,17 @@ def _vector_form(fn, what: str, w, m, accum, u, I, desc, scalar: bool):
 def assign_vector(w: Vector, m: Optional[Vector], accum, u, I=None,
                   desc=None, *, scalar: bool = False) -> Vector:
     """GrB_Vector_assign: w<m>(I) = accum(w(I), u)."""
-    return _vector_form(assign, "assign_vector", w, m, accum, u, I, desc,
-                        scalar)
+    from ..sparse.hyper_assign import hyper_assign
+    return _vector_form(assign, hyper_assign, "assign_vector", w, m, accum,
+                        u, I, desc, scalar)
 
 
 def subassign_vector(w: Vector, m: Optional[Vector], accum, u, I=None,
                      desc=None, *, scalar: bool = False) -> Vector:
     """GxB_Vector_subassign: w(I)<m> = accum(w(I), u)."""
-    return _vector_form(subassign, "subassign_vector", w, m, accum, u, I,
-                        desc, scalar)
+    from ..sparse.hyper_assign import hyper_subassign
+    return _vector_form(subassign, hyper_subassign, "subassign_vector", w,
+                        m, accum, u, I, desc, scalar)
 
 
 def row_assign(C: Matrix, m: Optional[Vector], accum, u: Vector,

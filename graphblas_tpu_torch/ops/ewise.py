@@ -10,9 +10,11 @@ over values and pattern (CSR operands convert to bitmaps, as there), a
 ``CsrMatrix`` or by-column ``CscMatrix`` the sort-merge engines of
 :mod:`graphblas_tpu_torch.sparse.ewise` and the ``csr_accum_mask``
 epilogue (a CSC output runs in the transposed frame: (A ⊕ B)' = A' ⊕
-B').  A hypersparse container raises :class:`UnsupportedContainer`
-(ROADMAP.md queue 1, item 10); an op over a user-defined type raises
-``UnsupportedOp`` (item 7).
+B').  A hypersparse output (``HyperMatrix``, ``HyperCscMatrix`` in the
+transposed frame, ``SparseVec``) takes the pair-key merges of
+:mod:`graphblas_tpu_torch.sparse.hyper` and ``hyper_accum_mask``, at any
+dimension; an op over a user-defined type raises ``UnsupportedOp``
+(ROADMAP.md queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ from ..core.ops import BinaryOp, SelectOp, UnaryOp
 from ..core.types import cast, cast_result
 from ..utils import counters
 from .containers import (require_builtin, require_container,
-                         to_bitmap_operand, to_csr_operand)
+                         to_bitmap_operand, to_csr_operand, to_hyper_operand,
+                         vec_hyper_operand)
 
 __all__ = ["eWiseAdd", "eWiseMult", "apply", "select"]
 
@@ -88,8 +91,52 @@ def finish_csr(Cw, Mw, T, accum, d, csc: bool):
     return CscMatrix(out) if csc else out
 
 
+def hyper_frame(C, M):
+    """(Cw, operand, Mw, wrap): the by-row hypersparse frame of a
+    hypersparse output, or None when C is not hypersparse.
+    ``operand(X, tran, what)`` brings an input into the frame: a
+    ``HyperCscMatrix`` C runs on its stored transpose, so its operands
+    transpose with it; a ``SparseVec`` runs on its n x 1 matrix, its
+    operands as vectors.  ``wrap`` re-wraps the result."""
+    from ..sparse.hyper import HyperMatrix
+    from ..sparse.hyper_csc import HyperCscMatrix
+    from ..sparse.vector import SparseVec
+    if isinstance(C, SparseVec):
+        Mw = vec_hyper_operand(M, "mask") if M is not None else None
+        return (C.hm.wait(), lambda X, tran, what: vec_hyper_operand(X, what),
+                Mw, SparseVec)
+    if isinstance(C, HyperCscMatrix):
+        Mw = to_hyper_operand(M, True, "mask") if M is not None else None
+        return (C.tr.wait(),
+                lambda X, tran, what: to_hyper_operand(X, not tran, what),
+                Mw, HyperCscMatrix)
+    if isinstance(C, HyperMatrix):
+        Mw = to_hyper_operand(M, False, "mask") if M is not None else None
+        return C.wait(), to_hyper_operand, Mw, lambda X: X
+    return None
+
+
+def finish_hyper(Cw, Mw, T, accum, d, wrap):
+    """The hypersparse epilogue in the by-row frame, re-wrapped."""
+    from ..sparse.hyper import hyper_accum_mask
+    return wrap(hyper_accum_mask(Cw, Mw, T, accum, replace=d.replace,
+                                 complement=d.mask_scmp,
+                                 structural=d.mask_structure))
+
+
 def _dispatch_ewise(C, M, accum, op, A, B, d, union):
     from ..sparse.container import CscMatrix, CsrMatrix
+    frame = hyper_frame(C, M)
+    if frame is not None:
+        from ..sparse.hyper import hyper_ewise
+        Cw, operand, Mw, wrap = frame
+        Aw = operand(A, d.tran0, "eWise input A")
+        Bw = operand(B, d.tran1, "eWise input B")
+        if Aw.shape != Cw.shape or Bw.shape != Cw.shape:
+            raise DimensionMismatch(f"eWise shapes {Aw.shape}, {Bw.shape} "
+                                    f"vs C {Cw.shape}")
+        T = hyper_ewise(op, Aw, Bw, union=union)
+        return finish_hyper(Cw, Mw, T, accum, d, wrap)
     if isinstance(C, (CsrMatrix, CscMatrix)):
         from ..sparse.ewise import csr_ewise_add, csr_ewise_mult
         Cw, Aw, Mw, csc = csr_frame(C, A, d.tran0, M, "eWise A")
@@ -150,6 +197,15 @@ def apply(C, M, accum: Optional[BinaryOp], op: UnaryOp, A,
     accum = resolve_accum(accum, "apply accum", None, C, A)
     require_builtin("apply op", op, accum)
     d = desc_of(desc)
+    frame = hyper_frame(C, M)
+    if frame is not None:
+        from ..sparse.hyper import hyper_apply
+        Cw, operand, Mw, wrap = frame
+        Aw = operand(A, d.tran0, "apply input")
+        if Aw.shape != Cw.shape:
+            raise DimensionMismatch(f"apply {Aw.shape} vs C {Cw.shape}")
+        return finish_hyper(Cw, Mw, hyper_apply(op, Aw, ztype=op.ztype),
+                            accum, d, wrap)
     from ..sparse.container import CscMatrix, CsrMatrix
     if isinstance(C, (CsrMatrix, CscMatrix)):
         from ..sparse.ewise import csr_apply
@@ -183,6 +239,24 @@ def select(C, M, accum: Optional[BinaryOp], op: SelectOp, A,
     accum = resolve_accum(accum, "select accum", None, C, A)
     require_builtin("select accum", accum)
     d = desc_of(desc)
+    frame = hyper_frame(C, M)
+    if frame is not None:
+        from ..sparse.hyper import hyper_select
+        from ..sparse.hyper_csc import HyperCscMatrix
+        Cw, operand, Mw, wrap = frame
+        Aw = operand(A, d.tran0, "select input")
+        if Aw.shape != Cw.shape:
+            raise DimensionMismatch(f"select {Aw.shape} vs C {Cw.shape}")
+        # in the by-col (transposed) frame the predicate sees the
+        # original coordinates: select_C'(i, j) = select_C(j, i)
+        if isinstance(C, HyperCscMatrix):
+            def fn(i, j, x):
+                return op(j, i, x, thunk)
+        else:
+            def fn(i, j, x):
+                return op(i, j, x, thunk)
+        return finish_hyper(Cw, Mw, hyper_select("USER", Aw, user_fn=fn),
+                            accum, d, wrap)
     from ..sparse.container import CscMatrix, CsrMatrix
     if isinstance(C, (CsrMatrix, CscMatrix)):
         from ..sparse.ewise import csr_select

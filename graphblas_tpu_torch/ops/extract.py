@@ -6,8 +6,10 @@ Counterpart of ``graphblas_tpu/ops/extract.py``.  Reference:
 awareness).  On the bitmap container extraction is one gather of rows
 and columns (duplicate indices allowed); a ``CsrMatrix`` or
 ``CscMatrix`` output takes the sparse form of
-:mod:`graphblas_tpu_torch.sparse.assign`; the hypersparse containers
-come with a later slice (ROADMAP.md queue 1, item 10) and raise.
+:mod:`graphblas_tpu_torch.sparse.assign`, a hypersparse output
+(``HyperMatrix``, ``HyperCscMatrix`` in the transposed frame,
+``SparseVec``) the pair-key form of
+:mod:`graphblas_tpu_torch.sparse.hyper_assign` at any dimension.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from ..core.ops import BinaryOp
 from ..utils import counters
 from ..utils.indices import normalize_indices
 from .containers import (UnsupportedContainer, require_container,
-                         to_csr_operand)
+                         to_csr_operand, to_hyper_operand, vec_hyper_operand)
 
 __all__ = ["extract", "extract_vector", "extract_col"]
 
@@ -59,7 +61,17 @@ def extract(C, M, accum: Optional[BinaryOp], A, I: Any = None,
     require_container(A, "extract input A")
     from ..sparse.assign import csr_extract, csr_subref
     from ..sparse.container import CscMatrix, CsrMatrix
+    from ..sparse.hyper import HyperMatrix
+    from ..sparse.hyper_assign import hyper_extract
+    from ..sparse.hyper_csc import HyperCscMatrix
     d = desc_of(desc)
+    if isinstance(C, HyperCscMatrix):
+        Aw = to_hyper_operand(A, not d.tran0, "extract input")
+        Mw = to_hyper_operand(M, True, "mask") if M is not None else None
+        return HyperCscMatrix(hyper_extract(
+            C.tr, Mw, accum, Aw, J, I, dataclasses.replace(d, tran0=False)))
+    if isinstance(C, HyperMatrix):
+        return hyper_extract(C, M, accum, A, I, J, desc)
     if isinstance(C, CscMatrix):
         Aw = to_csr_operand(A, not d.tran0, "extract input")
         Mw = to_csr_operand(M, True, "mask") if M is not None else None
@@ -67,7 +79,7 @@ def extract(C, M, accum: Optional[BinaryOp], A, I: Any = None,
                                      dataclasses.replace(d, tran0=False)))
     if isinstance(C, CsrMatrix):
         return csr_extract(C, M, accum, A, I, J, desc)
-    if isinstance(A, (CsrMatrix, CscMatrix)):
+    if isinstance(A, (CsrMatrix, CscMatrix, HyperMatrix)):
         At = to_csr_operand(A, d.tran0, "extract input")
         T = csr_subref(At, I, J).to_matrix()
         return accum_mask(C, M, T, accum, d)
@@ -90,6 +102,12 @@ def extract_vector(w: Vector, m: Optional[Vector],
     require_container(w, "extract output w")
     require_container(m, "extract mask", none_ok=True)
     require_container(u, "extract input u")
+    from ..sparse.vector import SparseVec
+    if isinstance(w, SparseVec):
+        from ..sparse.hyper_assign import hyper_extract
+        uh = vec_hyper_operand(u, "extract input")
+        mh = vec_hyper_operand(m, "mask") if m is not None else None
+        return SparseVec(hyper_extract(w.hm, mh, accum, uh, I, [0], desc))
     d = desc_of(desc)
     u = u.wait()
     Ii = torch.from_numpy(normalize_indices(I, u.size)).to(u.device)

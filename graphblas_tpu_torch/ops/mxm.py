@@ -38,10 +38,15 @@ or CSC ``A`` runs the edge-parallel SpMV engines of
 dense f32 ``plus_times`` product on dense-enough tiles), a bitmap ``A``
 runs ``semiring_mm``; the bitmap epilogue (:mod:`core.mask`) finishes.
 
-The hypersparse outputs (``HyperMatrix``, ``HyperCscMatrix``,
-``SparseVec``) come with a later slice (ROADMAP.md queue 1, item 10);
-those calls, and an ``mxm`` into a ``CscMatrix`` or ``Vector``, raise
-:class:`UnsupportedContainer`.
+A hypersparse output runs the pair-key ESC engine
+(:func:`graphblas_tpu_torch.sparse.hyper.hyper_spgemm`, dimension up to
+2^60) with the mask pushed into the product, then the hypersparse
+epilogue: ``mxm`` into a ``HyperMatrix``, or into a ``HyperCscMatrix``
+as C' = B'A' with the multiply flipped on the wrapped by-row container;
+``mxv``/``vxm`` into a ``SparseVec`` as a one-column SpGEMM (u'A as
+(A'u)' with the multiply flipped).  Other operands convert toward the
+output.  An ``mxm`` into a ``CscMatrix`` or ``Vector`` raises
+:class:`UnsupportedContainer`, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -61,7 +66,8 @@ from ..core.semirings import Semiring
 from ..core.types import BOOL, INT64, Type, cast, type_of_storage
 from ..utils import counters
 from .containers import (UnsupportedContainer, require_container,
-                         to_bitmap_operand, to_csr_operand)
+                         to_bitmap_operand, to_csr_operand, to_hyper_operand,
+                         vec_hyper_operand)
 from .flopcount import choose_axb_method, record_axb_method
 
 __all__ = ["mxm", "mxv", "vxm", "semiring_mm"]
@@ -372,6 +378,59 @@ def _mxm_bitmap(C: Matrix, M, accum, sr: Semiring, A, B, d: Descriptor):
     return accum_mask(C, M, Matrix(tvals, tpat, sr.ztype), accum, d)
 
 
+def _mxm_hyper(C, M, accum, sr: Semiring, A, B, d: Descriptor):
+    """Hypersparse-output mxm at any dimension: the mask pushed into the
+    pair-key ESC product, then the full ``GB_accum_mask`` epilogue
+    (skipped when C starts empty and there is no accum, the
+    ``GB_transplant_conform`` shortcut of ``GB_mxm.c:141``)."""
+    from ..sparse.hyper import hyper_accum_mask, hyper_spgemm
+    C = C.wait()
+    A = to_hyper_operand(A, d.tran0, "mxm input A")
+    B = to_hyper_operand(B, d.tran1, "mxm input B")
+    M = to_hyper_operand(M, False, "mask") if M is not None else None
+    T = hyper_spgemm(sr, A, B, mask=M, complement=d.mask_scmp,
+                     structural=d.mask_structure)
+    if accum is None and C.nvals == 0:
+        return T
+    return hyper_accum_mask(C, M, T, accum, replace=d.replace,
+                            complement=d.mask_scmp,
+                            structural=d.mask_structure)
+
+
+def _mxm_hyper_csc(C, M, accum, sr: Semiring, A, B, d: Descriptor):
+    """By-column hypersparse output: C' = B'A' with the multiply flipped
+    to keep the operand order (the ``GB_AxB_meta.c:86-185`` swap rule)
+    on the wrapped by-row container."""
+    from ..sparse.hyper import hyper_accum_mask, hyper_spgemm
+    from ..sparse.hyper_csc import HyperCscMatrix
+    Ct = C.tr.wait()
+    Aw = to_hyper_operand(A, not d.tran0, "mxm input A")
+    Bw = to_hyper_operand(B, not d.tran1, "mxm input B")
+    Mw = to_hyper_operand(M, True, "mask") if M is not None else None
+    T = hyper_spgemm(_flipped(sr), Bw, Aw, mask=Mw, complement=d.mask_scmp,
+                     structural=d.mask_structure)
+    if accum is None and Ct.nvals == 0:
+        return HyperCscMatrix(T)
+    return HyperCscMatrix(hyper_accum_mask(
+        Ct, Mw, T, accum, replace=d.replace, complement=d.mask_scmp,
+        structural=d.mask_structure))
+
+
+def _spmv_hyper(w, m, accum, sr: Semiring, A, u, d: Descriptor, tran: bool):
+    """A SparseVec output: w<m> = accum(w, op(A) u) as a one-column
+    hypersparse SpGEMM (the vector-is-a-matrix identity)."""
+    from ..sparse.hyper import hyper_accum_mask, hyper_spgemm
+    from ..sparse.vector import SparseVec
+    Ah = to_hyper_operand(A, tran, "input A")
+    uh = vec_hyper_operand(u, "input u")
+    mh = vec_hyper_operand(m, "mask") if m is not None else None
+    T = hyper_spgemm(sr, Ah, uh, mask=mh, complement=d.mask_scmp,
+                     structural=d.mask_structure)
+    return SparseVec(hyper_accum_mask(
+        w.hm, mh, T, accum, replace=d.replace, complement=d.mask_scmp,
+        structural=d.mask_structure))
+
+
 @counters.counted("mxm")
 def mxm(C, M, accum: Optional[BinaryOp], semiring: Semiring, A, B,
         desc: Optional[Descriptor] = None):
@@ -393,26 +452,30 @@ def mxm(C, M, accum: Optional[BinaryOp], semiring: Semiring, A, B,
     accum = resolve_accum(accum, "mxm accum", None, C, A)
     d = desc_of(desc)
     from ..sparse.container import CscMatrix, CsrMatrix
+    from ..sparse.hyper import HyperMatrix
+    from ..sparse.hyper_csc import HyperCscMatrix
+    if isinstance(C, HyperCscMatrix):
+        return _mxm_hyper_csc(C, M, accum, semiring, A, B, d)
+    if isinstance(C, HyperMatrix):
+        return _mxm_hyper(C, M, accum, semiring, A, B, d)
     if isinstance(C, CsrMatrix):
         return _mxm_sparse(C, M, accum, semiring, A, B, d)
     if not isinstance(C, Matrix):
         raise UnsupportedContainer(
-            f"mxm output C: expected a CsrMatrix or a bitmap Matrix, got "
-            f"{type(C).__name__}")
+            f"mxm output C: expected a CsrMatrix, a hypersparse container "
+            f"or a bitmap Matrix, got {type(C).__name__}")
     if isinstance(A, (CsrMatrix, CscMatrix)) and isinstance(B, Matrix):
         return _mxm_spmm(C, M, accum, semiring, A, B, d)
     return _mxm_bitmap(C, M, accum, semiring, A, B, d)
 
 
 def _vector_args(op: str, w, m, u) -> None:
-    """The SpMV slice's containers: a bitmap Vector output, mask and
-    input."""
+    """A bitmap Vector output, mask and input (a SparseVec output takes
+    the hypersparse route before this check)."""
     if not isinstance(w, Vector):
         raise UnsupportedContainer(
-            f"{op} output w: a hypersparse SparseVec output (the product "
-            f"as a 1-column hypersparse SpGEMM) comes with the hypersparse "
-            f"slice of the port (ROADMAP.md queue 1, item 10); pass a "
-            f"Vector, got {type(w).__name__}")
+            f"{op} output w: expected a Vector or a SparseVec, got "
+            f"{type(w).__name__}")
     for what, x in (("mask", m), ("input u", u)):
         if x is not None and not isinstance(x, Vector):
             raise UnsupportedContainer(f"{op} {what}: expected a Vector, "
@@ -453,10 +516,13 @@ def mxv(w, m, accum: Optional[BinaryOp], semiring: Semiring, A, u,
     from ..core.resolve import resolve_accum, resolve_semiring
     semiring = resolve_semiring(semiring, "mxv semiring", None, A, u, w)
     accum = resolve_accum(accum, "mxv accum", None, w, A)
+    d = desc_of(desc)
+    from ..sparse.vector import SparseVec
+    if isinstance(w, SparseVec):
+        return _spmv_hyper(w, m, accum, semiring, A, u, d, d.tran0)
     _vector_args("mxv", w, m, u)
     u = u.wait()
     from ..sparse.container import CscMatrix, CsrMatrix
-    d = desc_of(desc)
     if isinstance(A, CscMatrix):
         # by-col orientation: A'*u is free (the stored arrays ARE A' in
         # CSR); plain A*u pays one resort
@@ -494,10 +560,15 @@ def vxm(w, m, accum: Optional[BinaryOp], semiring: Semiring, u, A,
     from ..core.resolve import resolve_accum, resolve_semiring
     semiring = resolve_semiring(semiring, "vxm semiring", None, u, A, w)
     accum = resolve_accum(accum, "vxm accum", None, w, A)
+    d = desc_of(desc)
+    from ..sparse.vector import SparseVec
+    if isinstance(w, SparseVec):
+        # u'A = (A'u)' with the multiply flipped, as on CSR
+        return _spmv_hyper(w, m, accum, _flipped(semiring), A, u, d,
+                           not d.tran1)
     _vector_args("vxm", w, m, u)
     u = u.wait()
     from ..sparse.container import CscMatrix, CsrMatrix
-    d = desc_of(desc)
     if isinstance(A, CscMatrix):
         # by-col orientation: u'*A runs on the stored arrays (A' in CSR)
         # with no conversion; u'*A' pays the resort instead

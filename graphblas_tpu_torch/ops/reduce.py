@@ -8,7 +8,11 @@ monoid's tensor reduction over its pattern; a ``CsrMatrix`` or
 (:func:`graphblas_tpu_torch.sparse.ewise.csr_reduce_rows` /
 ``csr_reduce_scalar``), never densified.  A scalar crosses to the host
 only at the end, as a numpy scalar of the monoid's type (a UINT64 sum
-is unsigned).
+is unsigned).  A hypersparse input folds its present rows
+(``hyper_reduce_vector``, a sparse vector over ``A.h``): into a
+``SparseVec`` at any dimension, or scattered into a bitmap ``Vector``
+(whose size bounds the rows); ``reduce_to_scalar`` takes every
+container, ``SparseVec`` and the hypersparse ones included.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ from ..core.ops import BinaryOp
 from ..core.types import cast, cast_result, cast_value
 from ..utils import counters
 from .containers import (UnsupportedContainer, require_builtin,
-                         require_container, to_csr_operand)
+                         require_container, to_csr_operand, to_hyper_operand,
+                         vec_hyper_operand)
 
 __all__ = ["reduce_to_vector", "reduce_to_scalar", "reduce"]
 
@@ -56,16 +61,45 @@ def reduce_to_vector(w: Vector, m: Optional[Vector],
     require_container(w, "reduce output w")
     require_container(m, "reduce mask", none_ok=True)
     require_container(A, "reduce input A")
-    if not isinstance(w, Vector) or isinstance(A, Vector):
+    from ..sparse.vector import SparseVec
+    if not isinstance(w, (Vector, SparseVec)) \
+            or isinstance(A, (Vector, SparseVec)):
         raise UnsupportedContainer(
-            f"reduce_to_vector: a Vector output and a matrix input, got "
-            f"{type(w).__name__} and {type(A).__name__}")
+            f"reduce_to_vector: a Vector or SparseVec output and a matrix "
+            f"input, got {type(w).__name__} and {type(A).__name__}")
     d = desc_of(desc)
     from ..core.resolve import resolve_accum
     accum = resolve_accum(accum, "reduce accum", None, w, A)
     require_builtin("reduce accum", accum)
     mon = _as_monoid(op, A, w)
     from ..sparse.container import CscMatrix, CsrMatrix
+    from ..sparse.hyper import HyperMatrix, hyper_reduce_vector
+    from ..sparse.hyper_csc import HyperCscMatrix
+    if isinstance(w, SparseVec):
+        # sparse output at any dimension: the per-row fold is sparse over
+        # A.h already; the epilogue runs on the wrapped n x 1 matrix
+        from ..sparse.hyper import hyper_accum_mask
+        Ah = to_hyper_operand(A, d.tran0, "reduce input")
+        if Ah.nrows != w.size:
+            raise DimensionMismatch(
+                f"w has size {w.size}, A has {Ah.nrows} rows")
+        ids, vals = hyper_reduce_vector(mon, Ah)
+        T = SparseVec.from_coo(ids, vals, w.size, type=mon.type, dup=None,
+                               device=Ah.device).hm
+        mh = vec_hyper_operand(m, "mask") if m is not None else None
+        return SparseVec(hyper_accum_mask(
+            w.hm, mh, T, accum, replace=d.replace, complement=d.mask_scmp,
+            structural=d.mask_structure))
+    if isinstance(A, (HyperMatrix, HyperCscMatrix)):
+        # the present-row fold scattered into the bitmap w (a by-column
+        # A reduces its stored transpose's columns)
+        Ah = to_hyper_operand(A, d.tran0, "reduce input")
+        if Ah.nrows != w.size:
+            raise DimensionMismatch(
+                f"w has size {w.size}, A has {Ah.nrows} rows")
+        ids, vals = hyper_reduce_vector(mon, Ah)
+        return accum_mask(w, m, Vector.from_coo(
+            ids, vals, w.size, type=mon.type, device=w.device), accum, d)
     if isinstance(A, (CsrMatrix, CscMatrix)):
         from ..sparse.ewise import csr_reduce_rows
         A = to_csr_operand(A, d.tran0, "reduce input")
@@ -112,7 +146,16 @@ def reduce_to_scalar(accum: Optional[BinaryOp], op: Union[Monoid, BinaryOp],
     mon = _as_monoid(op, A)
     A = A.wait()
     from ..sparse.container import CscMatrix, CsrMatrix
-    if isinstance(A, (CsrMatrix, CscMatrix)):
+    from ..sparse.hyper import HyperMatrix, hyper_reduce_scalar
+    from ..sparse.hyper_csc import HyperCscMatrix
+    from ..sparse.vector import SparseVec
+    if isinstance(A, SparseVec):
+        A = A.hm
+    if isinstance(A, HyperCscMatrix):
+        A = A.tr               # reduce-all is orientation-invariant
+    if isinstance(A, HyperMatrix):
+        t = hyper_reduce_scalar(mon, A) if A.nvals else mon.identity
+    elif isinstance(A, (CsrMatrix, CscMatrix)):
         from ..sparse.ewise import csr_reduce_scalar
         # reduce-all is orientation-invariant: a CSC reduces its arrays
         t = csr_reduce_scalar(mon, A.tr if isinstance(A, CscMatrix) else A)

@@ -8,7 +8,10 @@ broadcast-reshape.  Sparse containers transpose by the tuple resort of
 ``CsrMatrix.T`` (the JAX package's, host side; the reference's bucket
 transpose is a counting sort too) and kron by tuple arithmetic: the
 output's (i, j) list is the outer sum of the operands' tuple lists,
-``GB_kron_kernel.c:9-17``'s loop, vectorized.
+``GB_kron_kernel.c:9-17``'s loop, vectorized.  A hypersparse output
+(``HyperMatrix``, or ``HyperCscMatrix`` in the transposed frame) takes
+the pair re-sort of ``hyper_transpose`` and a hypersparse kron build,
+then ``hyper_accum_mask``.
 """
 
 from __future__ import annotations
@@ -21,14 +24,24 @@ import torch
 from ..core.descriptor import Descriptor, desc_of
 from ..core.errors import DimensionMismatch
 from ..core.mask import accum_mask
-from ..core.matrix import Matrix
+from ..core.matrix import Matrix, Vector
 from ..core.ops import BinaryOp, UnaryOp
 from ..core.types import cast, cast_result
 from ..utils import counters
-from .containers import require_builtin, to_bitmap_operand, to_csr_operand
-from .ewise import csr_frame, finish_csr, require_args
+from ..sparse.vector import SparseVec
+from .containers import (UnsupportedContainer, require_builtin,
+                         to_bitmap_operand, to_csr_operand)
+from .ewise import (csr_frame, finish_csr, finish_hyper, hyper_frame,
+                    require_args)
 
 __all__ = ["transpose", "kron"]
+
+
+def _matrix_output(what: str, C) -> None:
+    """transpose and kron write matrices: a vector output raises."""
+    if isinstance(C, (Vector, SparseVec)):
+        raise UnsupportedContainer(f"{what} output C: expected a matrix "
+                                   f"container, got {type(C).__name__}")
 
 
 @counters.counted("transpose")
@@ -44,6 +57,17 @@ def transpose(C, M, accum: Optional[BinaryOp], A,
         op = resolve_unary(op, "transpose op", None, A, C)
     require_builtin("transpose op", op, accum)
     d = desc_of(desc)
+    _matrix_output("transpose", C)
+    frame = hyper_frame(C, M)
+    if frame is not None:
+        from ..sparse.hyper import hyper_apply
+        Cw, operand, Mw, wrap = frame
+        T = operand(A, not d.tran0, "transpose input")
+        if op is not None:
+            T = hyper_apply(op, T, ztype=op.ztype)
+        if T.shape != Cw.shape:
+            raise DimensionMismatch(f"A' is {T.shape}, C is {Cw.shape}")
+        return finish_hyper(Cw, Mw, T, accum, d, wrap)
     from ..sparse.container import CscMatrix, CsrMatrix
     if isinstance(C, (CsrMatrix, CscMatrix)):
         from ..sparse.ewise import csr_apply
@@ -98,6 +122,21 @@ def kron(C, M, accum: Optional[BinaryOp], op: BinaryOp, A, B,
     accum = resolve_accum(accum, "kron accum", None, C, A)
     require_builtin("kron op", op, accum)
     d = desc_of(desc)
+    _matrix_output("kron", C)
+    frame = hyper_frame(C, M)
+    if frame is not None:
+        # kron(A, B)' = kron(A', B'): the by-col frame transposes operands
+        from ..sparse.hyper import hyper_from_coo
+        Cw, operand, Mw, wrap = frame
+        Aw = operand(A, d.tran0, "kron input A")
+        Bw = operand(B, d.tran1, "kron input B")
+        I, J, Z = _kron_tuples(op, Aw, Bw)
+        T = hyper_from_coo(I, J, Z, Aw.nrows * Bw.nrows,
+                           Aw.ncols * Bw.ncols, type=op.ztype, dup=None,
+                           device=Cw.device)
+        if T.shape != Cw.shape:
+            raise DimensionMismatch(f"kron is {T.shape}, C is {Cw.shape}")
+        return finish_hyper(Cw, Mw, T, accum, d, wrap)
     from ..sparse.container import CscMatrix, CsrMatrix, csr_from_coo
     if isinstance(C, (CsrMatrix, CscMatrix)):
         # kron(A, B)' = kron(A', B'): the by-col frame transposes operands

@@ -19,8 +19,10 @@ containers have (``core/matrix.py``):
   a zombie + immediate ``GB_wait``);
 * ``resize`` remaps entries through truncated identity maps on device.
 
-The hypersparse forms (``fold_pending_hyper``, ``hyper_resize``) come
-with the hypersparse slice and raise.
+``HyperMatrix`` (and through their wrapped containers ``HyperCscMatrix``
+and ``SparseVec``) folds the same way with pair-key union merges
+(``hyper_ewise``); its resize is a tuple filter on the device, since a
+dimension-sized index map is impossible at 2^60.
 """
 
 from __future__ import annotations
@@ -102,16 +104,23 @@ def fold_pending_csr(A):
     return out
 
 
-def _hyper_unported(what: str):
-    from ..ops.containers import UnsupportedContainer
-    raise UnsupportedContainer(
-        f"{what}: the hypersparse container comes with a later slice of "
-        f"the port (ROADMAP.md queue 1, item 10)")
-
-
 def fold_pending_hyper(A):
-    """GB_wait on HyperMatrix: comes with the hypersparse slice."""
-    _hyper_unported("fold_pending_hyper")
+    """GB_wait on HyperMatrix: one pair-key union merge per accum run."""
+    from .hyper import hyper_ewise, hyper_from_coo
+    if A.type.is_udt:
+        from ..core.resolve import UnsupportedOp
+        raise UnsupportedOp(
+            "setElement on the hypersparse container over a user-defined "
+            "type: user-defined types come with a later slice "
+            "(ROADMAP.md queue 1, item 7)")
+    out = A
+    for accum, tuples in _runs(A._pending):
+        I, J, X = _fold_run_host(tuples, accum, A.type)
+        D = hyper_from_coo(I, J, X, A.nrows, A.ncols, type=A.type,
+                           dup=None, device=A.device)
+        out = hyper_ewise(_merge_op(accum, A.type), out, D, union=True,
+                          ztype=A.type)
+    return out
 
 
 def csr_resize(A, nrows_new: int, ncols_new: int):
@@ -129,6 +138,13 @@ def csr_resize(A, nrows_new: int, ncols_new: int):
 
 
 def hyper_resize(A, nrows_new: int, ncols_new: int):
-    """Resize on the hypersparse container: comes with the hypersparse
-    slice."""
-    _hyper_unported("hyper_resize")
+    """Resize on the hypersparse container: a tuple filter on the device
+    (dimension-sized index maps are impossible at 2^60); the kept pairs
+    stay sorted."""
+    from .hyper import _assemble
+    A = A.wait()
+    n = A.nvals
+    I, J = A.rowids[:n], A.indices[:n]
+    keep = (I < nrows_new) & (J < ncols_new)
+    return _assemble(I[keep], J[keep], A.values[:n][keep], nrows_new,
+                     ncols_new, A.type)

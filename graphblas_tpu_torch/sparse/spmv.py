@@ -33,7 +33,14 @@ and TIMES (integers in int64, wrapped back to the storage width:
 congruent), MIN and MAX over the type's own order (unsigned read as
 unsigned; float NaN terms replaced by the identity, so a NaN drops out
 as in the bitmap path), LOR/LAND as any/all, LXOR/EQ as parity counts.  An empty
-segment holds the identity.  Any other monoid takes the generic
+segment holds the identity.
+
+LOR and LAND fold by the op itself on every type, as the reference
+defines it (``LOR(x, y) = (x != 0) || (y != 0)``): a segment holds 1
+where any term (LOR) or every term (LAND) is nonzero and 0 otherwise,
+in the monoid's type, from the identity.  The JAX package folds them
+over non-bool types by a max/min of the values instead (ROADMAP.md
+queue 3, "known in the reference").  Any other monoid takes the generic
 segmented fold.
 """
 
@@ -94,6 +101,12 @@ def segment_reduce(monoid_name: str, vals: torch.Tensor,
     t = t or type_of_storage(vals.dtype)
     dev = vals.device
     idx = seg_ids.long()
+    if nm in ("LOR", "LAND") and vals.dtype != torch.bool:
+        # the op's own fold from the identity, (x != 0) or/and ...: 1
+        # where any (LOR) or every (LAND) term is nonzero, else 0, in
+        # the type (an empty segment holds the identity, 0 / 1)
+        return segment_reduce(nm, vals != 0, seg_ids, num_segments,
+                              identity).to(vals.dtype)
     if vals.dtype == torch.bool:
         if nm in ("PLUS", "MAX", "LOR"):
             nm = "ANY"
@@ -113,8 +126,8 @@ def segment_reduce(monoid_name: str, vals: torch.Tensor,
         else:
             out.scatter_reduce_(0, idx, wide, reduce="prod")
         return out.to(vals.dtype)
-    if nm in ("MAX", "MIN", "LOR", "LAND"):
-        if nm in ("MAX", "MIN") and vals.dtype.is_floating_point:
+    if nm in ("MAX", "MIN"):
+        if vals.dtype.is_floating_point:
             # fmin/fmax from the identity, as the bitmap path, K6 and
             # SpMM fold: a NaN term drops out, an all-NaN segment holds
             # the identity (scatter_reduce's amin/amax propagate NaN)
@@ -125,7 +138,7 @@ def segment_reduce(monoid_name: str, vals: torch.Tensor,
         out = ordered(ident, t).to(keys.dtype).expand(num_segments).clone()
         out = out.to(dev)
         out.scatter_reduce_(0, idx, keys, reduce=(
-            "amax" if nm in ("MAX", "LOR") else "amin"))
+            "amax" if nm == "MAX" else "amin"))
         return from_ordered(out, t)
     if nm in ("LXOR", "EQ"):
         cnt = torch.zeros(num_segments, dtype=torch.int32, device=dev)

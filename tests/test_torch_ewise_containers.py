@@ -8,9 +8,9 @@ SCMP / transpose surface: the same numpy-seeded operands
 (``tests.helpers.rand_om``) go through both packages, and the outputs'
 tuples (row, column, value) must be equal exactly, floats included
 (one IEEE operation per entry in both).  The reduces are integer and
-exact.  The ``hyper`` kind becomes one test: a hypersparse container
-raises :class:`UnsupportedContainer` naming ROADMAP.md queue 1, item
-10."""
+exact.  The ``hyper`` kind (the port's ``HyperMatrix``) runs the same
+matrix since the hypersparse slice, and ``test_ewise_hyper_2p40``
+mirrors the JAX test of the same name."""
 
 import collections
 
@@ -22,6 +22,7 @@ import graphblas_tpu as gb
 from graphblas_tpu.sparse.container import CsrMatrix as JCsr
 from graphblas_tpu.sparse.hyper import HyperMatrix
 import graphblas_tpu_torch as gt
+from graphblas_tpu_torch.convert import from_jax
 from graphblas_tpu_torch.sparse.ewise import csr_ewise_add
 
 from . import oracle as orc
@@ -39,7 +40,7 @@ def _one_torch_thread():
     yield
     torch.set_num_threads(n)
 
-KINDS = ["csr", "csc"]
+KINDS = ["csr", "csc", "hyper"]
 
 
 def om_to_gt(kind, o: orc.OM, tname: str):
@@ -53,6 +54,9 @@ def om_to_gt(kind, o: orc.OM, tname: str):
     if kind == "csc":
         return gt.CscMatrix.from_coo(I, J, X, m, n, type=t,
                                      sum_duplicates=False, device="cpu")
+    if kind == "hyper":
+        return gt.HyperMatrix.from_coo(I, J, X, m, n, type=t, dup=None,
+                                       device="cpu")
     if kind == "bitmap":
         return gt.Matrix.from_dense(o.m, type=t, pattern=o.p, device="cpu")
     raise ValueError(kind)
@@ -74,6 +78,8 @@ def assert_same_tuples(got, want, kind=None):
         assert isinstance(got, gt.CscMatrix)
     elif kind == "csr":
         assert isinstance(got, gt.CsrMatrix)
+    elif kind == "hyper":
+        assert isinstance(got, gt.HyperMatrix)
     assert got.shape == want.shape
     g, w = tuples(got), tuples(want)
     assert g.keys() == w.keys()
@@ -288,10 +294,46 @@ def test_ewise_csr_scale_100k(rng):
     assert U.nzmax == U.nvals == len(am)
 
 
+def test_ewise_hyper_2p40():
+    """eWiseAdd/Mult, apply, select and reduce at dimension 2^40 on the
+    hypersparse container, equal to the JAX package's."""
+    rng = np.random.default_rng(44)
+    dim = 1 << 40
+    base = np.int64(7) * (1 << 30)
+    n = 3000
+    tup = [(base + rng.integers(0, 1 << 20, n).astype(np.int64),
+            base + rng.integers(0, 1 << 20, n).astype(np.int64),
+            rng.integers(1, 50, n).astype(np.int64)) for _ in range(2)]
+    e = np.zeros(0, np.int64)
+    outs = []
+    for pkg in (gt, gb):
+        kw = {"device": "cpu"} if pkg is gt else {}
+        H = gt.HyperMatrix if pkg is gt else HyperMatrix
+        A, B = (H.from_coo(*t_, dim, dim, type=pkg.INT64, **kw)
+                for t_ in tup)
+        C = H.from_coo(e, e, e, dim, dim, type=pkg.INT64, **kw)
+        outs.append([
+            pkg.eWiseAdd(C, None, None, pkg.binary.plus[pkg.INT64], A, B),
+            pkg.eWiseMult(C, None, None, pkg.binary.times[pkg.INT64], A, B),
+            pkg.apply(C, None, None, pkg.unary.ainv[pkg.INT64], A),
+            pkg.select(C, None, None, pkg.selectop.tril, A, 0),
+            int(pkg.reduce_to_scalar(None, pkg.monoid.plus[pkg.INT64], A))])
+    for x, y in zip(outs[0][:-1], outs[1][:-1]):
+        assert isinstance(x, gt.HyperMatrix)
+        assert_same_tuples(x, y)
+    am = collections.defaultdict(int)
+    for t_ in tup:
+        for i, j, x in zip(*t_):
+            am[(int(i), int(j))] += int(x)
+    assert tuples(outs[0][0]) == dict(am)
+    assert outs[0][-1] == outs[1][-1] == int(tup[0][2].sum())
+
+
 def test_hypersparse_raises_typed():
-    """A hypersparse container (the JAX package's HyperMatrix; the port
-    has none yet) raises UnsupportedContainer naming ROADMAP.md queue 1,
-    item 10, in every new op, and nothing is densified."""
+    """A JAX package HyperMatrix is not a container of the port: every
+    new op raises UnsupportedContainer and densifies nothing.  The
+    port's own HyperMatrix (``from_jax``) runs the same calls, equal to
+    the JAX package's."""
     dim = 1 << 40
     H = HyperMatrix.from_coo(np.array([5], np.int64),
                              np.array([7], np.int64), np.array([1.0]),
@@ -310,5 +352,19 @@ def test_hypersparse_raises_typed():
         lambda: gt.kron(C, None, None, "times", C, H),
     ]
     for call in calls:
-        with pytest.raises(gt.UnsupportedContainer, match="item 10"):
+        with pytest.raises(gt.UnsupportedContainer, match="got HyperMatrix"
+                           "|got CsrMatrix|expected a GraphBLAS container"):
             call()
+    Ht = from_jax(H, device="cpu")
+    for pkg, X in ((gt, Ht), (gb, H)):
+        out = [pkg.eWiseAdd(X, None, None, pkg.binary.plus[pkg.FP64], X, X),
+               pkg.apply(X, None, None, pkg.unary.ainv[pkg.FP64], X),
+               pkg.select(X, None, None, pkg.selectop.tril, X, 0),
+               pkg.transpose(X, None, None, X),
+               pkg.reduce_to_scalar(None, pkg.monoid.plus[pkg.FP64], X)]
+        if pkg is gt:
+            got = out
+    for x, y in zip(got[:-1], out[:-1]):
+        for a, b in zip(x.extractTuples(), y.extractTuples()):
+            assert np.array_equal(a, np.asarray(b))
+    assert got[-1] == out[-1] == 1.0

@@ -250,10 +250,16 @@ def test_mxm_bitmap_mixed_inputs():
 def test_mxm_unsupported_outputs_raise():
     rng = np.random.default_rng(18)
     A = to_gt(rand_om(rng, (4, 4), np.float32, 0.5), "FP32")
+    # a JAX package HyperMatrix is not a container of the port; the
+    # port's own hypersparse output takes the hypersparse engine
     H = hyper_from_coo(np.array([0]), np.array([1]), np.array([1.0]), 4, 4,
                        type=gb.FP64)
-    with pytest.raises(gt.UnsupportedContainer, match="item 10"):
+    with pytest.raises(gt.UnsupportedContainer, match="got HyperMatrix"):
         gt.mxm(H, None, None, "plus_times", A, A)
+    Ht = gt.hyper_from_coo([0], [1], [1.0], 4, 4, type=gt.FP32, device="cpu")
+    assert isinstance(gt.mxm(Ht, None, None, "plus_times", A, A),
+                      gt.HyperMatrix)
+    assert gt.last_axb_method() == "esc:hyper_spgemm"
     csc = gt.CscMatrix.from_coo([0], [1], [1.0], 4, 4, type=gt.FP32,
                                 device="cpu")
     with pytest.raises(gt.UnsupportedContainer, match="CscMatrix"):

@@ -3,8 +3,8 @@
 ``clear``) on ``CsrMatrix``, ``CscMatrix`` and the bitmap ``Matrix`` and
 ``Vector``: parity with the JAX package.
 
-Mirrors the CSR and CSC cases of ``tests/test_pending_sparse.py`` (its
-hypersparse cases wait for the hypersparse slice), the pending part of
+Mirrors the CSR, CSC and hypersparse cases of
+``tests/test_pending_sparse.py``, the pending part of
 ``tests/test_assign.py``, and the container parts of ``tests/test_csc.py``
 and ``tests/test_sparse.py`` that this slice adds (``colptr``/``rowidx``
 views, ``row_degrees``/``col_degrees``).  The same operations run on a
@@ -18,11 +18,12 @@ import pytest
 import graphblas_tpu as gb
 from graphblas_tpu.sparse.container import CscMatrix as JCsc
 from graphblas_tpu.sparse.container import CsrMatrix as JCsr
+from graphblas_tpu.sparse.hyper import HyperMatrix as JHyper
 import graphblas_tpu_torch as gt
 from graphblas_tpu_torch.convert import from_jax
 from graphblas_tpu_torch.sparse import pending as tpending
 
-KINDS = ["csr", "csc"]
+KINDS = ["csr", "csc", "hyper"]
 
 
 def mk(kind, I, J, X, m, n, tname="FP64"):
@@ -32,6 +33,10 @@ def mk(kind, I, J, X, m, n, tname="FP64"):
         return (gt.CsrMatrix.from_coo(I, J, X, m, n, type=tt,
                                       sum_duplicates=False, device="cpu"),
                 JCsr.from_coo(I, J, X, m, n, type=tj, sum_duplicates=False))
+    if kind == "hyper":
+        return (gt.HyperMatrix.from_coo(I, J, X, m, n, type=tt, dup=None,
+                                        device="cpu"),
+                JHyper.from_coo(I, J, X, m, n, type=tj, dup=None))
     return (gt.CscMatrix.from_coo(I, J, X, m, n, type=tt,
                                   sum_duplicates=False, device="cpu"),
             JCsc.from_coo(I, J, X, m, n, type=tj, sum_duplicates=False))
@@ -196,6 +201,36 @@ def test_setelement_scale_100k():
     assert Bt.extractElement(i0, j0) == want[(i0, j0)]
 
 
+def test_setelement_hyper_2p40():
+    """setElement / wait / extractElement / removeElement / resize at
+    dimension 2^40, equal to the JAX package's."""
+    dim = 1 << 40
+    base = np.int64(3) << 30
+    I = base + np.array([5, 9, 9], np.int64)
+    J = base + np.array([7, 1, 4], np.int64)
+    Ht, Hj = mk("hyper", I, J, np.array([1.0, 2.0, 3.0]), dim, dim)
+
+    def step(H, pkg):
+        return (H.setElement(8.0, int(base + 9), int(base + 1))  # overwrite
+                .setElement(4.0, int(dim - 1), int(dim - 1)))    # far new
+    Ht, Hj = both(step, Ht, Hj)
+    for ij in [(base + 9, base + 1), (dim - 1, dim - 1), (base + 5, base + 1)]:
+        ij = tuple(int(x) for x in ij)
+        assert Ht.extractElement(*ij) == Hj.extractElement(*ij)
+    assert Ht.extractElement(int(dim - 1), int(dim - 1)) == 4.0
+    assert Ht.extractElement(int(base + 5), int(base + 1)) is None
+    same(Ht, Hj)
+    assert len(tuples_of(Ht)) == 4
+    R = Ht.removeElement(int(dim - 1), int(dim - 1))
+    same(R, Hj.removeElement(int(dim - 1), int(dim - 1)))
+    assert len(tuples_of(R)) == 3
+    S = Ht.resize(int(base + 10), int(base + 10))
+    same(S, Hj.resize(int(base + 10), int(base + 10)))
+    assert tuples_of(S) == {(int(base + 5), int(base + 7)): 1.0,
+                            (int(base + 9), int(base + 1)): 8.0,
+                            (int(base + 9), int(base + 4)): 3.0}
+
+
 @pytest.mark.parametrize("kind", ["csr", "csc", "matrix", "vector"])
 def test_from_jax_carries_pending(kind):
     """The pending tuples of a JAX container come across with it: the
@@ -342,12 +377,15 @@ def test_blocking_mode_folds_at_once():
 
 
 def test_hypersparse_pending_raises():
-    """The hypersparse fold and resize come with the hypersparse slice;
-    they raise the typed error naming it."""
-    for fn in (lambda: tpending.fold_pending_hyper(None),
-               lambda: tpending.hyper_resize(None, 2, 2)):
-        with pytest.raises(gt.UnsupportedContainer, match="item 10"):
-            fn()
+    """The hypersparse fold runs since the hypersparse slice (the
+    ``hyper`` cases below); over a user-defined type it still raises,
+    naming ROADMAP.md queue 1, item 7."""
+    import types
+    H = gt.hyper_from_coo([1], [2], [1.0], 4, 4, device="cpu")
+    H = H.setElement(3.0, 0, 0)
+    H.type = types.SimpleNamespace(is_udt=True, name="UDT")
+    with pytest.raises(gt.UnsupportedOp, match="item 7"):
+        tpending.fold_pending_hyper(H)
 
 
 def test_degrees_and_csc_views():

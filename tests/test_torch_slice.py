@@ -579,3 +579,81 @@ def _tuples_equal_vec(vt, vj):
     assert vt.type.name == vj.type.name
     for x, y in zip(vt.extractTuples(), vj.extractTuples()):
         assert np.array_equal(x, np.asarray(y))
+
+
+def _id_map(n):
+    """A strictly increasing map of n vertices into [0, 2^60): n distinct
+    int64 drawn with default_rng(61), sorted (order is kept, so tril/triu
+    and the degree prep carry over)."""
+    rng = np.random.default_rng(61)
+    ids = np.unique(rng.integers(0, 1 << 60, 2 * n, dtype=np.int64))
+    ids = np.sort(rng.choice(ids, n, replace=False))
+    assert len(ids) == n and np.all(np.diff(ids) > 0)
+    return ids
+
+
+def _bfs_sparsevec(pkg, A, src: int, dim: int, device_kw):
+    """The bfs5m loop on hypersparse containers: a SparseVec frontier,
+    vxm over lor_land[BOOL] with the complemented structural visited mask
+    and REPLACE, an eWiseAdd into visited.  Returns {id: level}."""
+    SV = gt.SparseVec if pkg is gt else jsp.SparseVec
+    t = pkg.BOOL
+    e = np.zeros(0, np.int64)
+    frontier = SV.from_coo(np.array([src], np.int64), np.array([True]), dim,
+                           type=t, **device_kw)
+    visited, level, depth = frontier, {src: 1}, 1
+    desc = pkg.Descriptor(mask_scmp=True, replace=True, mask_structure=True)
+    while frontier.nvals:
+        depth += 1
+        nxt = pkg.vxm(SV.from_coo(e, np.zeros(0, bool), dim, type=t,
+                                  **device_kw), visited, None,
+                      pkg.semiring.lor_land[t], frontier, A, desc)
+        for i in nxt.ids():
+            level[int(i)] = depth
+        visited = pkg.eWiseAdd(visited, None, None, pkg.binary.lor[t],
+                               visited, nxt)
+        frontier = nxt
+    return level
+
+
+def test_rmat_hyper_slice_matches_jax():
+    """The hypersparse slice on the symmetrized R-MAT 8 mapped into the
+    2^60 id space: BFS by the SparseVec bfs5m loop and the masked
+    SandiaDot count ``mxm(C<L>, plus_times[INT64], L, U, TRAN1)`` into a
+    hypersparse C, through both packages; levels and counts exact, equal
+    to ``bfs_csr`` and ``tricount_esc`` on the compact graph."""
+    n, dim = 256, 1 << 60
+    I, J = gt.symmetrize_pattern(*gt.rmat_edges(8, 16, seed=7), n)
+    ids = _id_map(n)
+    X = np.ones(len(I), bool)
+    Ht = gt.hyper_from_coo(ids[I], ids[J], X, dim, dim, type=gt.BOOL,
+                           dup=None, device="cpu")
+    Hj = jsp.hyper_from_coo(ids[I], ids[J], X, dim, dim, type=gb.BOOL,
+                            dup=None)
+    lt = _bfs_sparsevec(gt, Ht, int(ids[0]), dim, {"device": "cpu"})
+    lj = _bfs_sparsevec(gb, Hj, int(ids[0]), dim, {})
+    assert lt == lj
+    A = gt.csr_from_coo(I, J, X, n, n, type=gt.BOOL, sum_duplicates=False,
+                        device="cpu")
+    lv = gt.bfs_csr(A, 0)
+    lv = lv.cpu().numpy() if hasattr(lv, "cpu") else np.asarray(lv)
+    assert lt == {int(ids[v]): int(lv[v]) for v in np.nonzero(lv > 0)[0]}
+    # the masked count on the degree-prepped graph
+    Lc, Uc = gt.tricount_prep_csr(A)
+    hyp = []
+    for pkg, make, kw in ((gt, gt.hyper_from_coo, {"device": "cpu"}),
+                          (gb, jsp.hyper_from_coo, {})):
+        LU = []
+        for X_ in (Lc, Uc):
+            i_, j_, _ = X_.extractTuples()
+            LU.append(make(ids[i_], ids[j_],
+                           np.ones(len(i_), np.int64), dim, dim,
+                           type=pkg.INT64, dup=None, **kw))
+        e = np.zeros(0, np.int64)
+        C = make(e, e, e, dim, dim, type=pkg.INT64, **kw)
+        C = pkg.mxm(C, LU[0], None, pkg.semiring.plus_times[pkg.INT64],
+                    LU[0], LU[1], pkg.Descriptor(tran1=True))
+        hyp.append((C, int(pkg.reduce_to_scalar(
+            None, pkg.monoid.plus[pkg.INT64], C))))
+    _tuples_equal(hyp[0][0], hyp[1][0])
+    assert hyp[0][1] == hyp[1][1] == int(gt.tricount_esc(Lc, Uc))

@@ -542,7 +542,8 @@ def test_vxm_bfs_step_matches_jax():
 def test_mxv_vector_containers_only():
     (_, At), _, _ = _rand_both(6, 6, 0.5, 2)
     u = gt.Vector.from_dense(np.ones(6), device="cpu")
-    with pytest.raises(gt.UnsupportedContainer, match="hypersparse slice"):
+    with pytest.raises(gt.UnsupportedContainer,
+                       match="expected a Vector or a SparseVec"):
         gt.mxv(At, None, None, "plus_times", At, u)
     with pytest.raises(gt.UnsupportedContainer):
         gt.vxm(gt.Vector.new(gt.FP64, 6, device="cpu"), None, None,

@@ -6,8 +6,9 @@ by min-plus squaring and an SpMM, the BSR tile engine with k-truss
 and the gather probes, the element-wise, select, reduce and
 transpose operations with the counting models built on them, and
 pending tuples, extract/assign and the graph models BFS, MIS and
-PageRank), and check each hand-written kernel against its plain
-PyTorch version.
+PageRank, the hypersparse containers, user-defined struct types and
+the complex types), and check each hand-written kernel against its
+plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -196,7 +197,28 @@ uncaught exception and a nonzero exit):
    equal to ``tricount_esc``; the same count on R-MAT 16 mapped into
    [0, 2^27) expands 95.2 M lanes, over the ESC lane cap, and hands off
    to the chunked CSR ESC (15,623,664); mapped into 2^60 it raises
-   ``NotImplementedError``.
+   ``NotImplementedError``;
+28. user-defined struct types: ``models.dpagerank2_csr`` (the PageRank
+   semiring over {rank, invdegree}) on the R-MAT 18 BOOL CSR against a
+   scipy float64 rebuild of its recurrence (the same iterations, ranks
+   within rtol 1e-9), bitmap ``dpagerank2`` against ``dpagerank2_csr``
+   on R-MAT 12 (within 1e-10); the SandiaDot product ``mxm(C<L>, sr,
+   L, U, TRAN1)`` over the struct {n: INT64, w: FP64} (n = 1, w
+   bench.py's U[0.5,1.5) values) on the degree-prepped R-MAT 16 through
+   the chunked ESC: its struct ``reduce_to_scalar`` n field is
+   15,623,664 and its w field equals ``plus_times[FP64]`` on the same
+   values within rtol 1e-12; 10,000 struct ``setElement`` calls (runs
+   of 1,000, alternately overwrites and a field-wise accum) on an
+   R-MAT 18 CSR of {a: FP64, b: INT32} and a ``wait``, equal to a numpy
+   rebuild;
+29. the complex types: ``mxv`` with ``plus_times[FC64]`` on the R-MAT
+   18 CSR (U[0.5,1.5) + i U[0.5,1.5) values) against scipy complex128
+   (per row within 1e-12 of sum |a||x|); phase 9's masked product in
+   FC32 on R-MAT 16 (the pattern of phase 9's FP32 product, nnzC
+   391,597; values within K 2^-24 sum |ab| of scipy complex128 per
+   entry); a bitmap ``plus_times[FC64]`` ``mxm`` at R-MAT 12 against
+   scipy; a ``max`` row reduce over FC32 on R-MAT 18 against numpy's
+   lexicographic maximum.
 
 Launch counters are zeroed just before each path and read just after
 it: before phase 3 and after phase 9 (triangle counting and ``mxm``:
@@ -211,7 +233,9 @@ a path must have launched there.  Phases 20 to 25 are read apart
 printed: their engines choose which kernels run (no kernel lies on the
 paths of phases 23-25).  Phases 26 and 27 are read apart too and
 summed as ``hyper`` (no kernel lies on their paths either; the
-hand-off's chunked CSR ESC reaches none).  Their references
+hand-off's chunked CSR ESC reaches none), and phases 28 and 29 as
+``udt`` and ``complex`` (every kernel gate refuses struct and complex
+operands).  Their references
 (``ktruss_esc``, ``tricount_esc``, ``allktruss_esc``, ``kron``,
 ``bfs_csr``) run outside the counted window, so a count is the path's own.  The line before the
 last is the per-kernel JSON summary, with each kernel's bound (the
@@ -287,7 +311,8 @@ def card_label() -> str:
 
 
 def sync() -> None:
-    torch.cuda.synchronize()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
 
 
 def timed(fn):
@@ -839,6 +864,340 @@ def check_ranks(ranks, want, rtol=None) -> None:
         assert np.allclose(vals, want[pages], rtol=rtol, atol=0)
 
 
+def pagerank2_oracle(I, J, n: int, itermax: int = 100, tol: float = 1e-5):
+    """The recurrence of ``dpagerank2_csr`` in scipy float64: the ranks
+    of the present pages (normalized) and the iteration count."""
+    import scipy.sparse as ssp
+    A = ssp.csr_matrix((np.ones(len(I)), (I, J)), shape=(n, n))
+    AT = A.T.tocsr()
+    dout = np.asarray(A.sum(axis=1)).ravel()
+    rp = dout > 0
+    rank = np.where(rp, 1.0 / n, 0.0)
+    with np.errstate(divide="ignore"):
+        inv = np.where(rp, 1.0 / dout, 0.0)
+    teleport = 0.15 / n
+    lanes = ssp.csr_matrix((np.ones(AT.nnz), AT.indices, AT.indptr),
+                           shape=(n, n))
+    rdiff, iters = 1.0, 0
+    while iters < itermax and rdiff > tol * tol:
+        y = AT @ np.where(rp, rank * inv, 0.0)
+        tp = (lanes @ rp.astype(np.float64)) > 0
+        only_t = tp & ~rp
+        rank_new = np.where(tp & rp, 0.85 * y + teleport,
+                            np.where(only_t, y, rank))
+        inv = np.where(only_t, 0.0, inv)
+        new_pat = rp | tp
+        d = np.where(rp & new_pat, (rank - rank_new) ** 2,
+                     np.where(new_pat, rank_new, 0.0))
+        rdiff = float(d.sum())
+        rank, rp = rank_new, new_pat
+        iters += 1
+    pages = np.nonzero(rp)[0]
+    return dict(zip(pages.tolist(), (rank[rp] / rank[rp].sum()).tolist())), \
+        iters
+
+
+def ranks_close(got, want: dict, rtol: float, what: str) -> None:
+    """Every (page, rank) of ``got`` within rtol of ``want``'s."""
+    g = dict(got)
+    assert set(g) == set(want), what
+    pages = np.fromiter(want, np.int64)
+    gv = np.array([g[p] for p in pages.tolist()])
+    wv = np.array([want[p] for p in pages.tolist()])
+    assert np.all(np.abs(gv - wv) <= rtol * np.abs(wv)), \
+        (what, float(np.max(np.abs(gv - wv) / np.abs(wv))))
+
+
+def tri_semiring(gt):
+    """The struct SandiaDot semiring over tri = {n: INT64, w: FP64}: n
+    counts wedges (n = 1 on every entry), w carries the values'
+    product; the add is the field-wise plus."""
+    T = gt.Type.udt("tri", n=gt.INT64, w=gt.FP64)
+    add = gt.BinaryOp("TRI_ADD", lambda a, b: {"n": a["n"] + b["n"],
+                                               "w": a["w"] + b["w"]},
+                      T, T, T)
+    mult = gt.BinaryOp("TRI_MUL", lambda a, b: {"n": a["n"] * b["n"],
+                                                "w": a["w"] * b["w"]},
+                       T, T, T)
+    mon = gt.monoid_new(add, {"n": 0, "w": 0.0})
+    return T, gt.semiring_new(mon, mult), mon
+
+
+def struct_csr(gt, X, T, w, dev):
+    """X's pattern as a CsrMatrix of the struct type T with n = 1 and
+    w = ``w`` (host float64, X's entry order)."""
+    hp = X._options["host_pattern"]
+    I, J = hp[0][:X.nvals], hp[1][:X.nvals]
+    return gt.CsrMatrix.from_coo(
+        I, J, {"n": np.ones(len(I), np.int64), "w": w}, X.nrows, X.ncols,
+        type=T, sum_duplicates=False, device=dev)
+
+
+def phase28_udt(gt, L16, U16, A18, A12, dev, tag, ntri16=None):
+    """Phase 28, user-defined types (the counted path ``udt``; the
+    references run before it): dpagerank2_csr on the R-MAT 18 BOOL CSR
+    against a scipy float64 rebuild of the recurrence, dpagerank2 on the
+    bitmap R-MAT 12 against dpagerank2_csr, the struct SandiaDot product
+    on R-MAT 16 (its n field sums to the count, its w field equals
+    ``plus_times[FP64]`` on the same values), and 10,000 struct
+    setElement calls on R-MAT 18 against a numpy rebuild.  Returns the
+    path's launch counts and the ops' (first, warm) seconds."""
+    from graphblas_tpu_torch import _build
+    times = {}
+    # the references, outside the counted window
+    I18, J18, _ = A18.extractTuples()
+    n18 = A18.nrows
+    (want18, it18), ref_s = timed(lambda: pagerank2_oracle(I18, J18, n18))
+    I12, J12, _ = A12.extractTuples()
+    A12b = gt.Matrix.from_coo(I12, J12, np.ones(len(I12), bool), A12.nrows,
+                              A12.ncols, type=gt.BOOL, device=dev)
+    T, sr, mon = tri_semiring(gt)
+    rng = np.random.default_rng(3)
+    wL = rng.random(L16.nvals).astype(np.float32).astype(np.float64) + 0.5
+    wU = rng.random(U16.nvals).astype(np.float32).astype(np.float64) + 0.5
+    Ls, Us = struct_csr(gt, L16, T, wL, dev), struct_csr(gt, U16, T, wU,
+                                                         dev)
+
+    def fp64(X, w):
+        hp = X._options["host_pattern"]
+        return gt.CsrMatrix.from_coo(hp[0][:X.nvals], hp[1][:X.nvals], w,
+                                     X.nrows, X.ncols, type=gt.FP64,
+                                     sum_duplicates=False, device=dev)
+    Lw, Uw = fp64(L16, wL), fp64(U16, wU)
+    n16 = L16.nrows
+    e = np.zeros(0, np.int64)
+    tran1 = gt.Descriptor(tran1=True, mask_structure=True)
+    Cw = gt.mxm(gt.CsrMatrix.from_coo(e, e, np.zeros(0), n16, n16,
+                                      device=dev), Lw, None,
+                gt.semiring.plus_times[gt.FP64], Lw, Uw, tran1)
+    Iw, Jw, Xw = Cw.extractTuples()
+    del Cw, Lw, Uw
+    # the 10,000 struct updates: runs of 1,000, alternately overwrites
+    # and field-wise accums, half on existing entries; integral values,
+    # so the FP64 sums are exact in any order
+    P = gt.Type.udt("ab", a=gt.FP64, b=gt.INT32)
+    pacc = gt.BinaryOp("AB_ACC", lambda x, y: {"a": x["a"] + y["a"],
+                                               "b": x["b"] + y["b"]},
+                       P, P, P)
+    rng28 = np.random.default_rng(28)
+    lin18 = I18 * n18 + J18
+    base = {"a": rng28.integers(1, 100, len(I18)).astype(np.float64),
+            "b": rng28.integers(1, 100, len(I18)).astype(np.int32)}
+    k28 = 10_000
+    keys = np.where(np.arange(k28) % 2 == 0,
+                    lin18[rng28.integers(0, len(lin18), k28)],
+                    rng28.integers(0, n18 * n18, k28))
+    xa = rng28.integers(1, 100, k28).astype(np.float64)
+    xb = rng28.integers(1, 100, k28).astype(np.int32)
+    accum = (np.arange(k28) // 1000) % 2 == 1
+    want_a = replay_pending(lin18, base["a"], keys, xa, accum)
+    want_b = replay_pending(lin18, base["b"], keys, xb, accum)
+    V = gt.CsrMatrix.from_coo(I18, J18, base, n18, n18, type=P,
+                              sum_duplicates=False, device=dev)
+
+    _build.reset_launches()
+    got18, pr_first = timed(lambda: gt.models.dpagerank2_csr(A18))
+    times["dpagerank2_csr R-MAT 18"] = (pr_first, None)
+    (got12, it12), pr12 = timed(lambda: gt.models.dpagerank2(A12b))
+    (got12c, it12c), pr12c = timed(lambda: gt.models.dpagerank2_csr(A12))
+    times["dpagerank2 R-MAT 12 (bitmap)"] = (pr12, None)
+    times["dpagerank2_csr R-MAT 12"] = (pr12c, None)
+
+    def count():
+        C0 = gt.CsrMatrix.from_coo(e, e, {"n": e, "w": np.zeros(0)}, n16,
+                                   n16, type=T, device=dev)
+        return gt.mxm(C0, Ls, None, sr, Ls, Us, tran1)
+    C, c_first = timed(count)
+    engine = gt.last_axb_method()
+    _, c_warm = timed(count)
+    times["struct SandiaDot R-MAT 16"] = (c_first, c_warm)
+    tot, r_s = timed(lambda: gt.reduce_to_scalar(None, mon, C))
+    times["reduce_to_scalar (struct)"] = (r_s, None)
+
+    def updates():
+        X = V
+        for k in range(k28):
+            k_ = int(keys[k])
+            X = X.setElement({"a": float(xa[k]), "b": int(xb[k])},
+                             k_ // n18, k_ % n18,
+                             accum=pacc if accum[k] else None)
+        return X
+    Vp, set_s = timed(updates)
+    Vw, wait_s = timed(Vp.wait)
+    times["10,000 struct setElement"] = (set_s, None)
+    times["wait"] = (wait_s, None)
+    sync()
+    launches = {k_: _build.launches[k_] for k_ in KERNELS}
+    got, it_g = got18
+    assert it_g == it18, (it_g, it18)
+    ranks_close(got, want18, 1e-9, "dpagerank2_csr R-MAT 18 vs scipy")
+    assert it12 == it12c, (it12, it12c)
+    ranks_close(got12, dict(got12c), 1e-10, "dpagerank2 bitmap vs CSR")
+    nt = int(tot["n"])
+    if ntri16 is not None:
+        assert nt == ntri16, (nt, ntri16)
+    It, Jt, Xt = C.extractTuples()
+    assert np.array_equal(It, Iw) and np.array_equal(Jt, Jw), \
+        "struct product pattern != plus_times[FP64]"
+    assert int(Xt["n"].sum()) == nt
+    np.testing.assert_allclose(Xt["w"], Xw, rtol=1e-12)
+    # the struct updates against the numpy rebuild
+    lin_all = np.union1d(lin18, np.fromiter(want_a, np.int64))
+    ea = np.zeros(len(lin_all))
+    eb = np.zeros(len(lin_all), np.int32)
+    pos = np.searchsorted(lin_all, lin18)
+    ea[pos], eb[pos] = base["a"], base["b"]
+    ks = np.fromiter(want_a, np.int64)
+    pos = np.searchsorted(lin_all, ks)
+    ea[pos] = [want_a[k_] for k_ in ks.tolist()]
+    eb[pos] = [want_b[k_] for k_ in ks.tolist()]
+    Iv, Jv, Xv = Vw.extractTuples()
+    assert np.array_equal(Iv * n18 + Jv, lin_all), "struct wait pattern"
+    assert np.array_equal(Xv["a"], ea) and np.array_equal(Xv["b"], eb), \
+        "struct wait values"
+    for name, (first, warm) in times.items():
+        print(f"{tag} phase28 {name}: first {first:.4f} s" +
+              (f", warm {warm:.4f} s" if warm is not None else ""))
+    print(f"{tag} phase28 dpagerank2_csr R-MAT 18: {it_g} iterations == "
+          f"scipy float64 ({ref_s:.3f} s), {len(got)} ranks within rtol "
+          f"1e-9; R-MAT 12 bitmap dpagerank2 == dpagerank2_csr ({it12} "
+          f"iterations, within 1e-10); struct SandiaDot R-MAT {n16.bit_length() - 1} "
+          f"via {engine}: n field {nt}, w field == plus_times[FP64] "
+          f"(rtol 1e-12) on {C.nvals} entries; {k28} struct setElement + "
+          f"wait == numpy rebuild ({Vw.nvals} entries)")
+    return launches, times
+
+
+def phase29_complex(gt, L16, U16, C16, A18, A12, dev, tag, nnzc16=None):
+    """Phase 29, the complex types (the counted path ``complex``; the
+    scipy and numpy references run after it): ``mxv`` plus_times[FC64]
+    on the R-MAT 18 CSR, phase 9's masked product in FC32 on R-MAT 16
+    (pattern == phase 9's FP32 product ``C16``), a bitmap
+    plus_times[FC64] ``mxm`` at R-MAT 12 and a ``max`` row reduce over
+    FC32 on R-MAT 18.  Returns the path's launch counts and the ops'
+    (first, warm) seconds."""
+    import scipy.sparse as ssp
+    from graphblas_tpu_torch import _build
+    times = {}
+
+    def first_warm(name, fn):
+        out, first = timed(fn)
+        _, warm = timed(fn)
+        times[name] = (first, warm)
+        return out
+    rng = np.random.default_rng(29)
+    I18, J18, _ = A18.extractTuples()
+    n18 = A18.nrows
+    v18 = rng.uniform(0.5, 1.5, len(I18)) + 1j * rng.uniform(0.5, 1.5,
+                                                             len(I18))
+    x18 = rng.uniform(0.5, 1.5, n18) + 1j * rng.uniform(0.5, 1.5, n18)
+    Z18 = gt.CsrMatrix.from_coo(I18, J18, v18, n18, n18, type=gt.FC64,
+                                sum_duplicates=False, device=dev)
+    xv = gt.Vector.from_dense(x18, gt.FC64, device=dev)
+    rng3 = np.random.default_rng(3)
+
+    def cvals(X):
+        hp = X._options["host_pattern"]
+        I, J = hp[0][:X.nvals], hp[1][:X.nvals]
+        re = rng3.random(len(I)).astype(np.float32) + 0.5
+        im = rng3.random(len(I)).astype(np.float32) + 0.5
+        v = (re + 1j * im).astype(np.complex64)
+        return I, J, v, gt.CsrMatrix.from_coo(
+            I, J, v, X.nrows, X.ncols, type=gt.FC32, sum_duplicates=False,
+            device=dev)
+    n16 = L16.nrows
+    Lc, Uc, Mc = (cvals(X) for X in (L16, U16, L16))
+    e = np.zeros(0, np.int64)
+    C0 = gt.CsrMatrix.from_coo(e, e, np.zeros(0, np.complex64), n16, n16,
+                               type=gt.FC32, device=dev)
+    I12, J12, _ = A12.extractTuples()
+    n12 = A12.nrows
+    v12 = rng.normal(size=len(I12)) + 1j * rng.normal(size=len(I12))
+    B12 = gt.Matrix.from_coo(I12, J12, v12, n12, n12, type=gt.FC64,
+                             device=dev)
+    re = rng.integers(0, 8, len(I18)) / 4.0
+    im = rng.normal(size=len(I18))
+    m18 = (re + 1j * im).astype(np.complex64)
+    Zm = gt.CsrMatrix.from_coo(I18, J18, m18, n18, n18, type=gt.FC32,
+                               sum_duplicates=False, device=dev)
+
+    _build.reset_launches()
+    w = first_warm("mxv plus_times[FC64] R-MAT 18", lambda: gt.mxv(
+        gt.Vector.new(gt.FC64, n18, device=dev), None, None,
+        gt.semiring.plus_times[gt.FC64], Z18, xv))
+    mxv_engine = gt.last_axb_method()
+    C = first_warm("masked mxm plus_times[FC32] R-MAT 16", lambda: gt.mxm(
+        C0, Mc[3], None, gt.semiring.plus_times[gt.FC32], Lc[3], Uc[3]))
+    mxm_engine = gt.last_axb_method()
+    D = first_warm("bitmap mxm plus_times[FC64] R-MAT 12", lambda: gt.mxm(
+        gt.Matrix.new(gt.FC64, n12, n12, device=dev), None, None,
+        gt.semiring.plus_times[gt.FC64], B12, B12))
+    bm_engine = gt.last_axb_method()
+    r = first_warm("reduce_to_vector max[FC32] R-MAT 18", lambda:
+                   gt.reduce_to_vector(gt.Vector.new(gt.FC32, n18,
+                                                     device=dev),
+                                       None, None, gt.monoid.max[gt.FC32],
+                                       Zm))
+    sync()
+    launches = {k_: _build.launches[k_] for k_ in KERNELS}
+
+    # 1. mxv against scipy complex128, per row within 1e-12 of the row's
+    # magnitude sum |a| |x|
+    S = ssp.csr_matrix((v18, (I18, J18)), shape=(n18, n18))
+    want = S @ x18
+    mag = abs(S) @ np.abs(x18)
+    got = w.to_dense()
+    pat = w.pattern_np()
+    assert np.array_equal(pat, np.diff(S.indptr) > 0), "mxv pattern"
+    assert np.all(np.abs(got - want) <= 1e-12 * mag), "mxv values"
+    # 2. the masked product: phase 9's pattern; values within K 2^-24
+    # sum |a b| of scipy complex128
+    Lh = ssp.csr_matrix((Lc[2].astype(np.complex128), (Lc[0], Lc[1])),
+                        shape=(n16, n16))
+    Uh = ssp.csr_matrix((Uc[2].astype(np.complex128), (Uc[0], Uc[1])),
+                        shape=(n16, n16))
+    It, Jt, Xt = C.extractTuples()
+    Ip, Jp, _ = C16.extractTuples()
+    assert C.nvals == C16.nvals, (C.nvals, C16.nvals)
+    if nnzc16 is not None:
+        assert C.nvals == nnzc16, (C.nvals, nnzc16)
+    assert np.array_equal(It, Ip) and np.array_equal(Jt, Jp), \
+        "FC32 masked product pattern != FP32's"
+    # each output entry's dot product, row i of L against column j of U
+    # (the masked entries only: the unmasked product is far larger)
+    Lr, Ur = Lh[It], Uh.T.tocsr()[Jt]
+    want_v = np.asarray(Lr.multiply(Ur).sum(axis=1)).ravel()
+    mag_v = np.asarray(abs(Lr).multiply(abs(Ur)).sum(axis=1)).ravel()
+    deg = np.diff(Lh.indptr)[It]
+    err = np.abs(Xt.astype(np.complex128) - want_v)
+    assert np.all(err <= 4 * (deg + 2) * 2.0 ** -24 * mag_v), \
+        float(np.max(err / mag_v))
+    # 3. the bitmap complex product against scipy
+    S12 = ssp.csr_matrix((v12, (I12, J12)), shape=(n12, n12))
+    W12 = (S12 @ S12).toarray()
+    M12 = (abs(S12) @ abs(S12)).toarray()
+    assert np.array_equal(D.pattern_np(), M12 > 0), "bitmap pattern"
+    assert np.all(np.abs(D.to_dense() - W12) <= 1e-12 * M12), \
+        "bitmap values"
+    # 4. the lexicographic row max of numpy
+    order = np.lexsort((m18.imag, m18.real, I18))
+    last = np.append(I18[order][1:] != I18[order][:-1], True)
+    want_r = np.zeros(n18, np.complex64)
+    want_r[I18[order][last]] = m18[order][last]
+    got_r = r.to_dense()
+    assert np.array_equal(r.pattern_np(), np.diff(S.indptr) > 0)
+    assert np.array_equal(got_r, want_r), "complex max row reduce"
+    for name, (first, warm) in times.items():
+        print(f"{tag} phase29 {name}: first {first:.4f} s, warm "
+              f"{warm:.4f} s")
+    print(f"{tag} phase29 mxv FC64 R-MAT 18 via {mxv_engine} == scipy "
+          f"(1e-12 of |A||x|); masked FC32 mxm R-MAT 16 via {mxm_engine}: "
+          f"nnzC {C.nvals} == FP32 pattern, within K 2^-24 sum|ab|; "
+          f"bitmap FC64 mxm R-MAT 12 via {bm_engine} == scipy; max[FC32] "
+          f"row reduce == numpy's lexicographic max")
+    return launches, times
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; the port's kernels need one")
@@ -1100,7 +1459,7 @@ def main() -> None:
               f"{flops} flops, {flops / warm:.4g} flops/s warm; {lv_info}; "
               f"== ESC-only ({esc_engine}: first {esc_first:.4f} s, warm "
               f"{esc_warm:.6f} s); peak device memory {peak} B")
-        valued[scale] = (Lv, Uv, Mv, C0, plan)
+        valued[scale] = (Lv, Uv, Mv, C0, plan, C)
     sync()
     launches = {k: _build.launches[k] for k in MXM_PATH}
     print(f"main-path launches: {json.dumps(launches)}")
@@ -1208,7 +1567,7 @@ def main() -> None:
     sync()
 
     # ---- 10. the gather-dot kernels at the main path's shapes ----
-    Lv, Uv, Mv, C0, plan = valued[18]
+    Lv, Uv, Mv, C0, plan, _ = valued[18]
     ncached = sum(v.rows is not None for v in plan.levels)
     assert ncached == len(plan.levels), "the plan did not cache every slab"
     lv = plan.levels[0]
@@ -2616,6 +2975,28 @@ def main() -> None:
         k_: hyper_ops_launches[k_] + hyper_models_launches[k_]
         for k_ in KERNELS}
     print(f"hyper-path launches: {json.dumps(path_launches['hyper'])}")
+
+    # ---- user-defined types and the complex types: 28-29 ----
+    # (no kernel lies on these paths: every gate refuses struct and
+    # complex operands; each path is counted from zero and printed)
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    _, _, _, A12 = rmat_lu(gt, 12)
+    path_launches["udt"], _ = phase28_udt(
+        gt, graphs[16][0], graphs[16][1], graphs[18][3], A12, "cuda", tag,
+        ntri16=RMAT_ANCHORS[16][1])
+    print(f"{tag} phase28 phase {time.perf_counter() - t_phase:.3f} s, "
+          f"peak device memory {torch.cuda.max_memory_allocated()} B")
+    print(f"udt-path launches: {json.dumps(path_launches['udt'])}")
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    path_launches["complex"], _ = phase29_complex(
+        gt, graphs[16][0], graphs[16][1], valued[16][5], graphs[18][3], A12,
+        "cuda", tag, nnzc16=VALUED_NNZC[16])
+    print(f"{tag} phase29 phase {time.perf_counter() - t_phase:.3f} s, "
+          f"peak device memory {torch.cuda.max_memory_allocated()} B")
+    print(f"complex-path launches: {json.dumps(path_launches['complex'])}")
+    del A12
 
     sources = {
         "tri_band_ring": ("graphblas_tpu_torch/csrc/window.cu",

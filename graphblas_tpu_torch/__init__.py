@@ -41,7 +41,11 @@ and imports no JAX.  The slices so far:
 * the hypersparse containers ``HyperMatrix``, ``HyperCscMatrix`` and
   ``SparseVec`` (dimension up to 2^60) with their pair-key engines
   (:mod:`sparse.hyper`, :mod:`sparse.hyper_assign`), as outputs of every
-  operation, and import/export (:mod:`core.io_export`).
+  operation, and import/export (:mod:`core.io_export`);
+* user-defined struct types (``Type.udt``, values as dicts of tensors,
+  :mod:`utils.tree`) over every container and engine, with the UDT
+  PageRank ``dpagerank2``/``dpagerank2_csr``, and the complex types
+  ``FC32``/``FC64``.
 
 The kernels are built with ``nvcc`` on first use, never at import.
 
@@ -68,9 +72,9 @@ from .core.io_export import (export_csc, export_csr, export_hyper_csc,
 from .core.options import (BLOCKING, BY_COL, BY_ROW, NONBLOCKING, Options,
                            get_option, global_options, init, set_option)
 from .core.resolve import UnsupportedOp
-from .core.semirings import semiring
-from .core.types import (BOOL, FP32, FP64, INT8, INT16, INT32, INT64,
-                         UINT8, UINT16, UINT32, UINT64, Type,
+from .core.semirings import semiring, semiring_new
+from .core.types import (BOOL, FC32, FC64, FP32, FP64, INT8, INT16, INT32,
+                         INT64, UINT8, UINT16, UINT32, UINT64, Type,
                          type_of_dtype)
 from .models.generate import wathen_coo
 from .models.rmat import rmat_edges, symmetrize_pattern
@@ -92,7 +96,8 @@ __all__ = [
     "convert", "DimensionMismatch", "DomainMismatch", "GraphBLASError",
     "IndexOutOfBounds", "Info", "InvalidValue",
     "BOOL", "FP32", "FP64", "INT8", "INT16", "INT32", "INT64", "UINT8",
-    "UINT16", "UINT32", "UINT64", "Type", "type_of_dtype",
+    "UINT16", "UINT32", "UINT64", "FC32", "FC64", "Type", "type_of_dtype",
+    "semiring_new",
     "Descriptor", "NULL_DESC", "REPLACE", "SCMP", "TRAN0", "TRAN1", "RT",
     "ST", "RST", "TT", "Matrix", "Vector", "Monoid", "monoid", "MONOIDS",
     "monoid_new", "UnaryOp", "BinaryOp", "SelectOp", "unary", "binary",

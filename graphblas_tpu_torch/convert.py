@@ -15,6 +15,13 @@ across as host tuples (their accum ops as the port's builtin op of the
 same name and types), to be folded by the port's ``wait``; a
 hypersparse container also carries its options (``hyper_ratio``,
 ``format``).
+
+Complex containers (FC32, FC64) come across as any builtin type does.
+A user-defined type comes across as the port's ``Type.udt`` of the same
+name and fields (recursively), and its dict values leaf by leaf, on
+every container, pending tuples included.  A JAX user-defined op is not
+carried (its body is JAX code): a pending tuple whose accum is one
+raises ``TypeError``; build the port's op and re-run.
 """
 
 from __future__ import annotations
@@ -25,7 +32,8 @@ import torch
 from .core.matrix import Matrix, Vector, as_pending
 from .core.ops import binary
 from .core.semirings import Semiring, semiring
-from .core.types import type_by_name
+from .core.types import Type, type_by_name
+from .utils.tree import tree_map
 from .sparse.bsr import TilePattern
 from .sparse.container import CscMatrix, CsrMatrix, resolve_device
 from .sparse.cuda_spmv import BsrSpmvPlan
@@ -35,6 +43,7 @@ from .sparse.vector import SparseVec
 from .sparse.window import BandPlan, WindowPlan
 
 __all__ = ["csr_from_arrays", "hyper_from_arrays", "matrix_from_arrays",
+           "type_from_jax",
            "vector_from_arrays",
            "band_plan_from_arrays", "window_plan_from_arrays",
            "bsr_spmv_plan_from_arrays", "tile_pattern_from_arrays",
@@ -45,16 +54,38 @@ def _dev(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, order="C")).to(device)
 
 
+def type_from_jax(t) -> Type:
+    """The port's Type of a JAX package Type: the builtin or complex
+    type of its name, or a user-defined type of the same name and
+    fields."""
+    if getattr(t, "fields", None) is not None:
+        return Type.udt(t.name, **{k: type_from_jax(ft)
+                                   for k, ft in t.fields})
+    return type_by_name(t.name)
+
+
+def _type(t) -> Type:
+    return t if isinstance(t, Type) else type_by_name(t)
+
+
+def _values(values, t: Type, device):
+    """Host values (a dict per field for a user-defined type) as tensors
+    in ``t``'s storage on ``device``."""
+    if t.is_udt:
+        return {k: _values(values[k], ft, device) for k, ft in t.fields}
+    return _dev(t.to_storage(np.asarray(values)), device)
+
+
 def csr_from_arrays(indptr, indices, rowids, values, nvals: int,
                     nrows: int, ncols: int, type_name: str,
                     host_pattern=None, device=None) -> CsrMatrix:
     """CsrMatrix from the padded arrays of the same layout."""
     device = resolve_device(device)
-    t = type_by_name(type_name)
+    t = _type(type_name)
     A = CsrMatrix(_dev(np.asarray(indptr, np.int32), device),
                   _dev(np.asarray(indices, np.int32), device),
                   _dev(np.asarray(rowids, np.int32), device),
-                  _dev(t.to_storage(values), device),
+                  _values(values, t, device),
                   nvals, nrows, ncols, t)
     if host_pattern is not None:
         A._options["host_pattern"] = (np.asarray(host_pattern[0]),
@@ -67,12 +98,12 @@ def hyper_from_arrays(h, hptr, rowids, indices, values, nvals: int,
                       device=None) -> HyperMatrix:
     """HyperMatrix from the padded arrays of the same layout."""
     device = resolve_device(device)
-    t = type_by_name(type_name)
+    t = _type(type_name)
     return HyperMatrix(_dev(np.asarray(h, np.int64), device),
                        _dev(np.asarray(hptr, np.int32), device),
                        _dev(np.asarray(rowids, np.int64), device),
                        _dev(np.asarray(indices, np.int64), device),
-                       _dev(t.to_storage(values), device),
+                       _values(values, t, device),
                        nvals, nvec, nrows, ncols, t)
 
 
@@ -80,8 +111,8 @@ def matrix_from_arrays(values, pattern, type_name: str,
                        device=None) -> Matrix:
     """Bitmap Matrix from its values and pattern."""
     device = resolve_device(device)
-    t = type_by_name(type_name)
-    return Matrix(_dev(t.to_storage(values), device),
+    t = _type(type_name)
+    return Matrix(_values(values, t, device),
                   _dev(np.asarray(pattern, bool), device), t)
 
 
@@ -89,8 +120,8 @@ def vector_from_arrays(values, pattern, type_name: str,
                        device=None) -> Vector:
     """Bitmap Vector from its values and pattern."""
     device = resolve_device(device)
-    t = type_by_name(type_name)
-    return Vector(_dev(t.to_storage(values), device),
+    t = _type(type_name)
+    return Vector(_values(values, t, device),
                   _dev(np.asarray(pattern, bool), device), t)
 
 
@@ -151,6 +182,10 @@ def _accum_of(op):
     types (or None)."""
     if op is None:
         return None
+    if any(getattr(t, "fields", None) is not None
+           for t in (op.xtype, op.ytype, op.ztype)):
+        raise TypeError(f"the JAX user-defined op {op.name} is not carried "
+                        f"(its body is JAX code); build the port's op")
     out = binary[op.name.lower()][type_by_name(op.xtype.name)]
     if (out.ytype.name, out.ztype.name) != (op.ytype.name, op.ztype.name):
         raise TypeError(f"no builtin binary op {op.name} of types "
@@ -160,8 +195,9 @@ def _accum_of(op):
 
 
 def _host_scalar(x):
-    """A JAX-side scalar (Python, numpy or a device array) on the host."""
-    return np.asarray(x)[()]
+    """A JAX-side scalar (Python, numpy or a device array; a dict of
+    them for a user-defined type) on the host."""
+    return tree_map(lambda v: np.asarray(v)[()], x)
 
 
 def _pending_from_jax(pending):
@@ -175,6 +211,12 @@ def _pending_from_jax(pending):
             idx = [int(i) for i in idx]
         out.append((*idx, _host_scalar(x), _accum_of(op)))
     return as_pending(out)
+
+
+def _host_values(values):
+    """A JAX container's values (a dict of arrays for a user-defined
+    type) as host arrays."""
+    return tree_map(np.asarray, values)
 
 
 def from_jax(obj, device=None):
@@ -197,8 +239,8 @@ def from_jax(obj, device=None):
         hp = obj._options.get("host_pattern")
         A = csr_from_arrays(
             np.asarray(obj.indptr), np.asarray(obj.indices),
-            np.asarray(obj.rowids), np.asarray(obj.values), obj.nvals,
-            obj.nrows, obj.ncols, obj.type.name, hp, device)
+            np.asarray(obj.rowids), _host_values(obj.values), obj.nvals,
+            obj.nrows, obj.ncols, type_from_jax(obj.type), hp, device)
         A._pending = _pending_from_jax(obj._pending)
         return A
     if kind == "CscMatrix":
@@ -206,8 +248,8 @@ def from_jax(obj, device=None):
     if kind == "HyperMatrix":
         A = hyper_from_arrays(
             np.asarray(obj.h), np.asarray(obj.hptr), np.asarray(obj.rowids),
-            np.asarray(obj.indices), np.asarray(obj.values), obj.nvals,
-            obj.nvec, obj.nrows, obj.ncols, obj.type.name, device)
+            np.asarray(obj.indices), _host_values(obj.values), obj.nvals,
+            obj.nvec, obj.nrows, obj.ncols, type_from_jax(obj.type), device)
         A._pending = _pending_from_jax(obj._pending)
         A._options.update(obj._options)
         return A
@@ -217,8 +259,8 @@ def from_jax(obj, device=None):
         return SparseVec(from_jax(obj.hm, device))
     if kind in ("Matrix", "Vector"):
         make = matrix_from_arrays if kind == "Matrix" else vector_from_arrays
-        X = make(np.asarray(obj.values), np.asarray(obj.pattern),
-                 obj.type.name, device)
+        X = make(_host_values(obj.values), np.asarray(obj.pattern),
+                 type_from_jax(obj.type), device)
         X._pending = _pending_from_jax(obj._pending)
         return X
     if kind == "BandPlan":

@@ -7,7 +7,9 @@ few elementwise selects over ``values`` and ``pattern``.  It serves the
 bitmap ``Matrix`` outputs of ``mxm`` and the ``Vector`` outputs of
 ``mxv``/``vxm`` alike (the mask's shape must be the output's; the
 result is a new container of the output's class and type); the CSR
-epilogue is :mod:`graphblas_tpu_torch.sparse.mask`.
+epilogue is :mod:`graphblas_tpu_torch.sparse.mask`.  Struct values of
+a user-defined type take every select leaf by leaf; a mask with struct
+values is not valid unless it is structural.
 """
 
 from __future__ import annotations
@@ -19,16 +21,16 @@ import torch
 from .descriptor import Descriptor, desc_of
 from .errors import DimensionMismatch
 from .ops import BinaryOp
-from .types import BOOL, cast
+from .types import BOOL, cast, tree_where, zeros_like_typed
 
 __all__ = ["accum_values", "effective_mask", "apply_mask", "accum_mask"]
 
 
-def _like(C, values: torch.Tensor, pattern: torch.Tensor):
+def _like(C, values, pattern: torch.Tensor):
     """A container of C's class and type holding ``values`` where
     ``pattern`` is set and 0 elsewhere (the canonical invariant)."""
-    zero = torch.zeros((), dtype=values.dtype, device=values.device)
-    return type(C)(torch.where(pattern, values, zero), pattern, C.type)
+    zero = zeros_like_typed((), C.type, pattern.device)
+    return type(C)(tree_where(pattern, values, zero), pattern, C.type)
 
 
 def accum_values(C, T, accum: Optional[BinaryOp]):
@@ -45,8 +47,7 @@ def accum_values(C, T, accum: Optional[BinaryOp]):
     tvals = cast(T.values, accum.ytype, T.type)
     z_both = cast(accum(cvals, tvals), ct, accum.ztype)
     t_in_c = cast(T.values, ct, T.type)
-    zvals = torch.where(both, z_both,
-                        torch.where(C.pattern, C.values, t_in_c))
+    zvals = tree_where(both, z_both, tree_where(C.pattern, C.values, t_in_c))
     return zvals, C.pattern | T.pattern
 
 
@@ -55,6 +56,9 @@ def effective_mask(M, scmp: bool, structural: bool):
     restricted to the mask's pattern; explicit zeros count as false)."""
     if M is None:
         return None
+    if not structural and M.type.is_udt:
+        raise TypeError("a mask with user-defined values is not valid; "
+                        "use a structural mask")
     mk = M.pattern if structural else M.pattern & cast(M.values, BOOL,
                                                        M.type)
     return ~mk if scmp else mk
@@ -72,10 +76,11 @@ def apply_mask(C, M, zvals, zpat, desc: Descriptor):
         return _like(C, zvals, zpat)
     mk = effective_mask(M, desc.mask_scmp, desc.mask_structure)
     if desc.replace:
-        cvals, cpat = torch.zeros_like(C.values), torch.zeros_like(C.pattern)
+        cvals = zeros_like_typed(C.shape, C.type, C.device)
+        cpat = torch.zeros_like(C.pattern)
     else:
         cvals, cpat = C.values, C.pattern
-    return _like(C, torch.where(mk, zvals, cvals),
+    return _like(C, tree_where(mk, zvals, cvals),
                  torch.where(mk, zpat, cpat))
 
 

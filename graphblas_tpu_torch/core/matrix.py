@@ -14,8 +14,15 @@ accum op lands in one scatter to distinct positions (scattering to a
 repeated index is undefined on CUDA), as the JAX package's
 ``Matrix.wait``.  Every read of a container (``nvals``, the element and
 tuple accessors, ``to_dense``, the operations) folds first.
-User-defined types come with a later slice: a type that is not a
-builtin ``Type`` raises.
+
+Over a user-defined type ``values`` is a dict of tensors, one per field
+(nested dicts for nested structs), each of the container's shape in its
+field type's storage (:mod:`graphblas_tpu_torch.core.types`).  Such a
+container is made by ``new`` or by ``from_dense`` of a dict of arrays;
+``from_coo`` raises ``TypeError`` for it, as the JAX package's does,
+and its pending tuples fold one by one (the JAX package's per-tuple
+path).  The element and tuple accessors and ``to_dense`` return dicts
+of host arrays or numpy scalars.
 
 Like the sparse containers, a container lives on the CUDA card unless
 the caller passes ``device`` (a constructor without it raises when no
@@ -29,10 +36,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.tree import tree_map
 from .errors import DimensionMismatch, IndexOutOfBounds
 from .ops import BinaryOp, binary
-from .types import (Type, cast, cast_result, cast_value, type_of_dtype,
-                    type_of_storage)
+from .types import (Type, cast, cast_result, cast_value, full_typed,
+                    tree_where, type_of_dtype, type_of_storage,
+                    value_shape, zeros_like_typed)
 
 __all__ = ["Matrix", "Vector"]
 
@@ -162,22 +171,34 @@ def _resolve(device) -> torch.device:
     return resolve_device(device)
 
 
-def _builtin(t) -> Optional[Type]:
-    """``t`` itself when it is None or a builtin Type; raise otherwise."""
+def _typed(t) -> Optional[Type]:
+    """``t`` itself when it is None or a Type; raise otherwise."""
     if t is not None and not isinstance(t, Type):
-        raise NotImplementedError(
-            f"user-defined types come with a later slice of the port "
-            f"(got {t!r}); use a builtin Type")
+        raise TypeError(f"expected a GraphBLAS Type, got {t!r}")
     return t
 
 
-def _dense_parts(arr, type: Optional[Type], pattern, device):
-    """(values in ``type``'s storage, bool pattern, type) of a numpy
-    array or tensor, every entry present unless ``pattern`` says."""
-    _builtin(type)
-    if isinstance(arr, dict):
-        raise NotImplementedError("user-defined (struct) values come with "
-                                  "a later slice of the port")
+def host_values(x, t: Type):
+    """Device values of type ``t`` as host arrays of the type's own
+    dtype (unsigned read as unsigned; a dict per field for a struct)."""
+    if t.is_udt:
+        return {k: host_values(x[k], ft) for k, ft in t.fields}
+    a = x.cpu().numpy()
+    return a.view(t.dtype) if t.is_unsigned else a
+
+
+def device_values(X, t: Type, device):
+    """Host values of type ``t`` (a dict per field for a struct) as
+    tensors in ``t``'s storage on ``device``: the inverse of
+    :func:`host_values`."""
+    if t.is_udt:
+        return {k: device_values(X[k], ft, device) for k, ft in t.fields}
+    a = np.asarray(X).astype(t.dtype, copy=False)
+    return torch.from_numpy(np.array(t.to_storage(a))).to(device)
+
+
+def _leaf_to(arr, t: Optional[Type], device):
+    """(tensor in ``t``'s storage on the device, device) of one array."""
     if isinstance(arr, torch.Tensor):
         src = type_of_storage(arr.dtype)
         dev = arr.device if device is None else torch.device(device)
@@ -187,16 +208,47 @@ def _dense_parts(arr, type: Optional[Type], pattern, device):
         src = type_of_dtype(a.dtype)
         dev = _resolve(device)
         x = torch.from_numpy(np.array(src.to_storage(a))).to(dev)
-    t = type or src
-    x = cast(x, t, src)
+    t = t or src
+    return cast(x, t, src), dev, t
+
+
+def _udt_leaves(arr, t: Type, device):
+    """A dict of per-field arrays as tensors in the fields' storage."""
+    if not isinstance(arr, dict):
+        raise TypeError(f"values of the user-defined type {t.name} must be "
+                        f"a dict of field arrays")
+    out, dev = {}, None
+    for k, ft in t.fields:
+        if ft.is_udt:
+            out[k], dev = _udt_leaves(arr[k], ft, device)
+        else:
+            out[k], dev, _ = _leaf_to(arr[k], ft, device)
+    return out, dev
+
+
+def _dense_parts(arr, type: Optional[Type], pattern, device):
+    """(values in ``type``'s storage, bool pattern, type) of a numpy
+    array or tensor (a dict of field arrays for a user-defined type),
+    every entry present unless ``pattern`` says."""
+    _typed(type)
+    if type is not None and type.is_udt:
+        x, dev = _udt_leaves(arr, type, device)
+        t = type
+        shape = value_shape(x)
+    else:
+        if isinstance(arr, dict):
+            raise TypeError("struct values need their user-defined type")
+        x, dev, t = _leaf_to(arr, type, device)
+        shape = tuple(x.shape)
     if pattern is None:
-        pat = torch.ones(x.shape, dtype=torch.bool, device=dev)
+        pat = torch.ones(shape, dtype=torch.bool, device=dev)
     else:
         pat = torch.as_tensor(pattern).to(dev, torch.bool)
-    if tuple(pat.shape) != tuple(x.shape):
+    if tuple(pat.shape) != tuple(shape):
         raise DimensionMismatch(f"pattern shape {tuple(pat.shape)} != "
-                                f"values shape {tuple(x.shape)}")
+                                f"values shape {tuple(shape)}")
     return x, pat, t
+
 
 
 def _assemble(key: np.ndarray, X, size: int, type: Optional[Type],
@@ -204,8 +256,13 @@ def _assemble(key: np.ndarray, X, size: int, type: Optional[Type],
     """Host (values, pattern, type) of ``size`` flat slots from tuples
     at the linear positions ``key``: duplicates fold in input order with
     ``dup`` (default PLUS), as the reference's ``GB_builder``."""
+    if type is not None and _typed(type).is_udt:
+        raise TypeError(
+            "from_coo does not assemble struct (user-defined) tuples; "
+            "build with new(type, ...) + setElement + wait, or from_dense "
+            "with a dict of field arrays")
     X = np.asarray(X)
-    t = _builtin(type) or type_of_dtype(X.dtype)
+    t = type or type_of_dtype(X.dtype)
     dup = dup or binary.plus[t]
     vals = np.zeros(size, dtype=t.dtype)
     pat = np.zeros(size, dtype=bool)
@@ -235,7 +292,7 @@ class _Bitmap:
     def _init(self, values, pattern, type, pending):
         self.values = values
         self.pattern = pattern
-        self.type = _builtin(type)
+        self.type = _typed(type)
         # the non-blocking delta list: (index tuple, scalar, accum op)
         self._pending = as_pending(pending)
 
@@ -267,6 +324,8 @@ class _Bitmap:
         t = self.type
         shape = self.shape
         dev = self.device
+        if t.is_udt:
+            return self._wait_udt()
         vals = self.values.flatten().clone()
         pat = self.pattern.flatten().clone()
         for accum, tuples in pending_runs(self._pending):
@@ -290,6 +349,26 @@ class _Bitmap:
         return self._replace(vals.reshape(shape), pat.reshape(shape),
                              Pending()).canonical()
 
+    def _wait_udt(self):
+        """The per-tuple fold of a user-defined type's pending tuples
+        (the JAX package's UDT path): each tuple lands in turn, taking
+        accum(old, new) where the entry is present."""
+        t = self.type
+        vals = tree_map(lambda v: v.clone(), self.values)
+        pat = self.pattern.clone()
+        dev = self.device
+        for idx, scalar, accum in self._pending:
+            s = full_typed((), cast_value(scalar, t), t, dev)
+            if accum is not None:
+                old = tree_map(lambda v: v[idx], vals)
+                s = tree_where(pat[idx], cast_result(accum(old, s), t), s)
+
+            def put(v, x):
+                v[idx] = x.to(v.dtype)
+            tree_map(put, vals, s)
+            pat[idx] = True
+        return self._replace(vals, pat, Pending()).canonical()
+
     def setElement(self, value, *index, accum: Optional[BinaryOp] = None,
                    blocking: Optional[bool] = None):
         """Functional setElement: the tuple joins the pending list
@@ -307,16 +386,17 @@ class _Bitmap:
 
     def canonical(self):
         """Zero the values at absent positions (the storage invariant)."""
-        zero = torch.zeros((), dtype=self.values.dtype, device=self.device)
-        return self._replace(values=torch.where(self.pattern, self.values,
-                                                zero))
+        zero = zeros_like_typed((), self.type, self.device)
+        return self._replace(values=tree_where(self.pattern, self.values,
+                                               zero))
 
     def dup(self):
         return self._replace()
 
     def clear(self):
         """Every entry removed; shape and type kept (``GrB_*_clear``)."""
-        return type(self)(torch.zeros_like(self.values),
+        return type(self)(zeros_like_typed(self.shape, self.type,
+                                           self.device),
                           torch.zeros_like(self.pattern), self.type)
 
     def _index(self, index) -> tuple:
@@ -336,7 +416,8 @@ class _Bitmap:
         m = self.wait()
         if not bool(m.pattern[idx]):
             return None
-        return m._host(m.values[idx].reshape(1))[0]
+        return tree_map(lambda a: a[0], m._host(
+            tree_map(lambda v: v[idx].reshape(1), m.values)))
 
     def removeElement(self, *index):
         idx = self._index(index)
@@ -346,17 +427,18 @@ class _Bitmap:
         return m._replace(pattern=pat).canonical()
 
     # -- conversion ---------------------------------------------------------
-    def _host(self, x: torch.Tensor) -> np.ndarray:
-        a = x.cpu().numpy()
-        return a.view(self.type.dtype) if self.type.is_unsigned else a
+    def _host(self, x):
+        return host_values(x, self.type)
 
-    def to_dense(self, fill=None) -> np.ndarray:
-        """Host values; absent entries hold 0, or ``fill``."""
+    def to_dense(self, fill=None):
+        """Host values; absent entries hold 0, or ``fill`` (in every
+        field of a struct, each in its field's dtype)."""
         m = self.wait()
         out = m._host(m.values)
         if fill is not None:
-            out = np.where(m.pattern_np(), out,
-                           np.asarray(fill, m.type.dtype))
+            pat = m.pattern_np()
+            out = tree_map(lambda a: np.where(pat, a, np.asarray(
+                fill).astype(a.dtype)), out)
         return out
 
     def pattern_np(self) -> np.ndarray:
@@ -369,21 +451,21 @@ class Matrix(_Bitmap):
 
     __slots__ = ()
 
-    def __init__(self, values: torch.Tensor, pattern: torch.Tensor,
+    def __init__(self, values, pattern: torch.Tensor,
                  type: Type, pending=None):
-        if values.dim() != 2 or values.shape != pattern.shape:
+        shape = value_shape(values)
+        if len(shape) != 2 or shape != tuple(pattern.shape):
             raise ValueError(f"a Matrix needs 2-D values and pattern of "
-                             f"one shape, got {tuple(values.shape)} and "
+                             f"one shape, got {shape} and "
                              f"{tuple(pattern.shape)}")
         self._init(values, pattern, type, pending)
 
     # -- constructors -------------------------------------------------------
     @staticmethod
     def new(type: Type, nrows: int, ncols: int, device=None) -> "Matrix":
-        _builtin(type)
+        _typed(type)
         dev = _resolve(device)
-        return Matrix(torch.zeros((nrows, ncols), dtype=type.storage,
-                                  device=dev),
+        return Matrix(zeros_like_typed((nrows, ncols), type, dev),
                       torch.zeros((nrows, ncols), dtype=torch.bool,
                                   device=dev), type)
 
@@ -432,20 +514,22 @@ class Matrix(_Bitmap):
     def resize(self, nrows: int, ncols: int) -> "Matrix":
         """``GxB_Matrix_resize``: grow with empties, shrink pruning."""
         m = self.wait()
-        vals = torch.zeros((nrows, ncols), dtype=m.values.dtype,
-                           device=m.device)
+        vals = zeros_like_typed((nrows, ncols), m.type, m.device)
         pat = torch.zeros((nrows, ncols), dtype=torch.bool,
                           device=m.device)
         r, c = min(nrows, m.nrows), min(ncols, m.ncols)
-        vals[:r, :c] = m.values[:r, :c]
+
+        def put(v, x):
+            v[:r, :c] = x[:r, :c]
+        tree_map(put, vals, m.values)
         pat[:r, :c] = m.pattern[:r, :c]
         return Matrix(vals, pat, m.type)
 
     def T(self) -> "Matrix":
         """Structural transpose (no mask or accum)."""
         m = self.wait()
-        return Matrix(m.values.T.contiguous(), m.pattern.T.contiguous(),
-                      m.type)
+        return Matrix(tree_map(lambda v: v.T.contiguous(), m.values),
+                      m.pattern.T.contiguous(), m.type)
 
     # -- tuples and iteration -------------------------------------------------
     def extractTuples(self):
@@ -455,7 +539,7 @@ class Matrix(_Bitmap):
         I, J = torch.nonzero(m.pattern, as_tuple=True)
         return (I.cpu().numpy().astype(np.int64),
                 J.cpu().numpy().astype(np.int64),
-                m._host(m.values[I, J]))
+                m._host(tree_map(lambda v: v[I, J], m.values)))
 
     def rows(self):
         """Iterate (i, cols, vals) over the nonempty rows (the
@@ -483,20 +567,21 @@ class Vector(_Bitmap):
 
     __slots__ = ()
 
-    def __init__(self, values: torch.Tensor, pattern: torch.Tensor,
+    def __init__(self, values, pattern: torch.Tensor,
                  type: Type, pending=None):
-        if values.dim() != 1 or values.shape != pattern.shape:
+        shape = value_shape(values)
+        if len(shape) != 1 or shape != tuple(pattern.shape):
             raise ValueError(f"a Vector needs 1-D values and pattern of "
-                             f"one shape, got {tuple(values.shape)} and "
+                             f"one shape, got {shape} and "
                              f"{tuple(pattern.shape)}")
         self._init(values, pattern, type, pending)
 
     # -- constructors -------------------------------------------------------
     @staticmethod
     def new(type: Type, n: int, device=None) -> "Vector":
-        _builtin(type)
+        _typed(type)
         dev = _resolve(device)
-        return Vector(torch.zeros(n, dtype=type.storage, device=dev),
+        return Vector(zeros_like_typed(n, type, dev),
                       torch.zeros(n, dtype=torch.bool, device=dev), type)
 
     @staticmethod
@@ -536,15 +621,18 @@ class Vector(_Bitmap):
         v = self.wait()
         (I,) = torch.nonzero(v.pattern, as_tuple=True)
         return (I.cpu().numpy().astype(np.int64),
-                v._host(v.values[I]))
+                v._host(tree_map(lambda x: x[I], v.values)))
 
     def resize(self, n: int) -> "Vector":
         """``GxB_Vector_resize``: grow with empties, shrink pruning."""
         v = self.wait()
-        vals = torch.zeros(n, dtype=v.values.dtype, device=v.device)
+        vals = zeros_like_typed(n, v.type, v.device)
         pat = torch.zeros(n, dtype=torch.bool, device=v.device)
         k = min(n, v.size)
-        vals[:k] = v.values[:k]
+
+        def put(a, x):
+            a[:k] = x[:k]
+        tree_map(put, vals, v.values)
         pat[:k] = v.pattern[:k]
         return Vector(vals, pat, v.type)
 

@@ -6,8 +6,16 @@ predefined monoids in ``Include/GraphBLAS.h:5100-5162``.
 
 An identity or terminal is a host scalar of the GraphBLAS type (a numpy
 scalar, so UINT identities keep their unsigned value, equal to the JAX
-package's); :meth:`Monoid.identity_array` puts it in storage form on a
-device.
+package's; a dict of the fields' identities for a user-defined type);
+:meth:`Monoid.identity_array` puts it in storage form on a device.
+
+A user-defined monoid folds by its op: :meth:`Monoid.reduce` runs the
+log-depth pairwise fold over the struct's leaves, as the JAX package's
+``_pairwise_reduce`` does over its pytrees.  Complex monoids: PLUS is
+``torch.sum``, TIMES folds by the op, and MIN/MAX take the
+lexicographic extreme from the identity with NaN terms dropped (the
+identities are ``+inf+0j`` and ``-inf+0j``; the segment reduce folds
+through the same :func:`ops.cx_extreme`).
 """
 
 from __future__ import annotations
@@ -18,8 +26,10 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from .ops import BinaryOp, binary
-from .types import BOOL, BUILTIN_TYPES, Type, from_ordered, ordered
+from ..utils.tree import tree_leaves, tree_map
+from .ops import BinaryOp, binary, cx_extreme
+from .types import (BOOL, BUILTIN_TYPES, Type, from_ordered, full_typed,
+                    ordered, tree_where)
 
 __all__ = ["Monoid", "monoid", "monoid_new", "MONOIDS"]
 
@@ -42,12 +52,12 @@ class Monoid:
         return self.op(x, y)
 
     def identity_value(self):
-        """The identity as a Python number of the storage dtype."""
-        return self.type.storage_scalar(self.identity)
+        """The identity as a Python number of the storage dtype (a dict
+        of them for a user-defined type)."""
+        return storage_value(self.identity, self.type)
 
-    def identity_array(self, shape=(), device="cpu") -> torch.Tensor:
-        return torch.full(shape, self.identity_value(),
-                          dtype=self.type.storage, device=device)
+    def identity_array(self, shape=(), device="cpu"):
+        return full_typed(shape, self.identity, self.type, device)
 
     def reduce(self, x: torch.Tensor, axis=None, where=None):
         """Reduce a tensor with this monoid along ``axis`` (all axes when
@@ -60,14 +70,19 @@ class Monoid:
         the values over non-bool types)."""
         nm = self.op.name
         t = self.type
+        dev = tree_leaves(x)[0].device
         if where is not None:
-            x = torch.where(where, x, self.identity_array((), x.device))
+            x = tree_where(where, x, self.identity_array((), dev))
         if axis is None:
-            x = x.reshape(-1)
+            x = tree_map(lambda v: v.reshape(-1), x)
             axis = 0
+        if t.is_udt:
+            return _pairwise_reduce(self.op, x, axis, self.identity, t)
+        if t.is_complex and nm in ("MIN", "MAX"):
+            return _cx_minmax(x, axis, nm, self.identity_array((), dev))
         if nm == "PLUS" and not t.is_bool:
             return torch.sum(x, dim=axis, dtype=x.dtype)
-        if nm == "TIMES" and not t.is_bool:
+        if nm == "TIMES" and not t.is_bool and not t.is_complex:
             return torch.prod(x, dim=axis, dtype=x.dtype)
         if nm == "MIN" or (nm in ("LAND", "TIMES") and t.is_bool):
             return _minmax(x, axis, t, "min")
@@ -87,7 +102,7 @@ class Monoid:
         if nm == "EQ":
             # EQ monoid = XNOR: identity true
             return (~(x != 0)).to(torch.int32).sum(dim=axis) % 2 == 0
-        return _pairwise_reduce(self.op, x, axis, self.identity_value())
+        return _pairwise_reduce(self.op, x, axis, self.identity, t)
 
     def __repr__(self):  # pragma: no cover
         return f"Monoid({self.name})"
@@ -110,21 +125,41 @@ def _minmax(x: torch.Tensor, axis: int, t: Type, which: str):
     return from_ordered(r, t)
 
 
-def _pairwise_reduce(op: BinaryOp, x: torch.Tensor, axis: int, identity):
-    """Log-depth associative fold along ``axis``."""
-    x = torch.movedim(x, axis, 0)
-    n = x.shape[0]
+def storage_value(value, t: Type):
+    """A host scalar of ``t`` in storage form (a dict for a struct)."""
+    if t.is_udt:
+        return {k: storage_value(value[k], ft) for k, ft in t.fields}
+    return t.storage_scalar(value)
+
+
+def _cx_minmax(x: torch.Tensor, axis: int, nm: str, ident: torch.Tensor):
+    """Lexicographic MIN/MAX of complex values along ``axis``, from the
+    identity with NaN terms dropped (:func:`ops.cx_extreme`)."""
+    if x.shape[axis] == 0:
+        return ident.expand(x.shape[:axis] + x.shape[axis + 1:]).clone()
+    return cx_extreme(x, nm, ident,
+                      lambda v, how: getattr(torch, how)(v, dim=axis),
+                      lambda r: r.unsqueeze(axis))
+
+
+def _pairwise_reduce(op: BinaryOp, x, axis: int, identity, t: Type):
+    """Log-depth associative fold along ``axis`` (over every leaf of a
+    struct value alike); an empty axis gives the identity."""
+    x = tree_map(lambda v: torch.movedim(v, axis, 0), x)
+    n = tree_leaves(x)[0].shape[0]
     while n > 1:
         half = n // 2
-        merged = op(x[:half], x[half:2 * half])
+        merged = op(tree_map(lambda v: v[:half], x),
+                    tree_map(lambda v: v[half:2 * half], x))
         if n % 2:
-            merged = torch.cat([merged, x[2 * half:2 * half + 1]], dim=0)
+            merged = tree_map(lambda mm, v: torch.cat(
+                [mm, v[2 * half:2 * half + 1]], dim=0), merged, x)
         x = merged
-        n = x.shape[0]
+        n = tree_leaves(x)[0].shape[0]
     if n == 0:
-        return torch.full(x.shape[1:], identity, dtype=x.dtype,
-                          device=x.device)
-    return x[0]
+        lead = tree_leaves(x)[0]
+        return full_typed(lead.shape[1:], identity, t, lead.device)
+    return tree_map(lambda v: v[0], x)
 
 
 class _MonoidFamily:

@@ -26,7 +26,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from .types import (BOOL, BUILTIN_TYPES, Type, cast, from_ordered, ordered,
+from .types import (BOOL, BUILTIN_TYPES, FC32, FC64, Type, cast, ordered,
                     type_by_name)
 
 __all__ = ["UnaryOp", "BinaryOp", "SelectOp", "unary", "binary", "select",
@@ -83,6 +83,72 @@ def _t(x, t: Type) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x if x.dtype == t.storage else x.to(t.storage)
     return torch.as_tensor(t.storage_scalar(x), dtype=t.storage)
+
+
+# ---------------------------------------------------------------------------
+# complex PLUS/MINUS, and the complex order (torch has no <, >, minimum or
+# maximum on complex tensors)
+# ---------------------------------------------------------------------------
+
+def _cx_parts_op(t: Type, fn):
+    """PLUS (MINUS) of complex values, part by part on the real view.
+    torch's complex ``add``/``sub`` scale the second operand by a complex
+    ``alpha``, so ``0 + infj`` gives ``nan+infj`` where the JAX package
+    gives ``infj`` (``test_torch_complex.py::test_binary_family_exact``,
+    the plus, minus and rminus cases)."""
+    def op(x, y):
+        x, y = _t(x, t), _t(y, t)
+        return torch.view_as_complex(fn(torch.view_as_real(x),
+                                        torch.view_as_real(y)))
+    return op
+
+
+def _cx_isnan(x: torch.Tensor) -> torch.Tensor:
+    return torch.isnan(x.real) | torch.isnan(x.imag)
+
+
+def cx_less(x: torch.Tensor, y: torch.Tensor,
+            or_equal: bool = False) -> torch.Tensor:
+    """Lexicographic x < y (x <= y) of complex tensors: the real parts,
+    then the imaginary parts; false wherever a NaN meets the test."""
+    a, b, c, d = x.real, x.imag, y.real, y.imag
+    tail = (b <= d) if or_equal else (b < d)
+    return (a < c) | ((a == c) & tail)
+
+
+def cx_extreme(x: torch.Tensor, name: str, ident: torch.Tensor, red,
+               spread) -> torch.Tensor:
+    """The complex MIN (MAX) monoid's fold, lexicographic and from the
+    identity, a NaN term dropping out: the extreme real part, then the
+    extreme imaginary part among the terms (the identity included) that
+    hold it.  ``red(v, how)`` folds a real tensor shaped like ``x`` with
+    ``torch.amin``/``amax`` (``how``: "amin"/"amax") into the result's
+    slots; ``spread(r)`` lays a slot tensor back over ``x``'s terms.
+    The monoid reduce (along an axis) and the segment reduce (by
+    ``scatter_reduce``) both fold through this."""
+    top = name == "MAX"
+    how = "amax" if top else "amin"
+    fill = float("-inf") if top else float("inf")
+    x = torch.where(_cx_isnan(x), ident, x)
+    re = red(x.real.contiguous(), how)
+    im = red(torch.where(x.real == spread(re), x.imag, fill), how)
+    # the identity holds the best real part too where it ties
+    held = re == ident.real
+    im = torch.where(held, (torch.maximum if top else torch.minimum)(
+        im, ident.imag), im)
+    return torch.complex(re, im).to(x.dtype)
+
+
+def _cx_pick(t: Type, take_x_if_less: bool):
+    """MIN (MAX): the lexicographically smaller (larger) operand, a NaN
+    operand dropping out."""
+    def fn(x, y):
+        x, y = torch.broadcast_tensors(_t(x, t), _t(y, t))
+        better = cx_less(x, y) if take_x_if_less else cx_less(y, x)
+        z = torch.where(better, x, y)
+        z = torch.where(_cx_isnan(y), x, z)
+        return torch.where(_cx_isnan(x), y, z)
+    return fn
 
 
 # ---------------------------------------------------------------------------
@@ -207,7 +273,9 @@ def _u_minv(t):
         return lambda x: torch.ones_like(_t(x, t))
     if t.is_integer:
         return _iminv(t)
-    return lambda x: (1 / _t(x, t)).to(t.storage)
+    # a tensor numerator: torch's scalar 1 / 0j is nan+nanj, 1s / 0j the
+    # JAX package's inf+nanj
+    return lambda x: (torch.ones_like(_t(x, t)) / _t(x, t)).to(t.storage)
 
 
 def _u_lnot(t):
@@ -263,6 +331,8 @@ def _ordered_pick(t, take_x):
 def _b_min(t):
     if t.is_bool:
         return lambda x, y: x & y
+    if t.is_complex:
+        return _cx_pick(t, True)
     if t.is_float:
         # the reference's fminf semantics: a NaN operand is ignored
         return lambda x, y: torch.fmin(_t(x, t), _t(y, t))
@@ -272,6 +342,8 @@ def _b_min(t):
 def _b_max(t):
     if t.is_bool:
         return lambda x, y: x | y
+    if t.is_complex:
+        return _cx_pick(t, False)
     if t.is_float:
         return lambda x, y: torch.fmax(_t(x, t), _t(y, t))
     return _ordered_pick(t, lambda a, b: a >= b)
@@ -280,18 +352,25 @@ def _b_max(t):
 def _b_plus(t):
     if t.is_bool:
         return lambda x, y: x | y
+    if t.is_complex:
+        return _cx_parts_op(t, torch.add)
     return lambda x, y: (_t(x, t) + _t(y, t)).to(t.storage)
 
 
 def _b_minus(t):
     if t.is_bool:
         return lambda x, y: x ^ y
+    if t.is_complex:
+        return _cx_parts_op(t, torch.sub)
     return lambda x, y: (_t(x, t) - _t(y, t)).to(t.storage)
 
 
 def _b_rminus(t):
     if t.is_bool:
         return lambda x, y: x ^ y
+    if t.is_complex:
+        f = _cx_parts_op(t, torch.sub)
+        return lambda x, y: f(y, x)
     return lambda x, y: (_t(y, t) - _t(x, t)).to(t.storage)
 
 
@@ -316,16 +395,27 @@ def _b_rdiv(t):
     return lambda x, y: f(y, x)
 
 
-def _cmp(fn):
-    """Comparison over t's own order (unsigned read as unsigned)."""
+_CX_CMP = {">": lambda x, y: cx_less(y, x),
+           "<": lambda x, y: cx_less(x, y),
+           ">=": lambda x, y: cx_less(y, x, True),
+           "<=": lambda x, y: cx_less(x, y, True)}
+
+
+def _cmp(fn, order=None):
+    """Comparison over t's own order (unsigned read as unsigned; complex
+    lexicographic for the ordered comparisons)."""
     def of_t(t):
+        if t.is_complex and order is not None:
+            cx = _CX_CMP[order]
+            return lambda x, y: cx(*torch.broadcast_tensors(_t(x, t),
+                                                            _t(y, t)))
         return lambda x, y: fn(ordered(_t(x, t), t), ordered(_t(y, t), t))
     return of_t
 
 
-def _is_of(fn):
+def _is_of(fn, order=None):
     """IS* ops: a comparison returned in the operand type (0/1)."""
-    cmp = _cmp(fn)
+    cmp = _cmp(fn, order)
 
     def of_t(t):
         c = cmp(t)
@@ -359,19 +449,21 @@ binary = _Namespace(
     rdiv=_binary_family("RDIV", _b_rdiv),
     iseq=_binary_family("ISEQ", _is_of(lambda x, y: x == y)),
     isne=_binary_family("ISNE", _is_of(lambda x, y: x != y)),
-    isgt=_binary_family("ISGT", _is_of(lambda x, y: x > y)),
-    islt=_binary_family("ISLT", _is_of(lambda x, y: x < y)),
-    isge=_binary_family("ISGE", _is_of(lambda x, y: x >= y)),
-    isle=_binary_family("ISLE", _is_of(lambda x, y: x <= y)),
+    isgt=_binary_family("ISGT", _is_of(lambda x, y: x > y, ">")),
+    islt=_binary_family("ISLT", _is_of(lambda x, y: x < y, "<")),
+    isge=_binary_family("ISGE", _is_of(lambda x, y: x >= y, ">=")),
+    isle=_binary_family("ISLE", _is_of(lambda x, y: x <= y, "<=")),
     lor=_binary_family("LOR", _logical(lambda x, y: x | y)),
     land=_binary_family("LAND", _logical(lambda x, y: x & y)),
     lxor=_binary_family("LXOR", _logical(lambda x, y: x ^ y)),
     eq=_binary_family("EQ", _cmp(lambda x, y: x == y), lambda t: BOOL),
     ne=_binary_family("NE", _cmp(lambda x, y: x != y), lambda t: BOOL),
-    gt=_binary_family("GT", _cmp(lambda x, y: x > y), lambda t: BOOL),
-    lt=_binary_family("LT", _cmp(lambda x, y: x < y), lambda t: BOOL),
-    ge=_binary_family("GE", _cmp(lambda x, y: x >= y), lambda t: BOOL),
-    le=_binary_family("LE", _cmp(lambda x, y: x <= y), lambda t: BOOL),
+    gt=_binary_family("GT", _cmp(lambda x, y: x > y, ">"), lambda t: BOOL),
+    lt=_binary_family("LT", _cmp(lambda x, y: x < y, "<"), lambda t: BOOL),
+    ge=_binary_family("GE", _cmp(lambda x, y: x >= y, ">="),
+                      lambda t: BOOL),
+    le=_binary_family("LE", _cmp(lambda x, y: x <= y, "<="),
+                      lambda t: BOOL),
 )
 
 _U64 = type_by_name("UINT64")
@@ -389,7 +481,7 @@ select = _Namespace(
 
 # ---- typed-name lookup: e.g. binary_op("PLUS", FP64), "GrB_PLUS_FP64" ------
 
-_TYPES_BY_NAME = {t.name: t for t in BUILTIN_TYPES}
+_TYPES_BY_NAME = {t.name: t for t in BUILTIN_TYPES + (FC32, FC64)}
 
 
 def binary_op(name: str, typ: Optional[Type] = None) -> BinaryOp:

@@ -37,10 +37,11 @@ class UnsupportedOp(GraphBLASError):
 def operand_type(*operands) -> Optional[Type]:
     """First usable element Type among the operands (for inferring the
     type family of a bare catalog name like ``"plus"``): the ``type`` of
-    any container (CsrMatrix, CscMatrix, Matrix or Vector)."""
+    any container (CsrMatrix, CscMatrix, Matrix or Vector) that is not
+    user-defined, as in the JAX package."""
     for x in operands:
         t = getattr(x, "type", None)
-        if isinstance(t, Type):
+        if isinstance(t, Type) and not t.is_udt:
             return t
     return None
 

@@ -47,8 +47,10 @@ class Semiring:
 
 
 def semiring_new(add: Monoid, mult: BinaryOp) -> Semiring:
-    """User semiring constructor (reference ``GrB_Semiring_new``)."""
-    if add.type.name != mult.ztype.name:
+    """User semiring constructor (reference ``GrB_Semiring_new``); a
+    user-defined add monoid is not checked against the multiply's
+    output type, as in the JAX package."""
+    if not add.type.is_udt and add.type.name != mult.ztype.name:
         raise TypeError(
             f"monoid type {add.type.name} != mult output {mult.ztype.name}")
     return Semiring(add, mult)

@@ -26,60 +26,86 @@ int->int wraps modularly, anything->bool is ``x != 0``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..utils.tree import tree_map
+
 __all__ = [
     "Type", "BOOL", "INT8", "UINT8", "INT16", "UINT16", "INT32", "UINT32",
-    "INT64", "UINT64", "FP32", "FP64", "BUILTIN_TYPES", "type_of_dtype",
-    "type_by_name", "type_of_storage", "promote", "cast", "cast_value",
-    "zero_of", "cast_result", "ordered", "from_ordered",
-    "zeros_like_typed",
+    "INT64", "UINT64", "FP32", "FP64", "FC32", "FC64", "BUILTIN_TYPES",
+    "type_of_dtype", "type_by_name", "type_of_storage", "promote", "cast",
+    "cast_value", "zero_of", "cast_result", "ordered", "from_ordered",
+    "zeros_like_typed", "full_typed", "tree_where", "value_take",
+    "value_shape",
 ]
+
+
+def _sub(dtype, kind) -> bool:
+    return dtype is not None and np.issubdtype(dtype, kind)
 
 
 @dataclasses.dataclass(frozen=True)
 class Type:
-    """A builtin GraphBLAS scalar type: semantics (``dtype``) and device
-    storage (``storage``)."""
+    """A GraphBLAS scalar type: semantics (``dtype``) and device storage
+    (``storage``) for a builtin or complex type; ``fields`` (name, Type)
+    pairs for a user-defined struct type, whose ``dtype`` and
+    ``storage`` are None."""
 
     name: str
-    dtype: np.dtype
-    storage: torch.dtype
+    dtype: Optional[np.dtype] = None
+    storage: Optional[torch.dtype] = None
+    fields: Optional[Tuple[Tuple[str, "Type"], ...]] = None
 
-    @property
-    def is_unsigned(self) -> bool:
-        return np.issubdtype(self.dtype, np.unsignedinteger)
+    @staticmethod
+    def udt(name: str, **field_types: "Type") -> "Type":
+        """A user-defined struct type (reference ``GrB_Type_new``)."""
+        return Type(name=name, fields=tuple(field_types.items()))
 
     @property
     def is_udt(self) -> bool:
-        """User-defined types come with a later slice: never."""
-        return False
+        return self.fields is not None
+
+    @property
+    def is_builtin(self) -> bool:
+        return not self.is_udt
+
+    @property
+    def is_unsigned(self) -> bool:
+        return _sub(self.dtype, np.unsignedinteger)
 
     @property
     def is_bool(self) -> bool:
-        return self.dtype == np.bool_
+        return self.dtype is not None and self.dtype == np.bool_
 
     @property
     def is_integer(self) -> bool:
-        return np.issubdtype(self.dtype, np.integer)
+        return _sub(self.dtype, np.integer)
 
     @property
     def is_signed(self) -> bool:
-        return np.issubdtype(self.dtype, np.signedinteger)
+        return _sub(self.dtype, np.signedinteger)
 
     @property
     def is_float(self) -> bool:
-        return np.issubdtype(self.dtype, np.floating)
+        """A real floating type (FP32, FP64)."""
+        return _sub(self.dtype, np.floating)
+
+    @property
+    def is_complex(self) -> bool:
+        return _sub(self.dtype, np.complexfloating)
 
     @property
     def nbits(self) -> int:
-        return self.dtype.itemsize * 8
+        return self.dtype.itemsize * 8 if self.dtype is not None else 0
 
     def zero(self):
-        """The canonical padding value stored at absent entries."""
+        """The canonical padding value stored at absent entries (a dict
+        of the fields' zeros for a user-defined type)."""
+        if self.is_udt:
+            return {k: t.zero() for k, t in self.fields}
         return np.zeros((), dtype=self.dtype)[()]
 
     def min_value(self):
@@ -125,12 +151,14 @@ INT64 = Type("INT64", np.dtype(np.int64), torch.int64)
 UINT64 = Type("UINT64", np.dtype(np.uint64), torch.int64)
 FP32 = Type("FP32", np.dtype(np.float32), torch.float32)
 FP64 = Type("FP64", np.dtype(np.float64), torch.float64)
+FC32 = Type("FC32", np.dtype(np.complex64), torch.complex64)
+FC64 = Type("FC64", np.dtype(np.complex128), torch.complex128)
 
 BUILTIN_TYPES = (BOOL, INT8, UINT8, INT16, UINT16, INT32, UINT32, INT64,
                  UINT64, FP32, FP64)
 
-_BY_DTYPE = {t.dtype: t for t in BUILTIN_TYPES}
-_BY_NAME = {t.name: t for t in BUILTIN_TYPES}
+_BY_DTYPE = {t.dtype: t for t in BUILTIN_TYPES + (FC32, FC64)}
+_BY_NAME = {t.name: t for t in BUILTIN_TYPES + (FC32, FC64)}
 
 
 def type_of_dtype(dtype) -> Type:
@@ -148,11 +176,12 @@ def type_by_name(name: str) -> Type:
     return _BY_NAME[name]
 
 
-_BY_STORAGE = {t.storage: t for t in BUILTIN_TYPES if not t.is_unsigned}
+_BY_STORAGE = {t.storage: t for t in BUILTIN_TYPES + (FC32, FC64)
+               if not t.is_unsigned}
 
 
 def type_of_storage(dtype: torch.dtype) -> Type:
-    """The signed or float Type whose storage is ``dtype``."""
+    """The signed, float or complex Type whose storage is ``dtype``."""
     if dtype not in _BY_STORAGE:
         raise TypeError(f"no GraphBLAS type stored as {dtype}")
     return _BY_STORAGE[dtype]
@@ -160,8 +189,9 @@ def type_of_storage(dtype: torch.dtype) -> Type:
 
 # Code lattice for implicit output-type deduction, mirroring the
 # reference's GB_code_* ordering (Source/GB_code_type.c): bool < int8 <
-# uint8 < ... < fp64.
-_ORDER = {t.name: i for i, t in enumerate(BUILTIN_TYPES)}
+# uint8 < ... < fp64 (< fc32 < fc64, as later versions of the reference
+# number them).
+_ORDER = {t.name: i for i, t in enumerate(BUILTIN_TYPES + (FC32, FC64))}
 
 
 def promote(a: Type, b: Type) -> Type:
@@ -215,7 +245,15 @@ def cast(x: torch.Tensor, to_type: Type,
     (C-style) semantics, as the JAX package's ``cast`` does.
 
     Reference: ``Source/GB_cast_factory.c`` /
-    ``Template/GB_2type_template.c``."""
+    ``Template/GB_2type_template.c``.  A struct value passes unchanged
+    into a user-defined type; a builtin value cast to one, or a struct
+    value cast to a builtin type, raises ``TypeError``."""
+    if to_type.is_udt:
+        if isinstance(x, dict) and (src is None or src.is_udt):
+            return x
+        raise TypeError("cannot cast builtin values to a user-defined type")
+    if isinstance(x, dict) or (src is not None and src.is_udt):
+        raise TypeError("cannot cast user-defined values to a builtin type")
     if src is None:
         src = type_of_storage(x.dtype)
     if src.name == to_type.name:
@@ -224,6 +262,16 @@ def cast(x: torch.Tensor, to_type: Type,
     if to_type.is_bool:
         return x != 0
     if src.is_bool:
+        return x.to(dst)
+    if src.is_complex:
+        if to_type.is_complex:
+            return x.to(dst)
+        # the real part, then the float rules (the JAX package's)
+        return cast(x.real.contiguous(), to_type,
+                    FP32 if src.name == "FC32" else FP64)
+    if to_type.is_complex:
+        if src.is_unsigned:
+            return _float_value(x, src).to(dst)
         return x.to(dst)
     if src.is_float and to_type.is_integer:
         # truncate toward zero; NaN -> 0; out of range (inf included)
@@ -250,10 +298,17 @@ def cast(x: torch.Tensor, to_type: Type,
     return x.to(dst)
 
 
-def cast_result(z: torch.Tensor, t: Type) -> torch.Tensor:
+def cast_result(z, t: Type):
     """An operator's result in ``t``'s storage: as it is when its dtype
     is that storage, else cast from the type its dtype names (a user op
-    may return, say, a bool tensor for a UINT32 ztype)."""
+    may return, say, a bool tensor for a UINT32 ztype); a struct result
+    of a user-defined ``t`` field by field."""
+    if t.is_udt:
+        if not isinstance(z, dict):
+            cast(z, t)                  # raises: builtin values
+        return {k: cast_result(z[k], ft) if ft.is_udt or isinstance(
+            z[k], torch.Tensor) else torch.as_tensor(z[k], dtype=ft.storage)
+                for k, ft in t.fields}
     if z.dtype == t.storage:
         return z
     return cast(z, t, type_of_storage(z.dtype))
@@ -263,9 +318,21 @@ def cast_value(x, to_type: Type):
     """Cast a Python or numpy scalar to a numpy scalar of ``to_type``
     (its own dtype: a UINT64 value stays unsigned), with :func:`cast`'s
     rules: NaN -> 0 and saturation for float -> int, ``x != 0`` for
-    bool."""
+    bool; a dict of the fields' values for a user-defined type."""
+    if to_type.is_udt:
+        if not isinstance(x, dict):
+            raise TypeError("cannot cast builtin values to a user-defined "
+                            "type")
+        return {k: cast_value(x[k], t) for k, t in to_type.fields}
+    if isinstance(x, dict):
+        raise TypeError("cannot cast user-defined values to a builtin type")
     if to_type.is_bool:
         return np.bool_(x != 0)
+    if to_type.is_integer and isinstance(
+            x, (complex, np.complexfloating)):
+        x = float(np.real(x))
+    elif to_type.is_float and isinstance(x, (complex, np.complexfloating)):
+        x = np.real(x)
     if to_type.is_integer and isinstance(x, (float, np.floating)):
         info = np.iinfo(to_type.dtype)
         if np.isnan(x):
@@ -284,6 +351,37 @@ def zero_of(t: Type):
     return t.zero()
 
 
-def zeros_like_typed(shape, t: Type, device) -> torch.Tensor:
-    """Zeros of type ``t`` (its storage) on ``device``."""
+def zeros_like_typed(shape, t: Type, device):
+    """Zeros of type ``t`` (its storage; a dict of the fields' zeros for
+    a user-defined type) on ``device``."""
+    if t.is_udt:
+        return {k: zeros_like_typed(shape, ft, device) for k, ft in t.fields}
     return torch.zeros(shape, dtype=t.storage, device=device)
+
+
+def full_typed(shape, value, t: Type, device):
+    """``value`` (a host scalar of ``t``; a dict for a user-defined
+    type) broadcast to ``shape`` in ``t``'s storage on ``device``."""
+    if t.is_udt:
+        return {k: full_typed(shape, value[k], ft, device)
+                for k, ft in t.fields}
+    return torch.full(shape, t.storage_scalar(value), dtype=t.storage,
+                      device=device)
+
+
+def tree_where(mask: torch.Tensor, a, b):
+    """``torch.where`` lifted over struct values (``mask`` broadcasts
+    to every leaf; a leaf of ``b`` may be a scalar)."""
+    return tree_map(lambda x, y: torch.where(mask, x, y), a, b)
+
+
+def value_take(vals, idx):
+    """``vals[idx]`` on every leaf of a (struct) value."""
+    return tree_map(lambda v: v[idx], vals)
+
+
+def value_shape(vals) -> tuple:
+    """The value shape of a (struct) value: its first leaf's."""
+    while isinstance(vals, dict):
+        vals = vals[sorted(vals)[0]]
+    return tuple(vals.shape)

@@ -10,9 +10,18 @@ a ``vxm`` on the bitmap ``Matrix`` (the dense engines of
 for ``plus_times[UINT64]``, which wraps mod 2^64 on the port's signed
 storage as uint64 does).  As in the JAX package, the models take a
 bitmap ``Matrix``: the row scaling reads A's dense pattern, so a
-``CsrMatrix`` raises.  ``dpagerank2`` (the PageRank semiring on a
-user-defined struct type, ``dpagerank2.c``) waits for user-defined types
-(ROADMAP.md queue 1, item 7) and raises.
+``CsrMatrix`` raises.
+
+:func:`dpagerank2` runs the reference's ``dpagerank2.c``: the PageRank
+semiring over the user-defined struct type ``PAGERANK_TYPE`` = {rank,
+invdegree} (:func:`pagerank_ops`), a ``vxm`` with a struct accum each
+iteration on the bitmap ``Matrix`` (the generic path of
+``semiring_mm``), and an ``eWiseAdd`` + ``reduce_to_scalar`` for the
+change.  :func:`dpagerank2_csr` runs the same recurrence on a
+``CsrMatrix`` through the user-defined edge-parallel SpMV
+(``csr_mxv``'s struct path and the generic segmented fold) at O(nnz)
+memory, with the accum rule and the change written out as the JAX
+package's ``dpagerank2_csr`` writes them, so the two agree.
 """
 
 from __future__ import annotations
@@ -23,18 +32,20 @@ import numpy as np
 import torch
 
 from ..core.matrix import Matrix, Vector
-from ..core.monoids import monoid
-from ..core.ops import UnaryOp, binary
-from ..core.semirings import semiring
-from ..core.types import FP64, UINT64, cast
+from ..core.monoids import monoid, monoid_new
+from ..core.ops import BinaryOp, UnaryOp, binary
+from ..core.semirings import semiring, semiring_new
+from ..core.types import BOOL, FP64, UINT64, Type, cast
 from ..ops.assign import assign_vector
 from ..ops.containers import UnsupportedContainer
 from ..ops.ewise import apply as gb_apply
+from ..ops.ewise import eWiseAdd
 from ..ops.mxm import vxm
 from ..ops.reduce import reduce_to_scalar, reduce_to_vector
 
 __all__ = ["drowscale", "irowscale", "dpagerank", "ipagerank",
-           "dpagerank2", "dpagerank2_csr", "pagerank_jit"]
+           "dpagerank2", "dpagerank2_csr", "pagerank_jit", "PAGERANK_TYPE",
+           "pagerank_ops"]
 
 ZSCALE = np.uint64(1) << np.uint64(30)
 
@@ -179,23 +190,156 @@ def ipagerank(A: Matrix, iters: int = 20,
     return [(int(I[k]), int(X[k])) for k in order]
 
 
-def _udt_unported(what: str):
-    from ..core.resolve import UnsupportedOp
-    raise UnsupportedOp(
-        f"{what}: the PageRank semiring runs on a user-defined struct "
-        f"type, which comes with a later slice of the port (ROADMAP.md "
-        f"queue 1, item 7); use dpagerank")
+# ---------------------------------------------------------------------------
+# dpagerank2: the PageRank semiring on a user-defined type {rank, invdegree}
+# ---------------------------------------------------------------------------
+
+PAGERANK_TYPE = Type.udt("pagerank_type", rank=FP64, invdegree=FP64)
 
 
-def dpagerank2(A, itermax: int = 100, tol: float = 1e-5):
-    """PageRank via a user-defined semiring (``dpagerank2.c``): waits for
-    user-defined types."""
-    _udt_unported("dpagerank2")
+def pagerank_ops():
+    """The PageRank semiring's parts (mult, add, monoid, semiring) over
+    ``PAGERANK_TYPE`` (``dpagerank2.c:83-101``): the multiply takes an
+    edge to ``x.rank * x.invdegree``, the add sums ranks."""
+    mult = BinaryOp("PAGERANK_MULT", lambda x, y: {
+        "rank": torch.where(torch.as_tensor(y).to(torch.bool),
+                            x["rank"] * x["invdegree"], 0.0),
+        "invdegree": torch.zeros_like(x["invdegree"])},
+        PAGERANK_TYPE, PAGERANK_TYPE, BOOL)
+    add = BinaryOp("PAGERANK_ADD", lambda x, y: {
+        "rank": x["rank"] + y["rank"],
+        "invdegree": x["invdegree"] + y["invdegree"]},
+        PAGERANK_TYPE, PAGERANK_TYPE, PAGERANK_TYPE)
+    mon = monoid_new(add, {"rank": 0.0, "invdegree": 0.0})
+    return mult, add, mon, semiring_new(mon, mult)
 
 
-def dpagerank2_csr(A, itermax: int = 100, tol: float = 1e-5):
-    """:func:`dpagerank2` on a CsrMatrix: waits for user-defined types."""
-    _udt_unported("dpagerank2_csr")
+def _ranked(I: np.ndarray, X: np.ndarray) -> List[Tuple[int, float]]:
+    order = np.argsort(-X, kind="stable")
+    return [(int(I[k]), float(X[k])) for k in order]
+
+
+def dpagerank2(A: Matrix, itermax: int = 100, tol: float = 1e-5
+               ) -> Tuple[List[Tuple[int, float]], int]:
+    """PageRank through a user-defined semiring over {rank, invdegree}
+    (reference ``dpagerank2.c``, ``GrB_Type_new`` + ``GrB_Semiring_new``
+    with struct types) on a bitmap ``Matrix``.  Returns ([(page,
+    rank)...] by rank, iterations)."""
+    A = _bitmap(A, "dpagerank2")
+    n = A.nrows
+    dev = A.device
+    damping = 0.85
+    teleport = (1 - damping) / n
+    init_rank = 1.0 / n
+
+    # r = init_page(dout): rank = 1/n, invdegree = 1/outdegree
+    dout = reduce_to_vector(Vector.new(FP64, n, device=dev), None, None,
+                            monoid.plus[FP64], A)
+    init_page = UnaryOp("INIT_PAGE", lambda x: {
+        "rank": torch.full_like(x, init_rank), "invdegree": 1.0 / x},
+        PAGERANK_TYPE, FP64)
+    r = gb_apply(Vector.new(PAGERANK_TYPE, n, device=dev), None, None,
+                 init_page, dout)
+
+    _, _, _, pr_semiring = pagerank_ops()
+    # accum: rnew = damping * rank + teleport, invdegree kept from r
+    pr_accum = BinaryOp("PAGERANK_ACCUM", lambda x, y: {
+        "rank": damping * y["rank"] + teleport,
+        "invdegree": x["invdegree"]},
+        PAGERANK_TYPE, PAGERANK_TYPE, PAGERANK_TYPE)
+    pr_diff = BinaryOp("PAGERANK_DIFF", lambda x, y: {
+        "rank": (x["rank"] - y["rank"]) ** 2,
+        "invdegree": torch.zeros_like(x["invdegree"])},
+        PAGERANK_TYPE, PAGERANK_TYPE, PAGERANK_TYPE)
+    rank_sum = monoid_new(
+        BinaryOp("RANKSUM", lambda x, y: {
+            "rank": x["rank"] + y["rank"], "invdegree": x["invdegree"]},
+            PAGERANK_TYPE, PAGERANK_TYPE, PAGERANK_TYPE),
+        {"rank": 0.0, "invdegree": 0.0})
+    Abool = Matrix(A.pattern if A.type.is_bool else A.values != 0,
+                   A.pattern, BOOL)
+
+    tol2 = tol * tol
+    rdiff = 1.0
+    iters = 0
+    while iters < itermax and rdiff > tol2:
+        # rnew = accum(r, r +.* A)  (the safe variant, dpagerank2.c:332-350)
+        rnew = vxm(r, None, pr_accum, pr_semiring, r, Abool)
+        d = eWiseAdd(Vector.new(PAGERANK_TYPE, n, device=dev), None, None,
+                     pr_diff, r, rnew)
+        rdiff = float(reduce_to_scalar(None, rank_sum, d)["rank"])
+        r = rnew
+        iters += 1
+
+    get_rank = UnaryOp("GET_RANK", lambda x: x["rank"], FP64, PAGERANK_TYPE)
+    rd = gb_apply(Vector.new(FP64, n, device=dev), None, None, get_rank, r)
+    s = float(reduce_to_scalar(None, monoid.plus[FP64], rd))
+    I, X = rd.extractTuples()
+    return _ranked(I, X / s), iters
+
+
+def dpagerank2_csr(A, itermax: int = 100, tol: float = 1e-5
+                   ) -> Tuple[List[Tuple[int, float]], int]:
+    """:func:`dpagerank2` on a ``CsrMatrix``: the PageRank semiring
+    through the user-defined SpMV (``csr_mxv``'s struct path with the
+    generic segmented fold) at O(nnz) memory.  The accum rule (an absent
+    rank takes the product verbatim) and the change (an eWiseAdd of
+    ``pr_diff``) are written out as the JAX package's
+    ``dpagerank2_csr`` writes them, so the two containers agree."""
+    from ..sparse.container import CsrMatrix
+    from ..sparse.spmv import csr_mxv
+    if not isinstance(A, CsrMatrix):
+        A = CsrMatrix.from_matrix(A)
+    A = A.wait()
+    n = A.nrows
+    dev = A.device
+    damping = 0.85
+    teleport = (1 - damping) / n
+    init_rank = 1.0 / n
+
+    # dout = the plus-reduce of A's rows as FP64 (pattern: nonempty rows)
+    live = torch.arange(A.nzmax, device=dev) < A.nvals
+    av = torch.where(live, cast(A.values, FP64, A.type), 0.0)
+    dout = torch.zeros(n + 1, dtype=torch.float64, device=dev)
+    dout.index_add_(0, A.rowids.long().clamp(max=n), av)
+    dout = dout[:n]
+    rp = A.row_degrees() > 0
+    r = {"rank": torch.where(rp, torch.full_like(dout, init_rank), 0.0),
+         "invdegree": torch.where(rp, 1.0 / dout, 0.0)}
+
+    pr_mult, _, pr_monoid, _ = pagerank_ops()
+    # csr_mxv computes mult(a_edge, x); the PageRank multiply is
+    # mult(x, edge): flip it (GB_AxB_dot_flipxy.c)
+    flip = BinaryOp("PAGERANK_MULT_FLIP", lambda a, x: pr_mult.fn(x, a),
+                    PAGERANK_TYPE, BOOL, PAGERANK_TYPE)
+    sr = semiring_new(pr_monoid, flip)
+    # vxm: x'A = (A')x, on A' with bool values
+    AT = A.T()
+    ATb = CsrMatrix(AT.indptr, AT.indices, AT.rowids, AT.values != 0,
+                    AT.nvals, AT.nrows, AT.ncols, BOOL)
+
+    tol2 = tol * tol
+    rdiff = 1.0
+    iters = 0
+    while iters < itermax and rdiff > tol2:
+        y, tp = csr_mxv(sr, ATb, r, x_pattern=rp)
+        only_t = tp & ~rp
+        rank_new = torch.where(tp & rp, damping * y["rank"] + teleport,
+                               torch.where(only_t, y["rank"], r["rank"]))
+        inv_new = torch.where(only_t, y["invdegree"], r["invdegree"])
+        new_pat = rp | tp
+        # the eWiseAdd(pr_diff) change: the intersection gives (dr)^2,
+        # an entry only in the new ranks its raw rank
+        d = torch.where(rp & new_pat, (r["rank"] - rank_new) ** 2,
+                        torch.where(new_pat, rank_new, 0.0))
+        rdiff = float(d.sum())
+        r, rp = {"rank": rank_new, "invdegree": inv_new}, new_pat
+        iters += 1
+
+    rpn = rp.cpu().numpy()
+    ranks = r["rank"].cpu().numpy()
+    s = float(ranks[rpn].sum())
+    return _ranked(np.nonzero(rpn)[0], ranks[rpn] / s), iters
 
 
 def pagerank_jit(A: Matrix, iters: int = 20) -> np.ndarray:

@@ -34,7 +34,8 @@ from ..core.errors import DimensionMismatch
 from ..core.mask import accum_mask, accum_values, apply_mask
 from ..core.matrix import Matrix, Vector
 from ..core.ops import BinaryOp
-from ..core.types import Type, cast_value
+from ..core.types import Type, cast_value, full_typed
+from ..utils.tree import tree_map
 from ..utils import counters
 from ..utils.indices import normalize_indices
 from .containers import (require_container, to_csr_operand,
@@ -46,8 +47,7 @@ __all__ = ["assign", "subassign", "assign_scalar", "subassign_scalar",
 
 def _scalar_matrix(scalar, ni: int, nj: int, t: Type, device) -> Matrix:
     """Scalar expansion: an implicit ni x nj all-present matrix."""
-    v = t.storage_scalar(cast_value(scalar, t))
-    return Matrix(torch.full((ni, nj), v, dtype=t.storage, device=device),
+    return Matrix(full_typed((ni, nj), cast_value(scalar, t), t, device),
                   torch.ones((ni, nj), dtype=torch.bool, device=device), t)
 
 
@@ -60,14 +60,15 @@ def _grid(Ii: np.ndarray, Jj: np.ndarray, device):
 
 def _gather(X: Matrix, Ii, Jj) -> Matrix:
     ix = _grid(Ii, Jj, X.device)
-    return Matrix(X.values[ix], X.pattern[ix], X.type)
+    return Matrix(tree_map(lambda v: v[ix], X.values), X.pattern[ix],
+                  X.type)
 
 
 def _scatter(C: Matrix, Ii, Jj, sub: Matrix) -> Matrix:
     ix = _grid(Ii, Jj, C.device)
-    vals = C.values.clone()
+    vals = tree_map(lambda v: v.clone(), C.values)
     pat = C.pattern.clone()
-    vals[ix] = sub.values
+    tree_map(lambda v, s: v.__setitem__(ix, s), vals, sub.values)
     pat[ix] = sub.pattern
     return Matrix(vals, pat, C.type).canonical()
 
@@ -79,16 +80,18 @@ def _as_matrix(x, col: bool = True):
         return x
     x = x.wait()
     ax = (slice(None), None) if col else (None, slice(None))
-    return Matrix(x.values[ax], x.pattern[ax], x.type)
+    return Matrix(tree_map(lambda v: v[ax], x.values), x.pattern[ax],
+                  x.type)
 
 
 def _to_vector(m: Matrix, col: bool = True) -> Vector:
     ax = (slice(None), 0) if col else (0, slice(None))
-    return Vector(m.values[ax], m.pattern[ax], m.type)
+    return Vector(tree_map(lambda v: v[ax], m.values), m.pattern[ax],
+                  m.type)
 
 
 def _transposed(A: Matrix) -> Matrix:
-    return Matrix(A.values.T, A.pattern.T, A.type)
+    return Matrix(tree_map(lambda v: v.T, A.values), A.pattern.T, A.type)
 
 
 def _operand(A, Ii, Jj, C: Matrix, tran: bool, scalar: bool) -> Matrix:
@@ -251,10 +254,13 @@ def row_assign(C: Matrix, m: Optional[Vector], accum, u: Vector,
     column vector of size ncols(C) and only row i is affected
     (``Test/GB_spec_Row_assign.m``)."""
     C = C.wait()
-    X = Vector(C.values[i, :], C.pattern[i, :], C.type)
+    X = Vector(tree_map(lambda v: v[i, :], C.values), C.pattern[i, :],
+               C.type)
     X = assign_vector(X, m, accum, u, J, desc)
-    vals, pat = C.values.clone(), C.pattern.clone()
-    vals[i, :] = X.values
+    vals = tree_map(lambda v: v.clone(), C.values)
+    pat = C.pattern.clone()
+    tree_map(lambda v, x: v.__setitem__((i, slice(None)), x), vals,
+             X.values)
     pat[i, :] = X.pattern
     return Matrix(vals, pat, C.type).canonical()
 
@@ -263,9 +269,12 @@ def col_assign(C: Matrix, m: Optional[Vector], accum, u: Vector,
                I=None, j: int = 0, desc=None) -> Matrix:
     """GrB_Col_assign: C<m>(I,j) = accum(C(I,j), u)."""
     C = C.wait()
-    X = Vector(C.values[:, j], C.pattern[:, j], C.type)
+    X = Vector(tree_map(lambda v: v[:, j], C.values), C.pattern[:, j],
+               C.type)
     X = assign_vector(X, m, accum, u, I, desc)
-    vals, pat = C.values.clone(), C.pattern.clone()
-    vals[:, j] = X.values
+    vals = tree_map(lambda v: v.clone(), C.values)
+    pat = C.pattern.clone()
+    tree_map(lambda v, x: v.__setitem__((slice(None), j), x), vals,
+             X.values)
     pat[:, j] = X.pattern
     return Matrix(vals, pat, C.type).canonical()

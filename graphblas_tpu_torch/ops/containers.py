@@ -57,8 +57,8 @@ def require_container(X, what: str = "operand",
 
 def require_builtin(what: str, *ops) -> None:
     """Typed guard on operators: every type an op, monoid or accum names
-    must be one of the port's builtin types; a user-defined type raises
-    :class:`UnsupportedOp` naming ROADMAP.md queue 1, item 7."""
+    must be a :class:`Type` (builtin, complex or user-defined); anything
+    else raises :class:`UnsupportedOp`."""
     from ..core.resolve import UnsupportedOp
     from ..core.types import Type
     for op in ops:
@@ -67,9 +67,7 @@ def require_builtin(what: str, *ops) -> None:
             t = getattr(op, attr, None)
             if t is not None and not isinstance(t, Type):
                 raise UnsupportedOp(
-                    f"{what}: {attr} {t!r} is not a builtin type of this "
-                    f"port; user-defined types come with a later slice "
-                    f"(ROADMAP.md queue 1, item 7)")
+                    f"{what}: {attr} {t!r} is not a GraphBLAS Type")
 
 
 def to_csr_operand(X, tran: bool = False, what: str = "operand"):

@@ -13,8 +13,10 @@ epilogue (a CSC output runs in the transposed frame: (A ⊕ B)' = A' ⊕
 B').  A hypersparse output (``HyperMatrix``, ``HyperCscMatrix`` in the
 transposed frame, ``SparseVec``) takes the pair-key merges of
 :mod:`graphblas_tpu_torch.sparse.hyper` and ``hyper_accum_mask``, at any
-dimension; an op over a user-defined type raises ``UnsupportedOp``
-(ROADMAP.md queue 1, item 7).
+dimension.  Ops over a user-defined type get and give dicts of tensors
+on every container (the hypersparse ones too, where the JAX package
+raises); a struct value meets a builtin domain with the cast rule's
+``TypeError``.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from ..core.errors import DimensionMismatch
 from ..core.mask import accum_mask
 from ..core.matrix import Matrix, Vector
 from ..core.ops import BinaryOp, SelectOp, UnaryOp
-from ..core.types import cast, cast_result
+from ..core.types import cast, cast_result, tree_where
 from ..utils import counters
 from .containers import (require_builtin, require_container,
                          to_bitmap_operand, to_csr_operand, to_hyper_operand,
@@ -63,7 +65,7 @@ def _ewise_T(op: BinaryOp, A, B, union: bool):
         za = cast(A.values, zt, A.type)
         zb = cast(B.values, zt, B.type)
         pat = A.pattern | B.pattern
-        vals = torch.where(both, zboth, torch.where(A.pattern, za, zb))
+        vals = tree_where(both, zboth, tree_where(A.pattern, za, zb))
     else:
         pat = both
         vals = zboth

@@ -10,6 +10,7 @@ and columns (duplicate indices allowed); a ``CsrMatrix`` or
 (``HyperMatrix``, ``HyperCscMatrix`` in the transposed frame,
 ``SparseVec``) the pair-key form of
 :mod:`graphblas_tpu_torch.sparse.hyper_assign` at any dimension.
+Struct values of a user-defined type are gathered leaf by leaf.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from ..core.matrix import Matrix, Vector
 from ..core.ops import BinaryOp
 from ..utils import counters
 from ..utils.indices import normalize_indices
+from ..utils.tree import tree_map
 from .containers import (UnsupportedContainer, require_container,
                          to_csr_operand, to_hyper_operand, vec_hyper_operand)
 
@@ -86,11 +88,12 @@ def extract(C, M, accum: Optional[BinaryOp], A, I: Any = None,
     A = _bitmap(A, "extract input A")
     vals, pat = A.values, A.pattern
     if d.tran0:
-        vals, pat = vals.T, pat.T
+        vals, pat = tree_map(lambda v: v.T, vals), pat.T
     nr, nc = pat.shape
     Ii = normalize_indices(I, nr)
     Jj = normalize_indices(J, nc)
-    T = Matrix(_ix(vals, Ii, Jj), _ix(pat, Ii, Jj), A.type)
+    T = Matrix(tree_map(lambda v: _ix(v, Ii, Jj), vals), _ix(pat, Ii, Jj),
+               A.type)
     return accum_mask(C, M, T, accum, d)
 
 
@@ -111,7 +114,7 @@ def extract_vector(w: Vector, m: Optional[Vector],
     d = desc_of(desc)
     u = u.wait()
     Ii = torch.from_numpy(normalize_indices(I, u.size)).to(u.device)
-    T = Vector(u.values[Ii], u.pattern[Ii], u.type)
+    T = Vector(tree_map(lambda v: v[Ii], u.values), u.pattern[Ii], u.type)
     return accum_mask(w, m, T, accum, d)
 
 
@@ -124,7 +127,7 @@ def extract_col(w: Vector, m: Optional[Vector], accum: Optional[BinaryOp],
     A = _bitmap(A, "extract_col input A")
     vals, pat = A.values, A.pattern
     if d.tran0:
-        vals, pat = vals.T, pat.T
+        vals, pat = tree_map(lambda v: v.T, vals), pat.T
     Ii = torch.from_numpy(normalize_indices(I, pat.shape[0])).to(A.device)
-    T = Vector(vals[Ii, j], pat[Ii, j], A.type)
+    T = Vector(tree_map(lambda v: v[Ii, j], vals), pat[Ii, j], A.type)
     return accum_mask(w, m, T, accum, d)

@@ -31,6 +31,11 @@ matmuls (exact below 2^53) and recombined in int64, wrapped to the
 output width; float products are ``torch.matmul`` in full precision.
 On CPU operands the tropical route bows out, as the JAX package's does
 on its CPU backend, and the generic path gives the same output.
+Complex products (FC32, FC64) are one ``torch.matmul`` in complex, as
+the JAX package's ``jnp.matmul``; a user-defined semiring takes the
+generic path over the struct's leaves (``Monoid.reduce`` folds a
+struct pairwise, the JAX package's ``_udt_reduce``), and with a CSR or CSC ``A`` it converts to the bitmap
+product instead of the SpMM path, as in the JAX package.
 
 ``mxv``/``vxm`` (the SpMV slice) take a bitmap ``Vector`` output: a CSR
 or CSC ``A`` runs the edge-parallel SpMV engines of
@@ -63,8 +68,10 @@ from ..core.mask import accum_mask
 from ..core.matrix import Matrix, Vector
 from ..core.ops import BinaryOp
 from ..core.semirings import Semiring
-from ..core.types import BOOL, INT64, Type, cast, type_of_storage
+from ..core.types import (BOOL, INT64, Type, cast, cast_result, tree_where,
+                          type_of_storage, zeros_like_typed)
 from ..utils import counters
+from ..utils.tree import tree_map
 from .containers import (UnsupportedContainer, require_container,
                          to_bitmap_operand, to_csr_operand, to_hyper_operand,
                          vec_hyper_operand)
@@ -130,7 +137,10 @@ def _dot(a: torch.Tensor, b: torch.Tensor, out: Type) -> torch.Tensor:
     outputs in float32 (float64 for FP64) with TF32 off."""
     if out.is_integer:
         return _int_mm(a, b, out.nbits).to(out.storage)
-    acc = torch.float64 if out.name == "FP64" else torch.float32
+    if out.is_complex:
+        acc = out.storage
+    else:
+        acc = torch.float64 if out.name == "FP64" else torch.float32
     # the product must be full float32, as the JAX package's HIGHEST; the
     # caller's TF32 setting is restored after it
     allow = torch.backends.cuda.matmul.allow_tf32
@@ -155,6 +165,8 @@ def _mxu_path(sr: Semiring, Av, Ap, Bv, Bp, at: Type, bt: Type):
     add, mult = sr.add.op.name, sr.mult.name
     zt = sr.ztype
     xt, yt = sr.xtype, sr.ytype
+    if zt.is_udt or xt.is_udt or yt.is_udt:
+        return None
 
     if add == "PLUS" and not zt.is_bool:
         if mult == "TIMES":
@@ -235,7 +247,7 @@ def _tropical_values(sr: Semiring, Av, Ap, Bv, Bp, at: Type, bt: Type):
 def _generic_path(sr: Semiring, Av, Ap, Bv, Bp, at: Type, bt: Type):
     """Any (monoid, mult): k blocks of broadcast multiply [m, kc, n],
     absent pairs set to the add identity, monoid-reduced over kc and
-    folded into the carry."""
+    folded into the carry (every leaf of a struct value alike)."""
     m, k = Ap.shape
     n = Bp.shape[1]
     xt, yt, zt = sr.xtype, sr.ytype, sr.ztype
@@ -247,9 +259,10 @@ def _generic_path(sr: Semiring, Av, Ap, Bv, Bp, at: Type, bt: Type):
     kc = max(1, min(k, _GENERIC_BUDGET // max(1, m * n)))
     for s in range(0, k, kc):
         pair = Ap[:, s:s + kc, None] & Bp[None, s:s + kc, :]
-        z = sr.mult(Av[:, s:s + kc, None], Bv[None, s:s + kc, :])
-        z = torch.where(pair, z.to(zt.storage), ident)
-        out = sr.add(out, sr.add.reduce(z, axis=1)).to(zt.storage)
+        z = sr.mult(tree_map(lambda a: a[:, s:s + kc, None], Av),
+                    tree_map(lambda b: b[None, s:s + kc, :], Bv))
+        z = tree_where(pair, cast_result(z, zt), ident)
+        out = cast_result(sr.add(out, sr.add.reduce(z, axis=1)), zt)
     return out, "vpu:generic"
 
 
@@ -268,6 +281,7 @@ def semiring_mm(sr: Semiring, Av, Ap, Bv, Bp, method_hint=None,
                                 f"{tuple(Bp.shape)}")
     atype = atype or type_of_storage(Av.dtype)
     btype = btype or type_of_storage(Bv.dtype)
+    dev = Ap.device
     tpat = _pattern_mm(Ap, Bp)
     fast = None
     if method_hint not in ("gustavson", "heap"):
@@ -279,8 +293,8 @@ def semiring_mm(sr: Semiring, Av, Ap, Bv, Bp, method_hint=None,
         vals, method = _generic_path(sr, Av, Ap, Bv, Bp, atype, btype)
     record_axb_method(method)
     zt = sr.ztype
-    vals = torch.where(tpat, vals.to(zt.storage),
-                       torch.zeros((), dtype=zt.storage, device=tpat.device))
+    vals = tree_where(tpat, cast_result(vals, zt),
+                      zeros_like_typed((), zt, dev))
     return vals, tpat, method
 
 
@@ -353,7 +367,7 @@ def _mxm_spmm(C: Matrix, M, accum, sr: Semiring, A, B: Matrix,
     from ..sparse.spmm import csr_spmm_dense
     Ac = to_csr_operand(A, tran=d.tran0, what="mxm input A")
     B = B.wait()
-    Bv, Bp = (B.values.T, B.pattern.T) if d.tran1 else (B.values, B.pattern)
+    Bv, Bp = _oriented(B, d.tran1)
     if Ac.ncols != Bv.shape[0]:
         raise DimensionMismatch(f"A is {Ac.shape}, B is {tuple(Bv.shape)}")
     allp = bool(Bp.all())
@@ -370,12 +384,20 @@ def _mxm_bitmap(C: Matrix, M, accum, sr: Semiring, A, B, d: Descriptor):
     A = to_bitmap_operand(A, "mxm input A")
     B = to_bitmap_operand(B, "mxm input B")
     M = to_bitmap_operand(M, "mxm mask") if M is not None else None
-    Av, Ap = (A.values.T, A.pattern.T) if d.tran0 else (A.values, A.pattern)
-    Bv, Bp = (B.values.T, B.pattern.T) if d.tran1 else (B.values, B.pattern)
+    Av, Ap = _oriented(A, d.tran0)
+    Bv, Bp = _oriented(B, d.tran1)
     tvals, tpat, _ = semiring_mm(sr, Av, Ap, Bv, Bp,
                                  method_hint=d.axb_method, atype=A.type,
                                  btype=B.type)
     return accum_mask(C, M, Matrix(tvals, tpat, sr.ztype), accum, d)
+
+
+def _oriented(X, tran: bool):
+    """(values, pattern) of a bitmap container, transposed when asked
+    (every leaf of a struct value alike)."""
+    if not tran:
+        return X.values, X.pattern
+    return tree_map(lambda v: v.T, X.values), X.pattern.T
 
 
 def _mxm_hyper(C, M, accum, sr: Semiring, A, B, d: Descriptor):
@@ -464,7 +486,10 @@ def mxm(C, M, accum: Optional[BinaryOp], semiring: Semiring, A, B,
         raise UnsupportedContainer(
             f"mxm output C: expected a CsrMatrix, a hypersparse container "
             f"or a bitmap Matrix, got {type(C).__name__}")
-    if isinstance(A, (CsrMatrix, CscMatrix)) and isinstance(B, Matrix):
+    if (isinstance(A, (CsrMatrix, CscMatrix)) and isinstance(B, Matrix)
+            and not any(t.is_udt for t in (semiring.ztype, semiring.xtype,
+                                           semiring.ytype, A.type,
+                                           B.type))):
         return _mxm_spmm(C, M, accum, semiring, A, B, d)
     return _mxm_bitmap(C, M, accum, semiring, A, B, d)
 
@@ -538,12 +563,14 @@ def mxv(w, m, accum: Optional[BinaryOp], semiring: Semiring, A, u,
         yv, yp = _csr_spmv(semiring, A, u)
         return accum_mask(w, m, Vector(yv, yp, semiring.ztype), accum, d)
     A = to_bitmap_operand(A, "mxv input A")
-    Av, Ap = (A.values.T, A.pattern.T) if d.tran0 else (A.values, A.pattern)
-    tvals, tpat, _ = semiring_mm(semiring, Av, Ap, u.values[:, None],
+    Av, Ap = _oriented(A, d.tran0)
+    tvals, tpat, _ = semiring_mm(semiring, Av, Ap,
+                                 tree_map(lambda v: v[:, None], u.values),
                                  u.pattern[:, None],
                                  method_hint=d.axb_method, atype=A.type,
                                  btype=u.type)
-    T = Vector(tvals[:, 0], tpat[:, 0], semiring.ztype)
+    T = Vector(tree_map(lambda v: v[:, 0], tvals), tpat[:, 0],
+               semiring.ztype)
     return accum_mask(w, m, T, accum, d)
 
 
@@ -584,10 +611,12 @@ def vxm(w, m, accum: Optional[BinaryOp], semiring: Semiring, u, A,
         yv, yp = _csr_spmv(_flipped(semiring), A, u)
         return accum_mask(w, m, Vector(yv, yp, semiring.ztype), accum, d)
     A = to_bitmap_operand(A, "vxm input A")
-    Av, Ap = (A.values.T, A.pattern.T) if d.tran1 else (A.values, A.pattern)
-    tvals, tpat, _ = semiring_mm(semiring, u.values[None, :],
+    Av, Ap = _oriented(A, d.tran1)
+    tvals, tpat, _ = semiring_mm(semiring,
+                                 tree_map(lambda v: v[None, :], u.values),
                                  u.pattern[None, :], Av, Ap,
                                  method_hint=d.axb_method, atype=u.type,
                                  btype=A.type)
-    T = Vector(tvals[0, :], tpat[0, :], semiring.ztype)
+    T = Vector(tree_map(lambda v: v[0, :], tvals), tpat[0, :],
+               semiring.ztype)
     return accum_mask(w, m, T, accum, d)

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 from typing import Any, Optional, Union
 
+import numpy as np
 import torch
 
 from ..core.descriptor import Descriptor, desc_of
@@ -27,7 +28,9 @@ from ..core.mask import accum_mask
 from ..core.matrix import Vector
 from ..core.monoids import Monoid
 from ..core.ops import BinaryOp
-from ..core.types import cast, cast_result, cast_value
+from ..core.types import (cast, cast_result, cast_value, full_typed,
+                          zeros_like_typed)
+from ..utils.tree import tree_map
 from ..utils import counters
 from .containers import (UnsupportedContainer, require_builtin,
                          require_container, to_csr_operand, to_hyper_operand,
@@ -98,8 +101,8 @@ def reduce_to_vector(w: Vector, m: Optional[Vector],
             raise DimensionMismatch(
                 f"w has size {w.size}, A has {Ah.nrows} rows")
         ids, vals = hyper_reduce_vector(mon, Ah)
-        return accum_mask(w, m, Vector.from_coo(
-            ids, vals, w.size, type=mon.type, device=w.device), accum, d)
+        return accum_mask(w, m, _scatter_vector(ids, vals, w.size, mon.type,
+                                                w.device), accum, d)
     if isinstance(A, (CsrMatrix, CscMatrix)):
         from ..sparse.ewise import csr_reduce_rows
         A = to_csr_operand(A, d.tran0, "reduce input")
@@ -111,7 +114,7 @@ def reduce_to_vector(w: Vector, m: Optional[Vector],
     A = A.wait()
     vals, pat = A.values, A.pattern
     if d.tran0:
-        vals, pat = vals.T, pat.T
+        vals, pat = tree_map(lambda v: v.T, vals), pat.T
     if pat.shape[0] != w.size:
         raise DimensionMismatch(
             f"w has size {w.size}, A has {pat.shape[0]} rows")
@@ -120,14 +123,30 @@ def reduce_to_vector(w: Vector, m: Optional[Vector],
     return accum_mask(w, m, T, accum, d)
 
 
+def _scatter_vector(ids, vals, n: int, t, device) -> Vector:
+    """A bitmap Vector of size ``n`` holding ``vals`` (host or device;
+    a dict for a struct type) at the distinct indices ``ids``."""
+    idx = torch.as_tensor(np.asarray(ids, np.int64), device=device)
+    pat = torch.zeros(n, dtype=torch.bool, device=device)
+    pat[idx] = True
+    out = zeros_like_typed(n, t, device)
+
+    def put(o, v):
+        v = torch.as_tensor(v).to(device)
+        o[idx] = v.to(o.dtype)
+    if t.is_udt:
+        tree_map(put, out, vals)
+        return Vector(out, pat, t)
+    return Vector.from_coo(ids, vals, n, type=t, device=device)
+
+
 def _accum_scalar(accum: BinaryOp, c, t):
     """accum(c, t) on host scalars, through the op itself; a numpy
     scalar of its ztype."""
     from ..sparse.ewise import host_scalar
 
     def arg(v, typ):
-        return torch.tensor(typ.storage_scalar(cast_value(v, typ)),
-                            dtype=typ.storage)
+        return full_typed((), cast_value(v, typ), typ, "cpu")
     z = cast_result(accum(arg(c, accum.xtype), arg(t, accum.ytype)),
                     accum.ztype)
     return host_scalar(z, accum.ztype)

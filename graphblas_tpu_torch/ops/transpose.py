@@ -11,22 +11,21 @@ output's (i, j) list is the outer sum of the operands' tuple lists,
 ``GB_kron_kernel.c:9-17``'s loop, vectorized.  A hypersparse output
 (``HyperMatrix``, or ``HyperCscMatrix`` in the transposed frame) takes
 the pair re-sort of ``hyper_transpose`` and a hypersparse kron build,
-then ``hyper_accum_mask``.
+then ``hyper_accum_mask``.  Struct values of a user-defined type move
+leaf by leaf in every form.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
-import torch
-
 from ..core.descriptor import Descriptor, desc_of
 from ..core.errors import DimensionMismatch
 from ..core.mask import accum_mask
-from ..core.matrix import Matrix, Vector
+from ..core.matrix import Matrix, Vector, device_values, host_values
 from ..core.ops import BinaryOp, UnaryOp
 from ..core.types import cast, cast_result
+from ..utils.tree import tree_map
 from ..utils import counters
 from ..sparse.vector import SparseVec
 from .containers import (UnsupportedContainer, require_builtin,
@@ -81,11 +80,12 @@ def transpose(C, M, accum: Optional[BinaryOp], A,
     M = to_bitmap_operand(M, "mask") if M is not None else None
     vals, pat, t = A.values, A.pattern, A.type
     if not d.tran0:
-        vals, pat = vals.T, pat.T
+        vals, pat = tree_map(lambda v: v.T, vals), pat.T
     if op is not None:
         vals = cast_result(op(cast(vals, op.xtype, t)), op.ztype)
         t = op.ztype
-    T = Matrix(vals.contiguous(), pat.contiguous(), t).canonical()
+    T = Matrix(tree_map(lambda v: v.contiguous(), vals), pat.contiguous(),
+               t).canonical()
     return accum_mask(C, M, T, accum, d)
 
 
@@ -102,13 +102,13 @@ def _kron_tuples(op: BinaryOp, A, B):
     dev = A.device
 
     def typed(X, src, dst):
-        x = torch.from_numpy(np.array(src.to_storage(X))).to(dev)
-        return cast(x, dst, src)
-    z = cast_result(op(typed(XA, A.type, op.xtype)[:, None],
-                       typed(XB, B.type, op.ytype)[None, :]), op.ztype)
-    Z = z.reshape(-1).cpu().numpy()
-    if op.ztype.is_unsigned:
-        Z = Z.view(op.ztype.dtype)
+        return cast(device_values(X, src, dev), dst, src)
+    a = tree_map(lambda v: v[:, None], typed(XA, A.type, op.xtype))
+    b = tree_map(lambda v: v[None, :], typed(XB, B.type, op.ytype))
+    z = cast_result(op(a, b), op.ztype)
+    shape = (len(IA), len(IB))
+    Z = host_values(tree_map(lambda v: v.expand(shape).reshape(-1), z),
+                    op.ztype)
     return I, J, Z
 
 
@@ -152,14 +152,16 @@ def kron(C, M, accum: Optional[BinaryOp], op: BinaryOp, A, B,
     A = to_bitmap_operand(A, "kron input A")
     B = to_bitmap_operand(B, "kron input B")
     M = to_bitmap_operand(M, "mask") if M is not None else None
-    Av, Ap = (A.values.T, A.pattern.T) if d.tran0 else (A.values, A.pattern)
-    Bv, Bp = (B.values.T, B.pattern.T) if d.tran1 else (B.values, B.pattern)
+    from .mxm import _oriented
+    Av, Ap = _oriented(A, d.tran0)
+    Bv, Bp = _oriented(B, d.tran1)
     am, an = Ap.shape
     bm, bn = Bp.shape
-    a = cast(Av, op.xtype, A.type)[:, None, :, None]
-    b = cast(Bv, op.ytype, B.type)[None, :, None, :]
+    a = tree_map(lambda v: v[:, None, :, None], cast(Av, op.xtype, A.type))
+    b = tree_map(lambda v: v[None, :, None, :], cast(Bv, op.ytype, B.type))
     vals = cast_result(op(a, b), op.ztype)
-    vals = vals.expand(am, bm, an, bn).reshape(am * bm, an * bn)
+    vals = tree_map(lambda v: v.expand(am, bm, an, bn).reshape(
+        am * bm, an * bn), vals)
     pat = (Ap[:, None, :, None] & Bp[None, :, None, :]).reshape(
         am * bm, an * bn)
     T = Matrix(vals, pat, op.ztype).canonical()

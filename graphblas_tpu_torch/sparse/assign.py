@@ -39,7 +39,8 @@ import torch
 from ..core.descriptor import Descriptor, desc_of
 from ..core.errors import DimensionMismatch, InvalidValue
 from ..core.ops import BinaryOp
-from ..core.types import Type, cast_value
+from ..core.types import Type, cast_value, full_typed, value_take
+from ..utils.tree import tree_map
 from ..utils.indices import normalize_indices
 from .container import CsrMatrix
 from .esc import _bucket, _empty_csr
@@ -65,7 +66,7 @@ def _compact(keys: torch.Tensor, values: torch.Tensor, m_out: int,
     rowids, values, nnz)."""
     big = torch.iinfo(kdt).max
     ks, perm = torch.sort(keys, stable=True)
-    vs = values[perm]
+    vs = value_take(values, perm)
     is_live = ks < big
     oi = torch.where(is_live, ks // n_out, m_out).to(torch.int32)
     oj = torch.where(is_live, ks % n_out, n_out).to(torch.int32)
@@ -94,7 +95,8 @@ def _map_compact(A: CsrMatrix, row_map, col_map, m_out: int,
     key = torch.where(keep, rr.to(kdt) * n_out + cc.to(kdt), big)
     indptr, oj, oi, ov, n = _compact(key, A.values, m_out, n_out, kdt)
     cap = min(_bucket(max(n, 8)), A.nzmax)
-    return CsrMatrix(indptr, oj[:cap], oi[:cap], ov[:cap], n, m_out, n_out,
+    return CsrMatrix(indptr, oj[:cap], oi[:cap],
+                     tree_map(lambda v: v[:cap], ov), n, m_out, n_out,
                      A.type)
 
 
@@ -143,24 +145,24 @@ def _union_disjoint(X: CsrMatrix, Y: CsrMatrix) -> CsrMatrix:
         return torch.where(live, k, big)
 
     keys = torch.cat([keys_of(X), keys_of(Y)])
-    vals = torch.cat([X.values, Y.values])
+    vals = tree_map(lambda x, y: torch.cat([x, y]), X.values, Y.values)
     E = X.nzmax + Y.nzmax
     indptr, oj, oi, ov, nv = _compact(keys, vals, m, n, kdt)
     cap = min(_bucket(max(nv, 8)), E)
-    return CsrMatrix(indptr, oj[:cap], oi[:cap], ov[:cap], nv, m, n, X.type)
+    return CsrMatrix(indptr, oj[:cap], oi[:cap],
+                     tree_map(lambda v: v[:cap], ov), nv, m, n, X.type)
 
 
 def _scalar_region(scalar, ni: int, nj: int, t: Type, device) -> CsrMatrix:
     """Scalar expansion: the all-present ni x nj region as CSR
     (``GB_subassign_scalar.c``'s implicit A)."""
-    v = t.storage_scalar(cast_value(scalar, t))
     nnz = ni * nj
     cap = _bucket(max(nnz, 8))
     lane = torch.arange(cap, device=device)
     live = lane < nnz
     rows = torch.where(live, lane // max(nj, 1), ni).to(torch.int32)
     cols = torch.where(live, lane % max(nj, 1), nj).to(torch.int32)
-    vals = torch.full((cap,), v, dtype=t.storage, device=device)
+    vals = full_typed((cap,), cast_value(scalar, t), t, device)
     indptr = torch.arange(ni + 1, dtype=torch.int32, device=device) * nj
     return CsrMatrix(indptr, cols, rows, vals, nnz, ni, nj, t)
 

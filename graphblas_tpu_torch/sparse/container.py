@@ -15,6 +15,12 @@ The default device is the CUDA card: a constructor called without
 work on the CPU); helpers that make tensors from a container's take its
 device.  ``CscMatrix`` is the by-column twin (the stored transpose).
 
+Over a user-defined type ``values`` is a dict of padded tensors, one per
+field (:mod:`graphblas_tpu_torch.core.types`), sorted and padded in
+lockstep with the keys; ``csr_from_coo`` over such a type rejects
+duplicate tuples, since no dup operator folds structs by default (the
+JAX package's ``_csr_from_coo_udt``).
+
 Element mutation is functional, as in the JAX package: ``setElement``
 returns a new container with one more pending tuple (host-side, no
 device work), ``wait`` folds them (:mod:`.pending`), and every read of
@@ -30,8 +36,9 @@ import numpy as np
 import torch
 
 from ..core.errors import IndexOutOfBounds
-from ..core.matrix import Matrix, as_pending
+from ..core.matrix import Matrix, as_pending, device_values, host_values
 from ..core.types import Type, type_of_dtype
+from ..utils.tree import tree_map
 from ..io.native import sort_dedup_native, sort_pairs_native
 
 __all__ = ["CsrMatrix", "CscMatrix", "csr_from_coo", "default_device",
@@ -118,8 +125,9 @@ class CsrMatrix:
         pos = int(np.searchsorted(row, j))
         if pos >= len(row) or row[pos] != j:
             return None
-        x = A.values[s + pos:s + pos + 1].cpu().numpy()
-        return (x.view(A.type.dtype) if A.type.is_unsigned else x)[0]
+        x = host_values(tree_map(lambda v: v[s + pos:s + pos + 1],
+                                 A.values), A.type)
+        return tree_map(lambda a: a[0], x)
 
     def removeElement(self, i: int, j: int) -> "CsrMatrix":
         """Delete one entry — the functional form of a zombie +
@@ -168,9 +176,7 @@ class CsrMatrix:
         """(I, J, X) of the live entries as host arrays, X in the type's
         numpy dtype (pending tuples folded first)."""
         A = self.wait()
-        X = A.values[:A.nvals].cpu().numpy()
-        if A.type.is_unsigned:
-            X = X.view(A.type.dtype)
+        X = host_values(tree_map(lambda v: v[:A.nvals], A.values), A.type)
         return (A.rowids[:A.nvals].cpu().numpy().astype(np.int64),
                 A.indices[:A.nvals].cpu().numpy().astype(np.int64),
                 X)
@@ -191,11 +197,15 @@ class CsrMatrix:
         dev = self.device
         lin = (self.rowids[:self.nvals].long() * n
                + self.indices[:self.nvals].long())
-        vals = torch.zeros(m * n, dtype=self.values.dtype, device=dev)
-        vals[lin] = self.values[:self.nvals]
+
+        def scat(v):
+            out = torch.zeros(m * n, dtype=v.dtype, device=dev)
+            out[lin] = v[:self.nvals]
+            return out.reshape(m, n)
         pat = torch.zeros(m * n, dtype=torch.bool, device=dev)
         pat[lin] = True
-        return Matrix(vals.reshape(m, n), pat.reshape(m, n), self.type)
+        return Matrix(tree_map(scat, self.values), pat.reshape(m, n),
+                      self.type)
 
     def T(self) -> "CsrMatrix":
         """Transpose = re-sorted COO (host side, a counting sort in the
@@ -277,8 +287,8 @@ class CscMatrix:
 
     def to_matrix(self) -> Matrix:
         M = self.tr.to_matrix()
-        return Matrix(M.values.T.contiguous(), M.pattern.T.contiguous(),
-                      self.type)
+        return Matrix(tree_map(lambda v: v.T.contiguous(), M.values),
+                      M.pattern.T.contiguous(), self.type)
 
     def extractTuples(self):
         """(I, J, X) in column order (the CSC storage order)."""
@@ -363,6 +373,9 @@ def csr_from_coo(I, J, X, nrows: int, ncols: int,
     device = resolve_device(device)
     I = np.asarray(I, np.int64)
     J = np.asarray(J, np.int64)
+    if type is not None and type.is_udt:
+        return _csr_from_coo_udt(I, J, X, nrows, ncols, type, nzmax,
+                                 sum_duplicates, device)
     X = np.asarray(X)
     t = type or type_of_dtype(X.dtype)
     if I.size:
@@ -394,5 +407,62 @@ def csr_from_coo(I, J, X, nrows: int, ncols: int,
 
     A = CsrMatrix(dev(indptr), dev(indices), dev(rowids),
                   dev(t.to_storage(values)), nvals, nrows, ncols, t)
+    A._options["host_pattern"] = (rowids, indices)
+    return A
+
+
+def _udt_host(X, t: Type):
+    """A struct value's field arrays as host arrays of the fields'
+    dtypes (tensors copied back)."""
+    if not isinstance(X, dict):
+        raise TypeError(f"values of the user-defined type {t.name} must be "
+                        f"a dict of field arrays")
+    return {k: _udt_host(X[k], ft) if ft.is_udt else np.asarray(
+        X[k].cpu() if isinstance(X[k], torch.Tensor) else X[k]).astype(
+            ft.dtype, copy=False) for k, ft in t.fields}
+
+
+def _csr_from_coo_udt(I, J, X, nrows: int, ncols: int, t: Type,
+                      nzmax: Optional[int], sum_duplicates: bool,
+                      device) -> CsrMatrix:
+    """The build over a user-defined type: every field sorted and padded
+    in lockstep with the (i, j) keys.  With ``sum_duplicates`` a repeated
+    tuple raises ``TypeError``: no default dup op folds structs (the
+    reference requires an explicit dup op, ``GB_build.c``)."""
+    if I.size:
+        imin, imax = I.min(), I.max()
+        jmin, jmax = J.min(), J.max()
+        if imin < 0 or imax >= nrows or jmin < 0 or jmax >= ncols:
+            raise IndexOutOfBounds(
+                f"tuple index out of range for {nrows}x{ncols}: "
+                f"rows [{imin},{imax}], cols [{jmin},{jmax}]")
+    X = _udt_host(X, t)
+    if I.size:
+        order = np.lexsort((J, I))
+        I, J = I[order], J[order]
+        X = tree_map(lambda a: a[order], X)
+        lin = I * ncols + J
+        if sum_duplicates and I.size > 1 and np.any(lin[1:] == lin[:-1]):
+            raise TypeError("struct (user-defined) tuples must be "
+                            "duplicate-free: no default dup op folds them")
+    nvals = len(I)
+    cap = nzmax or _round_up(max(nvals, 8), 128)
+    if cap < nvals:
+        raise ValueError(f"nzmax {cap} < nvals {nvals}")
+    indptr = np.zeros(nrows + 1, np.int32)
+    np.add.at(indptr, I + 1, 1)
+    indptr = np.cumsum(indptr).astype(np.int32)
+    indices = np.full(cap, ncols, np.int32)
+    rowids = np.full(cap, nrows, np.int32)
+    indices[:nvals] = J
+    rowids[:nvals] = I
+    vals = tree_map(lambda v: torch.cat([v, v.new_zeros(cap - nvals)]),
+                    device_values(X, t, device))
+
+    def dev(a):
+        return torch.from_numpy(a).to(device)
+
+    A = CsrMatrix(dev(indptr), dev(indices), dev(rowids), vals, nvals,
+                  nrows, ncols, t)
     A._options["host_pattern"] = (rowids, indices)
     return A

@@ -240,7 +240,8 @@ def tricount_bsr_pallas(Lp, Up, T: int = TILE, device=None) -> int:
 
 def _bitmap(X, what: str):
     """(values, pattern, type) of a bitmap Matrix, CsrMatrix or
-    CscMatrix operand."""
+    CscMatrix operand; the values are None for a user-defined type (the
+    structural modes read the pattern only, as the JAX package's)."""
     from ..core.matrix import Matrix
     from ..ops.containers import UnsupportedContainer
     from .container import CscMatrix, CsrMatrix
@@ -249,10 +250,8 @@ def _bitmap(X, what: str):
     if not isinstance(X, Matrix):
         raise UnsupportedContainer(f"masked_mxm {what}: expected a Matrix "
                                    f"or CsrMatrix, got {type(X).__name__}")
-    if X.type.is_udt:
-        raise NotImplementedError("user-defined types come with a later "
-                                  "slice of the port")
-    return X.values, X.pattern, X.type
+    X = X.wait()
+    return (None if X.type.is_udt else X.values), X.pattern, X.type
 
 
 def _mode(semiring) -> str:
@@ -318,6 +317,12 @@ def masked_mxm(M, A, B, semiring=None, T: int = TILE):
     # -> truthy counts (INT32), LOR_LAND -> truthy reachability (BOOL),
     # PLUS_TIMES -> float product (FP32); anything else raises
     mode = _mode(semiring)
+    if mode != "count_structural" and (Av is None or Bv is None or any(
+            t.is_complex for t in (At, Bt))):
+        # the value and truthy tiles hold real builtin values
+        raise TypeError(f"the tile engine's {mode} mode takes builtin "
+                        f"real values, not {At.name} x {Bt.name}; use "
+                        f"gt.mxm")
     if Apat.shape[1] != Bpat.shape[0]:
         raise DimensionMismatch(f"inner dims {tuple(Apat.shape)} x "
                                 f"{tuple(Bpat.shape)}")

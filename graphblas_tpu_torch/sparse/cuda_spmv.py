@@ -137,6 +137,8 @@ def bsr_spmv_ok(sr: Semiring, A: CsrMatrix, T: int = TILE) -> bool:
     the CPU never takes the tile engine."""
     if (sr.add.op.name, sr.mult.name) != ("PLUS", "TIMES"):
         return False
+    if any(t.is_udt for t in (sr.ztype, sr.xtype, sr.ytype, A.type)):
+        return False      # a struct type has no dtype to test
     if np.dtype(sr.ztype.dtype) != np.float32:
         return False
     opt = A._options.get("bsr_spmv")

@@ -27,7 +27,16 @@ lane is the key of mask entry ``cumsum(is_mask) - 1``.
 Capacity planning reads two scalars on a cold call (the flop total, from
 the host patterns when present, and the output nnz); both are kept in a
 per-(A, B, mask) plan cache with the expansion carries, so warm calls
-read nothing back.  User-defined types come with a later slice.
+read nothing back.
+
+Values of a user-defined type ride the engine field by field: every
+leaf is gathered by the same lanes and permuted by the same stable key
+sort (the JAX package sorts the leaves as extra sort operands, in the
+sorted-key order of :mod:`graphblas_tpu_torch.utils.tree`), the add
+monoid folds each segment by the generic segmented scan over the
+struct, and a mask with struct values raises (only a structural mask is
+valid over them).  Complex PLUS folds by parts, complex TIMES by the
+generic fold.
 """
 
 from __future__ import annotations
@@ -40,17 +49,14 @@ import torch
 
 from ..core.errors import DimensionMismatch
 from ..core.semirings import Semiring
-from ..core.types import Type, cast, zeros_like_typed
+from ..core.types import (Type, cast, cast_result, tree_where, value_take,
+                          zeros_like_typed)
 from ..ops.flopcount import record_axb_method
+from ..utils.tree import tree_map
 from .container import CsrMatrix
-from .spmv import segment_reduce, segment_reduce_sorted
+from .spmv import segment_fold
 
 __all__ = ["csr_spgemm", "esc_combine", "_bucket"]
-
-# monoids with a direct segment reduction; everything else folds via
-# the segmented scan
-_SEGMENT_MONOIDS = ("PLUS", "TIMES", "MIN", "MAX", "LOR", "LAND", "LXOR",
-                    "EQ")
 
 #: lanes per program: a memory bound (the expansion holds about a dozen
 #: lane-sized arrays, ~100 B/lane); bigger products split into
@@ -79,33 +85,19 @@ def _bucket4(x: int, lo: int = 1024) -> int:
     return c
 
 
-def _check_builtin(*types: Type) -> None:
-    for t in types:
-        if t.is_udt:
-            raise NotImplementedError(
-                "user-defined types come with a later slice of the port")
-
-
 def _mask_keys(M: CsrMatrix, n: int, kdt, big: int,
                structural: bool = False) -> torch.Tensor:
     """Sorted truthy-entry keys of the mask (padded lanes -> big)."""
     dev = M.device
     live = torch.arange(M.nzmax, device=dev) < M.nvals
     if not structural:
+        if M.type.is_udt:
+            raise TypeError("a mask with user-defined values is not valid; "
+                            "use a structural mask")
         live = live & (M.values != 0)
     keys = M.rowids.to(kdt) * n + M.indices.to(kdt)
     keys = torch.where(live, keys, big)
     return torch.sort(keys).values
-
-
-def _segmented_fold(add, zs: torch.Tensor, seg: torch.Tensor, nseg: int,
-                    ident, ztype: Type) -> torch.Tensor:
-    """Fold each sorted segment with the add monoid -> (nseg,) values
-    indexed by segment id."""
-    name = add.op.name
-    if name in _SEGMENT_MONOIDS:
-        return segment_reduce(name, zs, seg, nseg, ident, ztype)
-    return segment_reduce_sorted(add.op, ident, zs, seg, nseg)
 
 
 def _carries(A: CsrMatrix, B: CsrMatrix):
@@ -157,18 +149,20 @@ def _esc_core(sr: Semiring, E: int, m: int, n: int, has_mask: bool,
     key = i.to(kdt) * n + j.to(kdt)
 
     xt, yt, zt = sr.xtype, sr.ytype, sr.ztype
-    a = cast(a_values[ec], xt, atype)
-    b = cast(b_values[posc], yt, btype)
-    z = sr.mult(a, b).to(zt.storage)
+    a = cast(value_take(a_values, ec), xt, atype)
+    b = cast(value_take(b_values, posc), yt, btype)
+    z = cast_result(sr.mult(a, b), zt)
     ident = sr.add.identity_value()
+    ident_arr = sr.add.identity_array((), dev)
 
     if has_mask:
         NM = m_keys.shape[0]
         allk = torch.cat([m_keys * 2, key * 2 + 1])
         sk, order = torch.sort(allk, stable=True)
         is_m = order < NM
-        zs = torch.cat([torch.full((NM,), ident, dtype=z.dtype,
-                                   device=dev), z])[order]
+        zs = tree_map(lambda v, i: torch.cat([
+            torch.full((NM,), i, dtype=v.dtype, device=dev), v])[order],
+            z, ident)
         # running maximum of the (sorted) mask keys: a gather of the
         # mask key counted so far
         mrank = torch.cumsum(is_m, 0) - 1
@@ -177,18 +171,17 @@ def _esc_core(sr: Semiring, E: int, m: int, n: int, has_mask: bool,
         match = lane & (sk == run + 1)
         keep = (lane & ~match) if complement else match
         ks = torch.where(keep, sk >> 1, big)
-        zs = torch.where(keep, zs, torch.full((), ident, dtype=zs.dtype,
-                                               device=dev))
+        zs = tree_where(keep, zs, ident_arr)
     else:
         ks, order = torch.sort(key, stable=True)
-        zs = z[order]
+        zs = value_take(z, order)
     E2 = ks.shape[0]
     EO = E + (m_keys.shape[0] if has_mask else 0)
 
     head = torch.ones(E2, dtype=torch.bool, device=dev)
     head[1:] = ks[1:] != ks[:-1]
     seg = torch.cumsum(head, 0) - 1
-    seg_vals = _segmented_fold(sr.add, zs, seg, E2 + 1, ident, zt)
+    seg_vals = segment_fold(sr.add, zs, seg, E2 + 1, zt)
 
     # compact: one output slot per live head
     out_head = head & (ks < big)
@@ -197,9 +190,10 @@ def _esc_core(sr: Semiring, E: int, m: int, n: int, has_mask: bool,
     tgt = torch.where(out_head, r, EO + 1)
     out_keys = torch.full((EO + 2,), sent, dtype=kdt, device=dev)
     out_keys.scatter_(0, tgt, ks)
-    out_vals = zeros_like_typed((EO + 2,), zt, dev)
-    out_vals.scatter_(0, tgt, seg_vals[seg])
-    out_keys, out_vals = out_keys[:EO + 1], out_vals[:EO + 1]
+    out_vals = tree_map(
+        lambda o, v: o.scatter_(0, tgt, v[seg].to(o.dtype))[:EO + 1],
+        zeros_like_typed((EO + 2,), zt, dev), seg_vals)
+    out_keys = out_keys[:EO + 1]
     return _assemble(out_keys, sent, m, n) + (out_vals, nnzC)
 
 
@@ -239,7 +233,6 @@ def csr_spgemm(sr: Semiring, A: CsrMatrix, B: CsrMatrix,
         raise DimensionMismatch(f"inner dims {A.shape} x {B.shape}")
     if mask is not None and mask.shape != (m, n):
         raise DimensionMismatch(f"mask {mask.shape} vs output {(m, n)}")
-    _check_builtin(sr.xtype, sr.ytype, sr.ztype, A.type, B.type)
     zt = sr.ztype
 
     # key dtype: int32 sorts faster; the masked path carries keys as
@@ -251,8 +244,8 @@ def csr_spgemm(sr: Semiring, A: CsrMatrix, B: CsrMatrix,
         kdt = torch.int64
     else:
         raise NotImplementedError(
-            "dimension product exceeds 2^62; the hypersparse container "
-            "comes with a later slice")
+            "dimension product exceeds 2^62; use a HyperMatrix output "
+            "(the pair-key engine of sparse.hyper)")
 
     pkey = ("_spgemm_plan", bool(complement), bool(structural))
     # a valued (non-structural) mask keys output nnz on its VALUES too
@@ -302,7 +295,7 @@ def csr_spgemm(sr: Semiring, A: CsrMatrix, B: CsrMatrix,
                             _ref(mask_vbuf), flops, nnz, carries)
     cap = min(_bucket(max(nnz, 8)), E + 1)
     record_axb_method("esc:csr_spgemm")
-    return CsrMatrix(indptr, oj[:cap], oi[:cap], ov[:cap], nnz, m, n, zt)
+    return CsrMatrix(indptr, oj[:cap], oi[:cap], tree_map(lambda v: v[:cap], ov), nnz, m, n, zt)
 
 
 def _csr_spgemm_chunked(sr: Semiring, A: CsrMatrix, B: CsrMatrix,
@@ -359,9 +352,9 @@ def _csr_spgemm_chunked(sr: Semiring, A: CsrMatrix, B: CsrMatrix,
                 torch.cat([A.rowids[s0:e0],
                            torch.full((pad,), m, dtype=A.rowids.dtype,
                                       device=dev)]),
-                torch.cat([A.values[s0:e0],
-                           torch.zeros(pad, dtype=A.values.dtype,
-                                       device=dev)]),
+                tree_map(lambda v: torch.cat([
+                    v[s0:e0], torch.zeros(pad, dtype=v.dtype, device=dev)]),
+                    A.values),
                 e0 - s0, m, A.ncols, A.type)
             if hpA is not None:
                 blk._options["host_pattern"] = (hpA[0][s0:e0],
@@ -393,8 +386,10 @@ def _merge_partials(sr: Semiring, P: CsrMatrix, Q: CsrMatrix,
     keys = torch.cat([keys_of(P), keys_of(Q)])
     tags = torch.cat([torch.zeros(P.nzmax, dtype=torch.bool, device=dev),
                       torch.ones(Q.nzmax, dtype=torch.bool, device=dev)])
-    va = torch.cat([P.values, torch.zeros_like(Q.values)])
-    vb = torch.cat([torch.zeros_like(P.values), Q.values])
+    va = tree_map(lambda p, q: torch.cat([p, torch.zeros_like(q)]),
+                  P.values, Q.values)
+    vb = tree_map(lambda p, q: torch.cat([torch.zeros_like(p), q]),
+                  P.values, Q.values)
     ok, ov, nnz = esc_combine(
         keys, tags, va, vb, zt, True, big,
         pair_fn=lambda a, b: sr.add.op(a, b),
@@ -404,7 +399,7 @@ def _merge_partials(sr: Semiring, P: CsrMatrix, Q: CsrMatrix,
     indptr, oj, oi = _assemble(torch.where(ok == big, m * n, ok), m * n,
                                m, n)
     cap = min(_bucket(max(nnz, 8)), E)
-    return CsrMatrix(indptr, oj[:cap], oi[:cap], ov[:cap], nnz, m, n, zt)
+    return CsrMatrix(indptr, oj[:cap], oi[:cap], tree_map(lambda v: v[:cap], ov), nnz, m, n, zt)
 
 
 def _empty_csr(m: int, n: int, t: Type, device) -> CsrMatrix:
@@ -437,24 +432,24 @@ def esc_combine(keys, tags, vals_a, vals_b, ztype: Type,
     # stable: A lanes stay before B lanes of the same key
     ks, perm = torch.sort(keys, stable=True)
     tg = tags[perm]
-    va = vals_a[perm]
-    vb = vals_b[perm]
+    va = value_take(vals_a, perm)
+    vb = value_take(vals_b, perm)
     head = torch.ones(E, dtype=torch.bool, device=dev)
     head[1:] = ks[1:] != ks[:-1]
     nxt_same = torch.zeros(E, dtype=torch.bool, device=dev)
     nxt_same[:-1] = ks[1:] == ks[:-1]
     live = ks < big
-    vb_next = torch.cat([vb[1:], vb[-1:]])
+    vb_next = tree_map(lambda v: torch.cat([v[1:], v[-1:]]), vb)
     is_pair = head & nxt_same & live
-    out_v = torch.where(is_pair, pair_fn(va, vb_next).to(ztype.storage),
-                        torch.where(tg, single_b_fn(vb).to(ztype.storage),
-                                    single_a_fn(va).to(ztype.storage)))
+    out_v = tree_where(is_pair, cast_result(pair_fn(va, vb_next), ztype),
+                       tree_where(tg, cast_result(single_b_fn(vb), ztype),
+                                  cast_result(single_a_fn(va), ztype)))
     keep = head & live if union else is_pair
     r = torch.cumsum(keep, 0) - 1
     nnz = keep.sum()
     tgt = torch.where(keep, r, E + 1)
     out_keys = torch.full((E + 2,), big, dtype=ks.dtype, device=dev)
     out_keys.scatter_(0, tgt, ks)
-    out_vals = zeros_like_typed((E + 2,), ztype, dev)
-    out_vals.scatter_(0, tgt, out_v)
-    return out_keys[:E + 1], out_vals[:E + 1], nnz
+    out_vals = tree_map(lambda o, v: o.scatter_(0, tgt, v)[:E + 1],
+                        zeros_like_typed((E + 2,), ztype, dev), out_v)
+    return out_keys[:E + 1], out_vals, nnz

@@ -27,6 +27,11 @@ term is ignored (``segment_reduce`` folds from the identity), and a row
 whose every column holds NaN reduces to NaN, as numpy's ``nanmin``
 does over the bitmap row.  The JAX package's CSR row reduce propagates
 every NaN instead (ROADMAP.md queue 3, "known in the reference").
+
+Values of a user-defined type ride every merge field by field (the
+struct-of-arrays form); their ops get and give dicts, and a user-
+defined monoid reduces rows by the generic segmented fold (the JAX
+package's CSR row reduce raises for it).
 """
 
 from __future__ import annotations
@@ -35,9 +40,11 @@ import torch
 
 from ..core.monoids import Monoid
 from ..core.ops import BinaryOp, SelectOp, UnaryOp
-from ..core.types import Type, cast, cast_result
+from ..core.types import (Type, cast, cast_result, tree_where,
+                          value_take, zeros_like_typed)
+from ..utils.tree import tree_map
 from .container import CsrMatrix
-from .spmv import segment_reduce
+from .spmv import segment_fold
 from .tri import csr_filter_lanes
 
 __all__ = ["csr_ewise_add", "csr_ewise_mult", "csr_apply", "csr_select",
@@ -80,25 +87,26 @@ def _union(op: BinaryOp, zt: Type, nrows: int, ncols: int, ka, kb,
     out_b = torch.arange(EB, device=dev) + torch.searchsorted(
         ka, kb, side="right")
     mk = _scatter(EC, out_a, ka, _BIG).scatter_(0, out_b, kb)
-    va_x = _scatter(EC, out_a, xa)
-    vb_y = _scatter(EC, out_b, xb)
-    va_z = _scatter(EC, out_a, za)
-    vb_z = _scatter(EC, out_b, zb)
+    va_x = tree_map(lambda v: _scatter(EC, out_a, v), xa)
+    vb_y = tree_map(lambda v: _scatter(EC, out_b, v), xb)
+    va_z = tree_map(lambda v: _scatter(EC, out_a, v), za)
+    vb_z = tree_map(lambda v: _scatter(EC, out_b, v), zb)
     isa = _scatter(EC, out_a, torch.arange(EA, device=dev) < nA, False)
     live = mk < _BIG
     dup = torch.zeros(EC, dtype=torch.bool, device=dev)
     dup[1:] = live[1:] & (mk[1:] == mk[:-1])
     first = live & ~dup
     pair = first & torch.cat([dup[1:], dup.new_zeros(1)])
-    zboth = cast_result(op(va_x, torch.roll(vb_y, -1)), zt)
-    z = torch.where(pair, zboth, torch.where(isa, va_z, vb_z))
+    zboth = cast_result(op(va_x, tree_map(lambda v: torch.roll(v, -1),
+                                          vb_y)), zt)
+    z = tree_where(pair, zboth, tree_where(isa, va_z, vb_z))
     # compact the first lanes in key order
     nv = int(first.sum())
     cap = max(nv, 8)
     sink = max(EC, cap)              # the slot the other lanes write
     tgt = torch.where(first, torch.cumsum(first, 0) - 1, sink)
     okeys = _scatter(sink + 1, tgt, mk, _BIG)[:cap]
-    ovals = _scatter(sink + 1, tgt, z)[:cap]
+    ovals = tree_map(lambda v: _scatter(sink + 1, tgt, v)[:cap], z)
     olive = okeys < _BIG
     oI = torch.where(olive, okeys // ncols, nrows).to(torch.int32)
     oJ = torch.where(olive, okeys % ncols, ncols).to(torch.int32)
@@ -131,9 +139,8 @@ def csr_ewise_mult(op: BinaryOp, A: CsrMatrix, B: CsrMatrix) -> CsrMatrix:
     xb = cast(B.values, op.ytype, B.type)
     posc = torch.searchsorted(kb, ka).clamp(max=kb.shape[0] - 1)
     match = (kb[posc] == ka) & (ka < _BIG)
-    z = cast_result(op(xa, xb[posc]), zt)
-    z = torch.where(match, z, torch.zeros((), dtype=z.dtype,
-                                          device=z.device))
+    z = cast_result(op(xa, value_take(xb, posc)), zt)
+    z = tree_where(match, z, zeros_like_typed((), zt, A.device))
     tmp = CsrMatrix(A.indptr, A.indices, A.rowids, z, A.nvals, A.nrows,
                     A.ncols, zt)
     return csr_filter_lanes(tmp, match)
@@ -144,8 +151,7 @@ def csr_apply(op: UnaryOp, A: CsrMatrix) -> CsrMatrix:
     (the ``GB_shallow_op`` trick: the structure arrays are reused)."""
     zt = op.ztype
     vals = cast_result(op(cast(A.values, op.xtype, A.type)), zt)
-    vals = torch.where(_live(A), vals,
-                       torch.zeros((), dtype=vals.dtype, device=A.device))
+    vals = tree_where(_live(A), vals, zeros_like_typed((), zt, A.device))
     return CsrMatrix(A.indptr, A.indices, A.rowids, vals, A.nvals,
                      A.nrows, A.ncols, zt)
 
@@ -165,12 +171,10 @@ def csr_reduce_rows(mon: Monoid, A: CsrMatrix):
     dev = A.device
     live = _live(A)
     vals = cast(A.values, t, A.type)
-    ident = mon.identity_value()
-    vals = torch.where(live, vals, torch.full((), ident, dtype=vals.dtype,
-                                              device=dev))
+    vals = tree_where(live, vals, mon.identity_array((), dev))
     rows = A.rowids.long().clamp(max=A.nrows)
-    red = segment_reduce(mon.op.name, vals, rows, A.nrows + 1, ident,
-                         t)[:A.nrows]
+    red = tree_map(lambda v: v[:A.nrows],
+                   segment_fold(mon, vals, rows, A.nrows + 1))
     deg = A.indptr[1:] - A.indptr[:-1]
     if t.is_float and mon.op.name in ("MIN", "MAX"):
         # a full row of NaN is NaN, as the bitmap reduce's nanmin gives
@@ -181,9 +185,12 @@ def csr_reduce_rows(mon: Monoid, A: CsrMatrix):
     return red, deg > 0
 
 
-def host_scalar(r: torch.Tensor, t: Type):
+def host_scalar(r, t: Type):
     """A one-element tensor of ``t``'s storage as a numpy scalar of the
-    type's own dtype (a UINT64 value read as unsigned)."""
+    type's own dtype (a UINT64 value read as unsigned; a dict of them
+    for a user-defined type)."""
+    if t.is_udt:
+        return {k: host_scalar(r[k], ft) for k, ft in t.fields}
     a = r.reshape(1).cpu().numpy()
     if t.is_unsigned:
         a = a.view(t.dtype)

@@ -40,6 +40,12 @@ so an unsigned MIN/MAX folds in the unsigned order).
 Every reduction folds through ``segment_reduce``: LOR/LAND by the op
 (0/1), float MIN/MAX ignoring NaN.  The JAX package's hypersparse
 reduce folds LOR/LAND by a max/min of the values.
+
+Struct values of a user-defined type ride every engine leaf by leaf
+(the pair sorts permute every field, the generic segmented fold reduces
+them); a build from tuples over such a type takes duplicate-free tuples
+only.  The JAX package's hypersparse containers refuse user-defined
+types in its element-wise ops and pending fold; the port runs them.
 """
 
 from __future__ import annotations
@@ -53,9 +59,12 @@ from ..core.matrix import as_pending
 from ..core.monoids import Monoid
 from ..core.ops import BinaryOp
 from ..core.semirings import Semiring
-from ..core.types import Type, cast, cast_result, type_of_dtype
+from ..core.matrix import host_values
+from ..core.types import (Type, cast, cast_result, tree_where, type_of_dtype,
+                          value_take, zeros_like_typed)
+from ..utils.tree import tree_map
 from .container import resolve_device
-from .spmv import segment_reduce
+from .spmv import segment_fold, segment_reduce
 
 __all__ = ["HyperMatrix", "hyper_from_coo", "hyper_spgemm",
            "hyper_ewise", "hyper_mxv", "hyper_reduce_scalar",
@@ -73,13 +82,6 @@ _I64MAX = torch.iinfo(torch.int64).max
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
-
-
-def _host_values(X: torch.Tensor, t: Type) -> np.ndarray:
-    """Device values of type ``t`` as host values of its numpy dtype
-    (unsigned storage read as unsigned)."""
-    x = X.cpu().numpy()
-    return x.view(t.dtype) if t.is_unsigned else x
 
 
 class HyperMatrix:
@@ -154,7 +156,8 @@ class HyperMatrix:
         pos = int(np.searchsorted(row, j))
         if pos >= len(row) or row[pos] != j:
             return None
-        return _host_values(A.values[s + pos:s + pos + 1], A.type)[0]
+        return tree_map(lambda a: a[0], host_values(
+            value_take(A.values, slice(s + pos, s + pos + 1)), A.type))
 
     def removeElement(self, i: int, j: int) -> "HyperMatrix":
         """Delete one entry: a device filter of the lanes."""
@@ -199,7 +202,8 @@ class HyperMatrix:
         A = A.wait()
         n = A.nvals
         return _assemble(A.rowids[:n].long(), A.indices[:n].long(),
-                         A.values[:n], A.nrows, A.ncols, A.type)
+                         value_take(A.values, slice(0, n)), A.nrows,
+                         A.ncols, A.type)
 
     def to_csr(self):
         """Hypersparse -> padded CSR on the same device (nrows must admit
@@ -221,7 +225,7 @@ class HyperMatrix:
         A = self.wait()
         n = A.nvals
         return (A.rowids[:n].cpu().numpy(), A.indices[:n].cpu().numpy(),
-                _host_values(A.values[:n], A.type))
+                host_values(value_take(A.values, slice(0, n)), A.type))
 
     def rows_present(self) -> np.ndarray:
         return self.h[:self.nvec].cpu().numpy()
@@ -310,10 +314,13 @@ def _assemble(I: torch.Tensor, J: torch.Tensor, X: torch.Tensor,
     cap = _round_up(max(nvals, 8), 128)
     rowids = torch.full((cap,), nrows, dtype=torch.int64, device=dev)
     indices = torch.full((cap,), ncols, dtype=torch.int64, device=dev)
-    values = torch.zeros(cap, dtype=t.storage, device=dev)
+    values = zeros_like_typed(cap, t, dev)
     rowids[:nvals] = I
     indices[:nvals] = J
-    values[:nvals] = X
+
+    def put(v, x):
+        v[:nvals] = x.to(v.dtype)
+    tree_map(put, values, X)
     h, hptr, nvec = _build_h(rowids, nvals, nrows)
     return HyperMatrix(h, hptr, rowids, indices, values, nvals, nvec,
                        nrows, ncols, t)
@@ -324,7 +331,7 @@ def _sorted_assemble(I, J, X, nrows: int, ncols: int,
     """:func:`_assemble` of unique pairs in any order: one pair sort on
     their device first."""
     perm = _pair_argsort(I, J)
-    return _assemble(I[perm], J[perm], X[perm], nrows, ncols, t)
+    return _assemble(I[perm], J[perm], value_take(X, perm), nrows, ncols, t)
 
 
 def _live(A: HyperMatrix) -> torch.Tensor:
@@ -372,6 +379,8 @@ def hyper_from_coo(I, J, X, nrows: int, ncols: int,
     device = resolve_device(device)
     I = np.asarray(I, np.int64)
     J = np.asarray(J, np.int64)
+    if type is not None and type.is_udt:
+        return _hyper_from_coo_udt(I, J, X, nrows, ncols, type, dup, device)
     X = np.asarray(X)
     t = type or type_of_dtype(X.dtype)
     if (t.is_unsigned and X.dtype.kind == "i"
@@ -404,10 +413,36 @@ def hyper_from_coo(I, J, X, nrows: int, ncols: int,
     return _assemble(Id, Jd, Xd, nrows, ncols, t)
 
 
+def _hyper_from_coo_udt(I, J, X, nrows: int, ncols: int, t: Type, dup,
+                        device) -> HyperMatrix:
+    """The build over a user-defined type: duplicate-free tuples only
+    (no default dup op folds structs), every field permuted by the one
+    pair sort."""
+    from ..core.errors import IndexOutOfBounds
+    from ..core.matrix import device_values
+    from .container import _udt_host
+    if not (0 < nrows <= GxB_INDEX_MAX and 0 < ncols <= GxB_INDEX_MAX):
+        raise ValueError(
+            f"dimensions must be in [1, 2^60], got {nrows}x{ncols}")
+    if I.size and (I.min() < 0 or I.max() >= nrows or J.min() < 0
+                   or J.max() >= ncols):
+        raise IndexOutOfBounds(f"tuple index out of range for "
+                               f"{nrows}x{ncols}")
+    Xd = device_values(_udt_host(X, t), t, device)
+    Id = torch.from_numpy(I).to(device)
+    Jd = torch.from_numpy(J).to(device)
+    perm = _pair_argsort(Id, Jd)
+    Id, Jd = Id[perm], Jd[perm]
+    if I.size > 1 and bool(((Id[1:] == Id[:-1]) & (Jd[1:] == Jd[:-1]))
+                           .any()):
+        raise TypeError("struct (user-defined) tuples must be "
+                        "duplicate-free: no default dup op folds them")
+    return _assemble(Id, Jd, value_take(Xd, perm), nrows, ncols, t)
+
+
 def _empty_hyper(nrows: int, ncols: int, t: Type, device) -> HyperMatrix:
     e = torch.zeros(0, dtype=torch.int64, device=device)
-    return _assemble(e, e, torch.zeros(0, dtype=t.storage, device=device),
-                     nrows, ncols, t)
+    return _assemble(e, e, zeros_like_typed(0, t, device), nrows, ncols, t)
 
 
 # ---------------------------------------------------------------------------
@@ -446,17 +481,15 @@ def _hyper_esc_core(sr: Semiring, A: HyperMatrix, B: HyperMatrix,
         keep = ~member if complement else member
         ec, pos, i, j = ec[keep], pos[keep], i[keep], j[keep]
     zt = sr.ztype
-    a = cast(A.values[ec], sr.xtype, A.type)
-    b = cast(B.values[pos], sr.ytype, B.type)
+    a = cast(value_take(A.values, ec), sr.xtype, A.type)
+    b = cast(value_take(B.values, pos), sr.ytype, B.type)
     z = cast_result(sr.mult(a, b), zt)
     perm = _pair_argsort(i, j)
-    si, sj, zs = i[perm], j[perm], z[perm]
+    si, sj, zs = i[perm], j[perm], value_take(z, perm)
     head = _pair_heads(si, sj)
     seg = torch.cumsum(head, 0) - 1
     nnz = int(head.sum()) if si.shape[0] else 0
-    from .esc import _segmented_fold
-    vals = _segmented_fold(sr.add, zs, seg, nnz, sr.add.identity_value(),
-                           zt)
+    vals = segment_fold(sr.add, zs, seg, nnz, zt)
     return si[head], sj[head], vals
 
 
@@ -476,7 +509,6 @@ def hyper_spgemm(sr: Semiring, A: HyperMatrix, B: HyperMatrix,
         raise DimensionMismatch(f"inner dims {A.shape} x {B.shape}")
     if mask is not None and mask.shape != (m, n):
         raise DimensionMismatch(f"mask {mask.shape} vs output {(m, n)}")
-    esc._check_builtin(sr.xtype, sr.ytype, sr.ztype, A.type, B.type)
     zt = sr.ztype
     lens, kc = _hyper_flops(A.indices, B.h, B.hptr)
     lens = torch.where(_live(A), lens, 0)
@@ -528,28 +560,29 @@ def hyper_ewise(op: BinaryOp, A: HyperMatrix, B: HyperMatrix,
     cj = torch.cat([A.indices[:na], B.indices[:nb]])
     # each side's values travel in its own lane array (zeros on the
     # other side's lanes, never read there)
-    va = torch.cat([A.values[:na], torch.zeros(nb, dtype=A.values.dtype,
-                                               device=dev)])
-    vb = torch.cat([torch.zeros(na, dtype=B.values.dtype, device=dev),
-                    B.values[:nb]])
+    va = tree_map(lambda v: torch.cat([v[:na], torch.zeros(
+        nb, dtype=v.dtype, device=dev)]), A.values)
+    vb = tree_map(lambda v: torch.cat([torch.zeros(
+        na, dtype=v.dtype, device=dev), v[:nb]]), B.values)
     perm = _pair_argsort(ci, cj)   # stable: A lanes first on equal pairs
     si, sj = ci[perm], cj[perm]
     tg = perm >= na                # a B lane
-    vas, vbs = va[perm], vb[perm]
+    vas, vbs = value_take(va, perm), value_take(vb, perm)
     E = si.shape[0]
     head = _pair_heads(si, sj)
     nxt_same = torch.zeros(E, dtype=torch.bool, device=dev)
     nxt_same[:-1] = ~head[1:]
     is_pair = head & nxt_same
-    vb_next = torch.roll(vbs, -1)
+    vb_next = tree_map(lambda v: torch.roll(v, -1), vbs)
     z_pair = cast(cast_result(op(cast(vas, op.xtype, A.type),
                                  cast(vb_next, op.ytype, B.type)),
                               op.ztype), zt, op.ztype)
-    out_v = torch.where(is_pair, z_pair,
-                        torch.where(tg, cast(vbs, zt, B.type),
-                                    cast(vas, zt, A.type)))
+    out_v = tree_where(is_pair, z_pair,
+                       tree_where(tg, cast(vbs, zt, B.type),
+                                  cast(vas, zt, A.type)))
     keep = head if union else is_pair
-    return _assemble(si[keep], sj[keep], out_v[keep], A.nrows, A.ncols, zt)
+    return _assemble(si[keep], sj[keep], value_take(out_v, keep), A.nrows,
+                     A.ncols, zt)
 
 
 # ---------------------------------------------------------------------------
@@ -585,7 +618,7 @@ def hyper_mxv(sr: Semiring, A: HyperMatrix, x_ids, x_vals
     hits = torch.zeros(hcap + 1, dtype=torch.int32, device=dev)
     hits.index_add_(0, seg, present.to(torch.int32))
     ylive = hits[:hcap] > 0
-    return A.h[ylive].cpu().numpy(), _host_values(y[ylive], zt)
+    return A.h[ylive].cpu().numpy(), host_values(y[ylive], zt)
 
 
 # ---------------------------------------------------------------------------
@@ -596,13 +629,11 @@ def hyper_reduce_scalar(monoid: Monoid, A: HyperMatrix):
     """Fold all stored values with the monoid (``GB_reduce_to_scalar``);
     a numpy scalar of the monoid's type."""
     t = monoid.type
-    ident = monoid.identity_value()
-    z = torch.where(_live(A), cast(A.values, t, A.type),
-                    torch.full((), ident, dtype=t.storage, device=A.device))
-    red = segment_reduce(monoid.op.name, z,
-                         torch.zeros(A.nzmax, dtype=torch.int64,
-                                     device=A.device), 1, ident, t)
-    return _host_values(red, t)[0]
+    z = tree_where(_live(A), cast(A.values, t, A.type),
+                   monoid.identity_array((), A.device))
+    red = segment_fold(monoid, z, torch.zeros(A.nzmax, dtype=torch.int64,
+                                              device=A.device), 1, t)
+    return tree_map(lambda a: a[0], host_values(red, t))
 
 
 def hyper_reduce_vector(monoid: Monoid, A: HyperMatrix
@@ -611,12 +642,12 @@ def hyper_reduce_vector(monoid: Monoid, A: HyperMatrix
     (host arrays)."""
     t = monoid.type
     hcap = A.h.shape[0]
-    ident = monoid.identity_value()
-    z = torch.where(_live(A), cast(A.values, t, A.type),
-                    torch.full((), ident, dtype=t.storage, device=A.device))
+    z = tree_where(_live(A), cast(A.values, t, A.type),
+                   monoid.identity_array((), A.device))
     seg = torch.searchsorted(A.h, A.rowids).clamp(max=hcap)
-    y = segment_reduce(monoid.op.name, z, seg, hcap + 1, ident, t)
-    return (A.h[:A.nvec].cpu().numpy(), _host_values(y[:A.nvec], t))
+    y = segment_fold(monoid, z, seg, hcap + 1, t)
+    return (A.h[:A.nvec].cpu().numpy(),
+            host_values(value_take(y, slice(0, A.nvec)), t))
 
 
 def hyper_apply(op, A: HyperMatrix, ztype: Optional[Type] = None
@@ -626,8 +657,7 @@ def hyper_apply(op, A: HyperMatrix, ztype: Optional[Type] = None
     zt = ztype or op.ztype
     vals = cast_result(op(cast(A.values, op.xtype, A.type)), op.ztype)
     vals = cast(vals, zt, op.ztype)
-    vals = torch.where(_live(A), vals,
-                       torch.zeros((), dtype=vals.dtype, device=A.device))
+    vals = tree_where(_live(A), vals, zeros_like_typed((), zt, A.device))
     return HyperMatrix(A.h, A.hptr, A.rowids, A.indices, vals, A.nvals,
                        A.nvec, A.nrows, A.ncols, zt)
 
@@ -637,7 +667,8 @@ def _filter(A: HyperMatrix, keep: torch.Tensor) -> HyperMatrix:
     in their order: a filter of a sorted list needs no re-sort."""
     n = A.nvals
     return _assemble(A.rowids[:n][keep], A.indices[:n][keep],
-                     A.values[:n][keep], A.nrows, A.ncols, A.type)
+                     tree_map(lambda v: v[:n][keep], A.values),
+                     A.nrows, A.ncols, A.type)
 
 
 def hyper_select(name: str, A: HyperMatrix, k: int = 0,
@@ -647,7 +678,8 @@ def hyper_select(name: str, A: HyperMatrix, k: int = 0,
     the predicate sees the live lanes only."""
     nm = name.upper()
     n = A.nvals
-    i, j, x = A.rowids[:n], A.indices[:n], A.values[:n]
+    i, j = A.rowids[:n], A.indices[:n]
+    x = value_take(A.values, slice(0, n))
     if nm == "TRIL":
         keep = (j - i) <= k
     elif nm == "TRIU":
@@ -671,7 +703,8 @@ def hyper_transpose(A: HyperMatrix) -> HyperMatrix:
     transpose of ``GB_transpose_bucket.c`` is a counting sort too)."""
     A = A.wait()
     n = A.nvals
-    return _sorted_assemble(A.indices[:n], A.rowids[:n], A.values[:n],
+    return _sorted_assemble(A.indices[:n], A.rowids[:n],
+                            value_take(A.values, slice(0, n)),
                             A.ncols, A.nrows, A.type)
 
 
@@ -682,6 +715,9 @@ def hyper_transpose(A: HyperMatrix) -> HyperMatrix:
 def _truthy_lanes(M: HyperMatrix, structural: bool) -> torch.Tensor:
     live = _live(M)
     if not structural:
+        if M.type.is_udt:
+            raise TypeError("a mask with user-defined values is not valid; "
+                            "use a structural mask")
         live = live & (M.values != 0)
     return live
 
@@ -715,11 +751,13 @@ def hyper_accum_mask(C: HyperMatrix, M: Optional[HyperMatrix],
     if complement:
         z_in, c_in = ~z_in, ~c_in
     keep_c = ~c_in & (not replace)
-    zv = cast(Z.values[:Z.nvals][z_in], C.type, Z.type)
+    zv = cast(tree_map(lambda v: v[:Z.nvals][z_in], Z.values), C.type,
+              Z.type)
     I = torch.cat([Z.rowids[:Z.nvals][z_in], C.rowids[:C.nvals][keep_c]])
     J = torch.cat([Z.indices[:Z.nvals][z_in],
                    C.indices[:C.nvals][keep_c]])
-    X = torch.cat([zv, C.values[:C.nvals][keep_c]])
+    X = tree_map(lambda z, c: torch.cat([z, c[:C.nvals][keep_c]]), zv,
+                 C.values)
     return _sorted_assemble(I, J, X, C.nrows, C.ncols, C.type)
 
 
@@ -731,7 +769,7 @@ def cast_host(x, t: Type) -> np.ndarray:
         return x.astype(t.dtype)
     src = type_of_dtype(x.dtype)
     y = cast(torch.from_numpy(np.array(src.to_storage(x))), t, src)
-    return _host_values(y, t)
+    return host_values(y, t)
 
 
 # ---------------------------------------------------------------------------

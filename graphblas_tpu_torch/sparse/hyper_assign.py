@@ -31,7 +31,8 @@ import torch
 from ..core.descriptor import Descriptor, desc_of
 from ..core.errors import DimensionMismatch, IndexOutOfBounds, InvalidValue
 from ..core.ops import BinaryOp
-from ..core.types import Type, cast_value
+from ..core.types import Type, cast_value, full_typed
+from ..utils.tree import tree_map
 from .hyper import (HyperMatrix, _filter, _live, _sorted_assemble,
                     hyper_accum_mask, hyper_from_coo)
 
@@ -98,7 +99,9 @@ def _compact(i, j, vals, keep, nrows: int, ncols: int,
              t: Type) -> HyperMatrix:
     """The kept lanes (unique pairs in any order) sorted into a
     HyperMatrix."""
-    return _sorted_assemble(i[keep], j[keep], vals[keep], nrows, ncols, t)
+    return _sorted_assemble(i[keep], j[keep],
+                            tree_map(lambda v: v[keep], vals), nrows, ncols,
+                            t)
 
 
 def hyper_filter_lanes(A: HyperMatrix, keep) -> HyperMatrix:
@@ -150,8 +153,8 @@ def _union_disjoint(X: HyperMatrix, Y: HyperMatrix) -> HyperMatrix:
     return _sorted_assemble(
         torch.cat([X.rowids[:nx], Y.rowids[:ny]]),
         torch.cat([X.indices[:nx], Y.indices[:ny]]),
-        torch.cat([X.values[:nx], Y.values[:ny]]), X.nrows, X.ncols,
-        X.type)
+        tree_map(lambda x, y: torch.cat([x[:nx], y[:ny]]), X.values,
+                 Y.values), X.nrows, X.ncols, X.type)
 
 
 def _scalar_region(scalar, ni: int, nj: int, t: Type,
@@ -166,8 +169,12 @@ def _scalar_region(scalar, ni: int, nj: int, t: Type,
     nnz = ni * nj
     I = np.repeat(np.arange(ni, dtype=np.int64), nj)
     J = np.tile(np.arange(nj, dtype=np.int64), ni)
-    return hyper_from_coo(I, J, np.full(nnz, v, np.dtype(t.dtype)), ni, nj,
-                          type=t, dup=None, device=device)
+    if t.is_udt:
+        from ..core.matrix import host_values
+        X = host_values(full_typed(nnz, v, t, "cpu"), t)
+    else:
+        X = np.full(nnz, v, np.dtype(t.dtype))
+    return hyper_from_coo(I, J, X, ni, nj, type=t, dup=None, device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,8 @@ analysis applied vectorized:
   key outside:  C entry survives unless REPLACE; T is irrelevant
 
 Mask membership is a binary search (``torch.searchsorted``) against the
-mask's sorted truthy keys.
+mask's sorted truthy keys.  Struct values of a user-defined type ride
+every select leaf by leaf; a valued mask over them raises.
 """
 
 from __future__ import annotations
@@ -25,7 +26,9 @@ import torch
 from ..core.descriptor import Descriptor, desc_of
 from ..core.errors import DimensionMismatch
 from ..core.ops import BinaryOp
-from ..core.types import Type, cast, zeros_like_typed
+from ..core.types import (Type, cast, tree_where, value_take,
+                          zeros_like_typed)
+from ..utils.tree import tree_map
 from .container import CsrMatrix
 from .esc import _assemble, _bucket, _empty_csr
 
@@ -44,6 +47,9 @@ def _live_keys(X: CsrMatrix, n: int, kdt, big: int,
                truthy: bool = False) -> torch.Tensor:
     live = torch.arange(X.nzmax, device=X.device) < X.nvals
     if truthy:
+        if X.type.is_udt:
+            raise TypeError("a mask with user-defined values is not valid; "
+                            "use a structural mask")
         live = live & (X.values != 0)
     keys = X.rowids.to(kdt) * n + X.indices.to(kdt)
     return torch.where(live, keys, big)
@@ -60,21 +66,22 @@ def _epilogue(ctype: Type, ttype: Type, accum: Optional[BinaryOp],
     nc = c_keys.shape[0]
     tags = torch.cat([torch.zeros(nc, dtype=torch.bool, device=dev),
                       torch.ones(E - nc, dtype=torch.bool, device=dev)])
-    va = torch.cat([c_values, torch.zeros(E - nc, dtype=c_values.dtype,
-                                          device=dev)])
-    vb = torch.cat([torch.zeros(nc, dtype=t_values.dtype, device=dev),
-                    t_values])
+    va = tree_map(lambda v: torch.cat([v, torch.zeros(
+        E - nc, dtype=v.dtype, device=dev)]), c_values)
+    vb = tree_map(lambda v: torch.cat([torch.zeros(
+        nc, dtype=v.dtype, device=dev), v]), t_values)
 
     # stable: C lanes precede T lanes of the same key
     ks, perm = torch.sort(keys, stable=True)
-    tg, va, vb = tags[perm], va[perm], vb[perm]
+    tg, va, vb = tags[perm], value_take(va, perm), value_take(vb, perm)
     head = torch.ones(E, dtype=torch.bool, device=dev)
     head[1:] = ks[1:] != ks[:-1]
     nxt_same = torch.zeros(E, dtype=torch.bool, device=dev)
     nxt_same[:-1] = ks[1:] == ks[:-1]
     live = ks < big
     is_pair = head & nxt_same & live
-    t_raw = torch.where(is_pair, torch.cat([vb[1:], vb[-1:]]), vb)
+    t_raw = tree_where(is_pair, tree_map(lambda v: torch.cat(
+        [v[1:], v[-1:]]), vb), vb)
 
     def cast_t(v):
         return cast(v, ctype, ttype)
@@ -99,13 +106,12 @@ def _epilogue(ctype: Type, ttype: Type, accum: Optional[BinaryOp],
         ca = cast(va, accum.xtype, ctype)
         tb = cast(t_raw, accum.ytype, ttype)
         z_acc = cast(accum(ca, tb), ctype, accum.ztype)
-        z_in = torch.where(is_pair, z_acc, torch.where(tg, cast_t(t_raw),
-                                                       va))
+        z_in = tree_where(is_pair, z_acc, tree_where(tg, cast_t(t_raw), va))
         keep_in = c_present | t_present
 
     # outside the mask: C survives unless REPLACE
     keep_out = c_present & (not replace)
-    out_v = torch.where(member, z_in, va)
+    out_v = tree_where(member, z_in, va)
     keep = head & torch.where(member, keep_in, keep_out)
 
     r = torch.cumsum(keep, 0) - 1
@@ -113,10 +119,11 @@ def _epilogue(ctype: Type, ttype: Type, accum: Optional[BinaryOp],
     tgt = torch.where(keep, r, E + 1)
     out_keys = torch.full((E + 2,), sent, dtype=kdt, device=dev)
     out_keys.scatter_(0, tgt, ks)
-    out_vals = zeros_like_typed((E + 2,), ctype, dev)
-    out_vals.scatter_(0, tgt, out_v)
+    out_vals = tree_map(lambda o, v: o.scatter_(0, tgt, v.to(o.dtype))
+                        [:E + 1], zeros_like_typed((E + 2,), ctype, dev),
+                        out_v)
     indptr, oj, oi = _assemble(out_keys[:E + 1], sent, m, n)
-    return indptr, oj, oi, out_vals[:E + 1], nnz
+    return indptr, oj, oi, out_vals, nnz
 
 
 def csr_clear(C: CsrMatrix) -> CsrMatrix:
@@ -152,5 +159,5 @@ def csr_accum_mask(C: CsrMatrix, M: Optional[CsrMatrix], T: CsrMatrix,
     nnz = int(nnzC)
     E = c_keys.shape[0] + t_keys.shape[0]
     cap = min(_bucket(max(nnz, 8)), E + 1)
-    return CsrMatrix(indptr, oj[:cap], oi[:cap], ov[:cap], nnz, m, n,
-                     C.type)
+    return CsrMatrix(indptr, oj[:cap], oi[:cap],
+                     tree_map(lambda v: v[:cap], ov), nnz, m, n, C.type)

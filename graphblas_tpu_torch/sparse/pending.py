@@ -23,6 +23,13 @@ containers have (``core/matrix.py``):
 and ``SparseVec``) folds the same way with pair-key union merges
 (``hyper_ewise``); its resize is a tuple filter on the device, since a
 dimension-sized index map is impossible at 2^60.
+
+Over a user-defined type the tuples' values are dicts; a run folds on
+the host field by field, position by position within the duplicate
+runs, with the run's accum applied to CPU tensors (the JAX package
+folds tuple by tuple), and merges with SECOND or the accum as above, on
+CSR and on the hypersparse containers alike (the JAX package raises
+for the latter).
 """
 
 from __future__ import annotations
@@ -32,9 +39,11 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from ..core.errors import IndexOutOfBounds
-from ..core.matrix import _fold_runs, global_blocking, pending_runs
+from ..core.matrix import (_fold_runs, device_values, global_blocking,
+                           host_values, pending_runs)
 from ..core.ops import BinaryOp
-from ..core.types import Type, cast_value
+from ..core.types import Type, cast_result, cast_value
+from ..utils.tree import tree_leaves, tree_map
 
 __all__ = ["fold_pending_csr", "fold_pending_hyper", "csr_resize",
            "hyper_resize", "check_index", "append_pending"]
@@ -72,14 +81,50 @@ def _fold_run_host(tuples, accum: Optional[BinaryOp], t: Type):
     """Dedup one run on the host in input order -> sorted (I, J, X)."""
     ii = np.asarray([p[0] for p in tuples], np.int64)
     jj = np.asarray([p[1] for p in tuples], np.int64)
-    xs = np.asarray([cast_value(p[2], t) for p in tuples],
-                    dtype=np.dtype(t.dtype))
+    if t.is_udt:
+        xs = _stack_struct([cast_value(p[2], t) for p in tuples], t)
+    else:
+        xs = np.asarray([cast_value(p[2], t) for p in tuples],
+                        dtype=np.dtype(t.dtype))
     order = np.lexsort((np.arange(len(ii)), jj, ii))  # stable in input order
-    ii, jj, xs = ii[order], jj[order], xs[order]
+    ii, jj = ii[order], jj[order]
+    xs = tree_map(lambda a: a[order], xs)
     first = np.ones(len(ii), bool)
     first[1:] = (ii[1:] != ii[:-1]) | (jj[1:] != jj[:-1])
     starts = np.nonzero(first)[0]
+    if t.is_udt:
+        return ii[starts], jj[starts], _fold_struct_runs(xs, starts, accum,
+                                                          t)
     return ii[starts], jj[starts], _fold_runs(xs, starts, accum, t)
+
+
+def _stack_struct(scalars, t: Type):
+    """Host struct scalars (dicts) as a dict of field arrays."""
+    return {k: (_stack_struct([x[k] for x in scalars], ft) if ft.is_udt
+                else np.asarray([x[k] for x in scalars], ft.dtype))
+            for k, ft in t.fields}
+
+
+def _fold_struct_runs(xs, starts: np.ndarray, accum: Optional[BinaryOp],
+                      t: Type):
+    """Each sorted run of struct values folded left to right with
+    ``accum`` (the last write without one), batched by position within
+    the runs: accum runs on CPU tensors of the fields' storage."""
+    ends = np.append(starts[1:], len(tree_leaves(xs)[0]))
+    if accum is None:
+        return tree_map(lambda a: a[ends - 1], xs)
+    out = tree_map(lambda a: a[starts].copy(), xs)
+    for k in range(1, int((ends - starts).max(initial=1))):
+        sel = starts + k < ends
+        a = device_values(tree_map(lambda v: v[sel], out), t, "cpu")
+        b = device_values(tree_map(lambda v: v[starts[sel] + k], xs), t,
+                          "cpu")
+        z = host_values(cast_result(accum(a, b), t), t)
+
+        def put(o, zz):
+            o[sel] = zz
+        tree_map(put, out, z)
+    return out
 
 
 def _merge_op(accum: Optional[BinaryOp], t: Type) -> BinaryOp:
@@ -87,6 +132,9 @@ def _merge_op(accum: Optional[BinaryOp], t: Type) -> BinaryOp:
     no accum — GB_setElement's found-entry semantics."""
     if accum is not None:
         return accum
+    if t.is_udt:
+        # the op families cache by type name, which two structs may share
+        return BinaryOp("SECOND", lambda x, y: y, t, t, t)
     from ..core.ops import binary
     return binary.second[t]
 
@@ -107,12 +155,6 @@ def fold_pending_csr(A):
 def fold_pending_hyper(A):
     """GB_wait on HyperMatrix: one pair-key union merge per accum run."""
     from .hyper import hyper_ewise, hyper_from_coo
-    if A.type.is_udt:
-        from ..core.resolve import UnsupportedOp
-        raise UnsupportedOp(
-            "setElement on the hypersparse container over a user-defined "
-            "type: user-defined types come with a later slice "
-            "(ROADMAP.md queue 1, item 7)")
     out = A
     for accum, tuples in _runs(A._pending):
         I, J, X = _fold_run_host(tuples, accum, A.type)
@@ -146,5 +188,6 @@ def hyper_resize(A, nrows_new: int, ncols_new: int):
     n = A.nvals
     I, J = A.rowids[:n], A.indices[:n]
     keep = (I < nrows_new) & (J < ncols_new)
-    return _assemble(I[keep], J[keep], A.values[:n][keep], nrows_new,
+    return _assemble(I[keep], J[keep],
+                     tree_map(lambda v: v[:n][keep], A.values), nrows_new,
                      ncols_new, A.type)

@@ -116,8 +116,9 @@ def csr_spmm_dense(sr: Semiring, A: CsrMatrix, Xvals: torch.Tensor,
     presence mask (None: every entry present).  Absent X entries
     contribute the add identity; the output pattern is the rows with at
     least one live contribution, per column."""
-    from .esc import _check_builtin
-    _check_builtin(sr.ztype, sr.xtype, sr.ytype, A.type)
+    if any(t.is_udt for t in (sr.ztype, sr.xtype, sr.ytype, A.type)):
+        raise TypeError("the SpMM engine takes builtin types; mxm runs a "
+                        "user-defined semiring on the bitmap product")
     plan = spmm_plan(A)
     zt = sr.ztype
     dev = A.device

@@ -42,6 +42,20 @@ in the monoid's type, from the identity.  The JAX package folds them
 over non-bool types by a max/min of the values instead (ROADMAP.md
 queue 3, "known in the reference").  Any other monoid takes the generic
 segmented fold.
+
+Complex values: PLUS sums the real and imaginary parts apart
+(``index_add_`` over the real view), MIN/MAX take the lexicographic
+extreme from the identity with NaN terms dropped (two ``scatter_reduce``
+passes in :func:`ops.cx_extreme`, which the bitmap monoid reduce
+shares: the real part, then the imaginary part among the terms that
+hold it), and TIMES, which ``scatter_reduce`` lacks for complex, takes
+the generic fold.
+
+A user-defined semiring runs the edge-parallel engine of the JAX
+package's UDT path (``_udt_mxv_prog``) through the sparse-x engine: no
+casting, the operands already in the semiring's domains, the rows
+folded by the generic segmented fold over the struct's leaves, rows
+with no live lane holding the identity.
 """
 
 from __future__ import annotations
@@ -51,14 +65,17 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core.ops import cx_extreme
 from ..core.semirings import Semiring
-from ..core.types import (Type, cast, from_ordered, ordered, type_of_dtype,
-                          type_of_storage)
+from ..core.types import (Type, cast, from_ordered, ordered, tree_where,
+                          type_of_dtype, type_of_storage, value_take)
+from ..utils.tree import tree_map
 from ..ops.flopcount import record_axb_method
 from . import cuda_spmv
 from .container import CsrMatrix
 
-__all__ = ["csr_mxv", "csr_vxm", "segment_reduce", "segment_reduce_sorted"]
+__all__ = ["csr_mxv", "csr_vxm", "segment_reduce", "segment_reduce_sorted",
+           "segment_fold"]
 
 #: monoids with a named segment reduction
 _NAMED = ("PLUS", "TIMES", "MIN", "MAX", "LOR", "LAND", "LXOR", "EQ")
@@ -71,24 +88,50 @@ def segment_reduce_sorted(op_fn, identity, vals: torch.Tensor,
     sorted ascending (CSR entry order guarantees it): a log-depth
     segmented inclusive scan (each step folds the lane ``d`` places back
     into a lane of the same segment), then each segment's last lane.
-    Segments with no lanes hold ``identity`` (a storage scalar)."""
+    Segments with no lanes hold ``identity`` (a storage scalar; a dict
+    of them for struct values, whose leaves fold alike)."""
     E = seg_ids.shape[0]
-    dev = vals.device
+    dev = seg_ids.device
     x = vals
     d = 1
     while d < E:
         same = seg_ids[d:] == seg_ids[:-d]
-        folded = torch.where(same, op_fn(x[:-d], x[d:]), x[d:])
-        x = torch.cat([x[:d], folded])
+        lo = tree_map(lambda v: v[:-d], x)
+        hi = tree_map(lambda v: v[d:], x)
+        folded = tree_where(same, op_fn(lo, hi), hi)
+        x = tree_map(lambda v, f: torch.cat([v[:d], f.to(v.dtype)]), x,
+                     folded)
         d <<= 1
-    out = torch.full((num_segments + 1,), identity, dtype=vals.dtype,
-                     device=dev)
     if E:
         is_last = torch.cat([seg_ids[1:] != seg_ids[:-1],
                              torch.ones(1, dtype=torch.bool, device=dev)])
         tgt = torch.where(is_last, seg_ids.long(), num_segments)
-        out.scatter_(0, tgt.clamp(max=num_segments), x)
-    return out[:num_segments]
+        tgt = tgt.clamp(max=num_segments)
+
+    def land(v, ident):
+        out = torch.full((num_segments + 1,), ident, dtype=v.dtype,
+                         device=dev)
+        if E:
+            out.scatter_(0, tgt, v)
+        return out[:num_segments]
+    return tree_map(land, x, identity)
+
+
+def segment_fold(mon, vals, seg_ids: torch.Tensor, num_segments: int,
+                 t: Type = None):
+    """Fold ``vals`` (in ``mon``'s type) into ``num_segments`` slots with
+    the monoid ``mon``: a named segment reduction where one exists, the
+    generic segmented fold otherwise (user-defined types, other ops, and
+    complex TIMES).  ``seg_ids`` must be sorted ascending for the
+    generic fold."""
+    t = t or mon.type
+    name = mon.op.name
+    ident = mon.identity_value()
+    if t.is_udt or name not in _NAMED or (t.is_complex and
+                                          name == "TIMES"):
+        return segment_reduce_sorted(mon.op, ident, vals, seg_ids,
+                                     num_segments)
+    return segment_reduce(name, vals, seg_ids, num_segments, ident, t)
 
 
 def segment_reduce(monoid_name: str, vals: torch.Tensor,
@@ -117,6 +160,13 @@ def segment_reduce(monoid_name: str, vals: torch.Tensor,
         hit = torch.zeros(num_segments, dtype=torch.int32, device=dev)
         hit.index_add_(0, idx, v.to(torch.int32))
         return hit > 0 if nm == "ANY" else hit == 0
+    if t.is_complex and nm == "PLUS":
+        out = torch.zeros((num_segments, 2), dtype=vals.real.dtype,
+                          device=dev)
+        out.index_add_(0, idx, torch.view_as_real(vals.contiguous()))
+        return torch.view_as_complex(out)
+    if t.is_complex and nm in ("MAX", "MIN"):
+        return _cx_segment_minmax(nm, vals, idx, num_segments, identity)
     if nm in ("PLUS", "TIMES"):
         wide = vals.to(torch.int64) if t.is_integer else vals
         out = torch.full((num_segments,), 0 if nm == "PLUS" else 1,
@@ -149,6 +199,20 @@ def segment_reduce(monoid_name: str, vals: torch.Tensor,
     raise NotImplementedError(f"segment monoid {nm}")
 
 
+def _cx_segment_minmax(nm: str, vals: torch.Tensor, idx: torch.Tensor,
+                       num_segments: int, identity) -> torch.Tensor:
+    """Lexicographic complex MIN/MAX per segment from the identity, NaN
+    terms dropped (:func:`ops.cx_extreme`, by ``scatter_reduce``)."""
+    dev = vals.device
+    ident = torch.full((), identity, dtype=vals.dtype, device=dev)
+
+    def red(v, how):
+        init = float("-inf") if how == "amax" else float("inf")
+        out = torch.full((num_segments,), init, dtype=v.dtype, device=dev)
+        return out.scatter_reduce_(0, idx, v, reduce=how)
+    return cx_extreme(vals, nm, ident, red, lambda r: r[idx])
+
+
 def _mult_apply(sr: Semiring, avals: torch.Tensor,
                 xvals: torch.Tensor) -> torch.Tensor:
     """z = mult(a, x) elementwise on the gathered lanes (operands in the
@@ -165,16 +229,12 @@ def _mult_apply(sr: Semiring, avals: torch.Tensor,
     return sr.mult(avals, xvals)
 
 
-def _reduce_rows(sr: Semiring, z: torch.Tensor, seg: torch.Tensor,
-                 nrows: int, ident) -> torch.Tensor:
+def _reduce_rows(sr: Semiring, z, seg: torch.Tensor, nrows: int):
     """Row reduction of the lanes ``z`` (rows ``seg``, ascending; padded
     lanes in row ``nrows``) with the add monoid: the named segment
     reduction, or the segmented fold for any other monoid."""
-    nm = sr.add.op.name
-    if nm in _NAMED:
-        return segment_reduce(nm, z, seg, nrows + 1, ident,
-                              sr.ztype)[:nrows]
-    return segment_reduce_sorted(sr.add.op, ident, z, seg, nrows + 1)[:nrows]
+    return tree_map(lambda v: v[:nrows],
+                    segment_fold(sr.add, z, seg, nrows + 1, sr.ztype))
 
 
 def _off_pattern_zero(y: torch.Tensor, ypat: torch.Tensor) -> torch.Tensor:
@@ -182,26 +242,33 @@ def _off_pattern_zero(y: torch.Tensor, ypat: torch.Tensor) -> torch.Tensor:
                                             device=y.device))
 
 
-def _csr_mxv_sparse_x(sr: Semiring, A: CsrMatrix, avals: torch.Tensor,
-                      x_ext: torch.Tensor, xp_ext: torch.Tensor):
+def _csr_mxv_sparse_x(sr: Semiring, A: CsrMatrix, avals, x_ext, xp_ext,
+                      udt: bool = False):
     """Sparse-x engine: absent-x and padded lanes contribute the add
     identity (which keeps it right for every semiring, not only those
     where mult(a, 0) is the identity); the pattern is the rows with at
-    least one live lane."""
+    least one live lane.  Off the pattern a row holds 0; under a
+    user-defined semiring (``udt``: operands that may be struct trees,
+    no cast) it holds the identity, as the JAX package's
+    ``_udt_mxv_prog``."""
     nrows = A.nrows
     zt = sr.ztype
     cols = A.indices.long()
-    ident = sr.add.identity_value()
-    z = _mult_apply(sr, avals, x_ext[cols]).to(zt.storage)
+    ident = sr.add.identity_array((), A.device)
+    if udt:
+        z = sr.mult(avals, value_take(x_ext, cols))
+    else:
+        z = _mult_apply(sr, avals, x_ext[cols]).to(zt.storage)
     live = xp_ext[cols] & (A.rowids < nrows)
-    z = torch.where(live, z, torch.full((), ident, dtype=zt.storage,
-                                        device=z.device))
+    z = tree_where(live, z, ident)
     seg = A.rowids.clamp(max=nrows)
-    y = _reduce_rows(sr, z, seg, nrows, ident)
-    hits = torch.zeros(nrows + 1, dtype=torch.int32, device=z.device)
+    y = _reduce_rows(sr, z, seg, nrows)
+    hits = torch.zeros(nrows + 1, dtype=torch.int32, device=A.device)
     hits.index_add_(0, seg.long(), live.to(torch.int32))
     ypat = hits[:nrows] > 0
-    record_axb_method("spmv:sparse_x")
+    record_axb_method("spmv:udt" if udt else "spmv:sparse_x")
+    if udt:
+        return tree_where(ypat, y, ident), ypat
     return _off_pattern_zero(y, ypat), ypat
 
 
@@ -218,7 +285,7 @@ def _csr_mxv_dense_x(sr: Semiring, A: CsrMatrix, avals: torch.Tensor,
                     torch.full((), ident, dtype=zt.storage, device=z.device))
     ip = A.indptr.long()
     ypat = ip[1:] > ip[:-1]
-    y = _reduce_rows(sr, z, A.rowids.clamp(max=nrows), nrows, ident)
+    y = _reduce_rows(sr, z, A.rowids.clamp(max=nrows), nrows)
     record_axb_method("spmv:dense_x")
     return _off_pattern_zero(y, ypat), ypat
 
@@ -244,9 +311,9 @@ def csr_mxv(sr: Semiring, A: CsrMatrix, x, x_pattern=None,
     sharing a column block with an inf/NaN entry.  (The JAX package's
     ``csr_mxv`` takes the tiles regardless; ``A._options['bsr_spmv'] =
     False`` opts a matrix out.)"""
-    from .esc import _check_builtin
-    _check_builtin(sr.ztype, sr.xtype, sr.ytype, A.type)
     dev = A.device
+    if any(t.is_udt for t in (sr.ztype, sr.xtype, sr.ytype, A.type)):
+        return _csr_mxv_udt(sr, A, x, x_pattern)
     x, xt = _as_storage(x, x_type, dev)
     x = cast(x, sr.ytype, xt)
     if (x_pattern is None and cuda_spmv.bsr_spmv_ok(sr, A)
@@ -261,6 +328,23 @@ def csr_mxv(sr: Semiring, A: CsrMatrix, x, x_pattern=None,
     xp = torch.as_tensor(x_pattern).to(dev, torch.bool)
     xp_ext = torch.cat([xp, torch.zeros(1, dtype=torch.bool, device=dev)])
     return _csr_mxv_sparse_x(sr, A, avals, x_ext, xp_ext)
+
+
+def _csr_mxv_udt(sr: Semiring, A: CsrMatrix, x, x_pattern):
+    """The user-defined semiring's edge-parallel SpMV (the JAX package's
+    ``_udt_mxv_prog``): no casting, every x present unless
+    ``x_pattern`` says otherwise, then the sparse-x engine over the
+    struct's leaves."""
+    dev = A.device
+    x = tree_map(lambda v: torch.as_tensor(v).to(dev), x)
+    x_ext = tree_map(lambda v: torch.cat([v, torch.zeros(
+        1, dtype=v.dtype, device=dev)]), x)
+    if x_pattern is None:
+        xp = torch.ones(A.ncols, dtype=torch.bool, device=dev)
+    else:
+        xp = torch.as_tensor(x_pattern).to(dev, torch.bool)
+    xp_ext = torch.cat([xp, torch.zeros(1, dtype=torch.bool, device=dev)])
+    return _csr_mxv_sparse_x(sr, A, A.values, x_ext, xp_ext, udt=True)
 
 
 def csr_vxm(sr: Semiring, x, AT: CsrMatrix, x_pattern=None,

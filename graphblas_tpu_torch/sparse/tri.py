@@ -31,6 +31,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.tree import tree_map
+
 from ..core.errors import DimensionMismatch
 from ..ops.flopcount import record_axb_method
 from .container import CsrMatrix
@@ -228,7 +230,8 @@ def csr_filter_lanes(A: CsrMatrix, keep) -> CsrMatrix:
                         torch.cumsum(rowcounts[:A.nrows], 0,
                                      dtype=torch.int32)])
     return CsrMatrix(indptr, compact(A.indices, A.ncols),
-                     compact(A.rowids, A.nrows), compact(A.values, 0),
+                     compact(A.rowids, A.nrows),
+                     tree_map(lambda v: compact(v, 0), A.values),
                      int(keep.sum()), A.nrows, A.ncols, A.type)
 
 

@@ -210,6 +210,13 @@ def _pack_level(lv: ValLevel, bits: bool = True):
     return Av, Bv, Ab, Bb
 
 
+def _refused_types(sr: Semiring, A: CsrMatrix, B: CsrMatrix) -> bool:
+    """The plan's type gate: a user-defined or complex semiring or
+    operand takes the ESC engine."""
+    return any(t.is_udt or t.is_complex
+               for t in (sr.xtype, sr.ytype, sr.ztype, A.type, B.type))
+
+
 def build_valdot_plan(M: CsrMatrix, A: CsrMatrix, B: CsrMatrix,
                       sr: Semiring,
                       budget_bytes: Optional[int] = None,
@@ -223,14 +230,17 @@ def build_valdot_plan(M: CsrMatrix, A: CsrMatrix, B: CsrMatrix,
     slab's live mask entries come from a plan-time bitmap pass (the
     counts are accumulated: they ARE the output pattern); slabs stop at
     the marginal break-even against the ESC residual.  Returns None when
-    no slab pays (small flop counts, flat profiles, UDT)."""
+    no slab pays (small flop counts, flat profiles), and for a
+    user-defined or complex semiring: those take the ESC engine, whose
+    output the slab passes would have to reproduce (the JAX package
+    refuses user-defined types here too)."""
     if level_cols is None:
         level_cols = _LEVEL_COLS
     if budget_bytes is None:
         budget_bytes = _auto_budget(M.device)
     if min_lanes is None:
         min_lanes = _bd._MIN_LANES
-    if sr.xtype.is_udt or sr.ytype.is_udt or sr.ztype.is_udt:
+    if _refused_types(sr, A, B):
         return None
     m, kk = A.shape
     n = B.ncols
@@ -733,6 +743,8 @@ def valdot_masked_spgemm(sr: Semiring, A: CsrMatrix, B: CsrMatrix,
     n = B.ncols
     if M.shape != (m, n):
         raise DimensionMismatch(f"mask {M.shape} vs product {(m, n)}")
+    if _refused_types(sr, A, B):
+        return None
     plan = _cached_plan(M, A, B, sr, budget_bytes)
     if plan is None:
         return None

@@ -18,7 +18,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.types import Type
+from ..core.types import Type, zeros_like_typed
+from ..utils.tree import tree_map
 from .hyper import HyperMatrix, hyper_from_coo
 
 __all__ = ["SparseVec"]
@@ -94,10 +95,12 @@ class SparseVec:
         hm = self.hm.wait()
         n = hm.nvals
         ids = hm.rowids[:n]
-        dv = torch.zeros(self.size, dtype=hm.values.dtype,
-                         device=self.device)
+        dv = zeros_like_typed(self.size, self.type, self.device)
         dp = torch.zeros(self.size, dtype=torch.bool, device=self.device)
-        dv[ids] = hm.values[:n]
+
+        def put(d, v):
+            d[ids] = v[:n]
+        tree_map(put, dv, hm.values)
         dp[ids] = True
         return Vector(dv, dp, self.type)
 

@@ -29,9 +29,11 @@ STAND_INS = ("jax", "graphblas_tpu")
 
 #: the test files that hold card-only tests
 FILES = ("test_torch_bitdot.py", "test_torch_bsr.py",
-         "test_torch_bsr_spmv.py", "test_torch_probes.py",
-         "test_torch_tropical.py", "test_torch_valdot.py",
-         "test_torch_valdot_compact.py", "test_torch_window.py")
+         "test_torch_bsr_spmv.py", "test_torch_complex.py",
+         "test_torch_probes.py",
+         "test_torch_tropical.py", "test_torch_udt_ops.py",
+         "test_torch_valdot.py", "test_torch_valdot_compact.py",
+         "test_torch_window.py")
 
 TESTS = Path(__file__).resolve().parents[2] / "tests"
 

@@ -143,14 +143,25 @@ def test_kron(rng):
 
 
 def test_udt_op_raises_typed():
-    """An op over a type that is not one of the port's builtin types
-    raises a typed error naming the UDT item, before any work."""
+    """An op whose types are not the port's Types (here the JAX
+    package's) raises a typed error before any work; a port op over a
+    user-defined type meets builtin values with the cast rule's
+    TypeError, as the JAX package's cast does."""
     udt = gb.Type.udt("PAIR", a=gb.FP64, b=gb.INT64)
     op = gt.UnaryOp("UDT_ID", lambda x: x, udt, udt)
     A = gt.Matrix.new(gt.FP64, 2, 2, device="cpu")
-    with pytest.raises(gt.UnsupportedOp, match="item 7"):
+    with pytest.raises(gt.UnsupportedOp, match="not a GraphBLAS Type"):
         gt.apply(gt.Matrix.new(gt.FP64, 2, 2, device="cpu"), None, None, op,
                  A)
     bop = gt.BinaryOp("UDT_PLUS", lambda x, y: x, udt, udt, udt)
-    with pytest.raises(gt.UnsupportedOp, match="item 7"):
+    with pytest.raises(gt.UnsupportedOp, match="not a GraphBLAS Type"):
         gt.eWiseAdd(A, None, None, bop, A, A)
+    pudt = gt.Type.udt("PAIR", a=gt.FP64, b=gt.INT64)
+    pop = gt.UnaryOp("UDT_ID", lambda x: x, pudt, pudt)
+    A = A.setElement(1.0, 0, 0).wait()
+    with pytest.raises(TypeError, match="user-defined"):
+        gt.apply(gt.Matrix.new(pudt, 2, 2, device="cpu"), None, None, pop,
+                 A)
+    from graphblas_tpu.core.types import cast as jcast
+    with pytest.raises(TypeError, match="user-defined"):
+        jcast(np.ones(2), udt)

@@ -180,9 +180,12 @@ def test_matrix_needs_a_device():
 
 
 def test_matrix_rejects_udt_and_bad_shapes():
-    with pytest.raises(NotImplementedError, match="user-defined"):
+    """A type that is not a GraphBLAS Type raises, and so do struct
+    values without their user-defined type (user-defined types are
+    ``Type.udt``, tests/test_torch_udt.py)."""
+    with pytest.raises(TypeError, match="GraphBLAS Type"):
         gt.Matrix.new("my_struct", 2, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="user-defined"):
+    with pytest.raises(TypeError, match="user-defined"):
         gt.Matrix.from_dense({"x": np.ones((2, 2))}, device="cpu")
     with pytest.raises(gt.DimensionMismatch):
         gt.Matrix.from_dense(np.ones((2, 3)), pattern=np.ones((3, 2), bool),

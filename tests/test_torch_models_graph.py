@@ -229,15 +229,17 @@ def test_pagerank_jit_matches_jax():
 
 def test_pagerank_takes_a_bitmap_matrix():
     """The row scaling reads A's dense pattern, as the JAX package's:
-    a CsrMatrix raises; the UDT PageRank waits for user-defined types."""
+    a CsrMatrix raises, for the UDT PageRank on the bitmap container
+    too; its CSR form takes the CsrMatrix (tests/test_torch_udt.py
+    holds both against the JAX package)."""
     I, J, n = rmat(8)
     At, _ = graph("csr", I, J, n)
-    for fn in (tm.dpagerank, tm.ipagerank, tm.drowscale, tm.pagerank_jit):
+    for fn in (tm.dpagerank, tm.ipagerank, tm.drowscale, tm.pagerank_jit,
+               tm.dpagerank2):
         with pytest.raises(gt.UnsupportedContainer, match="bitmap Matrix"):
             fn(At)
-    for fn in (tm.dpagerank2, tm.dpagerank2_csr):
-        with pytest.raises(gt.UnsupportedOp, match="item 7"):
-            fn(At)
+    ranks, iters = tm.dpagerank2_csr(At)
+    assert iters > 0 and abs(sum(r for _, r in ranks) - 1.0) < 1e-12
 
 
 @pytest.mark.parametrize("nx", [4, 6])

@@ -377,15 +377,28 @@ def test_blocking_mode_folds_at_once():
 
 
 def test_hypersparse_pending_raises():
-    """The hypersparse fold runs since the hypersparse slice (the
-    ``hyper`` cases below); over a user-defined type it still raises,
-    naming ROADMAP.md queue 1, item 7."""
-    import types
-    H = gt.hyper_from_coo([1], [2], [1.0], 4, 4, device="cpu")
-    H = H.setElement(3.0, 0, 0)
-    H.type = types.SimpleNamespace(is_udt=True, name="UDT")
-    with pytest.raises(gt.UnsupportedOp, match="item 7"):
-        tpending.fold_pending_hyper(H)
+    """The hypersparse fold runs over a user-defined type too (the JAX
+    package raises there): struct tuples fold with their accum and land
+    as they do on CSR; an accum whose types are not the port's still
+    raises when the tuple is added."""
+    P = gt.Type.udt("UDT", x=gt.FP64, n=gt.INT32)
+    add = gt.BinaryOp("PADD", lambda a, b: {"x": a["x"] + b["x"],
+                                            "n": a["n"] + b["n"]}, P, P, P)
+    X = {"x": np.array([1.0]), "n": np.array([2], np.int32)}
+    H = gt.hyper_from_coo([1], [2], X, 4, 4, type=P, device="cpu")
+    C = gt.CsrMatrix.from_coo([1], [2], X, 4, 4, type=P, device="cpu")
+    for op in ((3.0, 0), (4.0, 1), (5.0, 1)):
+        v = {"x": op[0], "n": op[1]}
+        H = H.setElement(v, 1, 2, accum=add).setElement(v, 0, 0)
+        C = C.setElement(v, 1, 2, accum=add).setElement(v, 0, 0)
+    Ih, Jh, Xh = tpending.fold_pending_hyper(H).extractTuples()
+    Ic, Jc, Xc = C.wait().extractTuples()
+    assert np.array_equal(Ih, Ic) and np.array_equal(Jh, Jc)
+    assert np.array_equal(Xh["x"], Xc["x"]) and np.array_equal(Xh["n"],
+                                                               Xc["n"])
+    assert Xh["x"].tolist() == [5.0, 13.0] and Xh["n"].tolist() == [1, 4]
+    with pytest.raises(TypeError):
+        H.setElement(1.0, 0, 0, accum="PLUS")
 
 
 def test_degrees_and_csc_views():

@@ -657,3 +657,89 @@ def test_rmat_hyper_slice_matches_jax():
             None, pkg.monoid.plus[pkg.INT64], C))))
     _tuples_equal(hyp[0][0], hyp[1][0])
     assert hyp[0][1] == hyp[1][1] == int(gt.tricount_esc(Lc, Uc))
+
+
+def _tri_semiring(pkg, T):
+    """The struct SandiaDot semiring over {n: INT64, w: FP64}: n counts
+    wedges, w carries the values' product."""
+    add = pkg.BinaryOp("TRI_ADD", lambda a, b: {"n": a["n"] + b["n"],
+                                                "w": a["w"] + b["w"]},
+                       T, T, T)
+    mult = pkg.BinaryOp("TRI_MUL", lambda a, b: {"n": a["n"] * b["n"],
+                                                 "w": a["w"] * b["w"]},
+                        T, T, T)
+    mon = (gt.monoid_new if pkg is gt else gb.core.monoids.monoid_new)(
+        add, {"n": 0, "w": 0.0})
+    return (gt.semiring_new if pkg is gt else
+            gb.core.semirings.semiring_new)(mon, mult), mon
+
+
+def test_rmat_types_slice_matches_jax():
+    """The user-defined types slice on R-MAT 10: ``dpagerank2_csr`` (the
+    UDT PageRank semiring) against the JAX package's (same iterations,
+    ranks within rtol 1e-12), and the struct SandiaDot product
+    ``mxm(C<L>, sr, L, U, TRAN1)`` over {n: INT64, w: FP64} with n = 1
+    and bench.py's U[0.5,1.5) values: the n field sums to the triangle
+    count, the w field equals ``plus_times[FP64]`` on the same values,
+    both equal to the JAX package's struct product."""
+    n = 1 << 10
+    I, J = gt.symmetrize_pattern(*gt.rmat_edges(10, 16, seed=7), n)
+    X = np.ones(len(I), bool)
+    A = gt.csr_from_coo(I, J, X, n, n, type=gt.BOOL, sum_duplicates=False,
+                        device="cpu")
+    Aj = jsp.CsrMatrix.from_coo(I, J, X, n, n, type=gb.BOOL,
+                                sum_duplicates=False)
+    got, it_g = gt.models.dpagerank2_csr(A)
+    want, it_w = gb_models.pagerank.dpagerank2_csr(Aj)
+    assert it_g == it_w
+    w = dict(want)
+    assert set(w) == {p for p, _ in got}
+    for p, r in got:
+        assert abs(r - w[p]) <= 1e-12 * w[p]
+    # the struct SandiaDot count
+    Lc, Uc = gt.tricount_prep_csr(A)
+    rng = np.random.default_rng(3)
+    out = []
+    for pkg in (gt, gb):
+        T = pkg.Type.udt("tri", n=pkg.INT64, w=pkg.FP64)
+        sr, mon = _tri_semiring(pkg, T)
+        rng = np.random.default_rng(3)
+        LU = []
+        for X_ in (Lc, Uc):
+            i_, j_, _ = X_.extractTuples()
+            vals = {"n": np.ones(len(i_), np.int64),
+                    "w": rng.uniform(0.5, 1.5, len(i_))}
+            if pkg is gt:
+                LU.append(gt.csr_from_coo(i_, j_, vals, n, n, type=T,
+                                          sum_duplicates=False,
+                                          device="cpu"))
+            else:
+                LU.append(jsp.CsrMatrix.from_coo(i_, j_, vals, n, n,
+                                                 type=T,
+                                                 sum_duplicates=False))
+        e = {"n": np.zeros(0, np.int64), "w": np.zeros(0)}
+        z = np.zeros(0, np.int64)
+        C0 = (gt.csr_from_coo(z, z, e, n, n, type=T, device="cpu")
+              if pkg is gt else jsp.CsrMatrix.from_coo(z, z, e, n, n,
+                                                       type=T))
+        C = pkg.mxm(C0, LU[0], None, sr, LU[0], LU[1],
+                    pkg.Descriptor(tran1=True, mask_structure=True))
+        out.append((C, LU))
+    (Ct, LUt), (Cj, _) = out
+    It, Jt, Xt = Ct.extractTuples()
+    Ij, Jj, Xj = Cj.extractTuples()
+    assert np.array_equal(It, Ij) and np.array_equal(Jt, Jj)
+    assert np.array_equal(Xt["n"], np.asarray(Xj["n"]))
+    np.testing.assert_allclose(Xt["w"], np.asarray(Xj["w"]), rtol=1e-12)
+    assert int(Xt["n"].sum()) == int(gt.tricount_esc(Lc, Uc))
+    # the w field: plus_times[FP64] on the same values
+    def fp64(X_):
+        return gt.CsrMatrix(X_.indptr, X_.indices, X_.rowids,
+                            X_.values["w"], X_.nvals, X_.nrows, X_.ncols,
+                            gt.FP64)
+    Lw, Uw = fp64(LUt[0]), fp64(LUt[1])
+    Cw = gt.mxm(gt.csr_from_coo([], [], np.zeros(0), n, n, device="cpu"),
+                Lw, None, gt.semiring.plus_times[gt.FP64], Lw, Uw,
+                gt.Descriptor(tran1=True, mask_structure=True))
+    _, _, Xw = Cw.extractTuples()
+    np.testing.assert_allclose(Xt["w"], Xw, rtol=1e-12)

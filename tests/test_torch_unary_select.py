@@ -198,7 +198,14 @@ def test_junk_op_raises_typed(abc):
 
 
 def test_jax_udt_has_no_port_counterpart():
-    """The reference's UDT types exist only in the JAX package: the
-    port's type table is the 11 builtin types."""
+    """Both packages keep the 11 builtin types in their table, and both
+    have the complex types and ``Type.udt`` beside it (the port gained
+    them with user-defined types; their values are
+    tests/test_torch_udt.py's and test_torch_complex.py's)."""
     assert len(ttypes.BUILTIN_TYPES) == len(jtypes.BUILTIN_TYPES) == 11
-    assert not hasattr(gt, "FC32") and hasattr(gb, "FC32")
+    for name in ("FC32", "FC64"):
+        assert getattr(gt, name).dtype == getattr(gb, name).dtype
+    tu = gt.Type.udt("P", x=gt.FP64, n=gt.INT32)
+    ju = gb.Type.udt("P", x=gb.FP64, n=gb.INT32)
+    assert tu.is_udt and ju.is_udt
+    assert [k for k, _ in tu.fields] == [k for k, _ in ju.fields]

@@ -9,7 +9,6 @@ integer values exactly; float values within rtol=2e-5, atol=2e-6 (the
 reassociation tolerance of ``tests/test_valdot.py``).  Mirrors
 ``test_valdot``."""
 
-import dataclasses
 
 import numpy as np
 import pytest
@@ -26,8 +25,8 @@ from graphblas_tpu.sparse import esc as jesc
 from graphblas_tpu.sparse import valdot as jvd
 import graphblas_tpu_torch as gt
 from graphblas_tpu_torch import _build, convert
-from graphblas_tpu_torch.core.types import Type
 from graphblas_tpu_torch.sparse import bitdot as tbd
+from graphblas_tpu_torch.sparse import container as tcontainer
 from graphblas_tpu_torch.sparse import esc as tesc
 from graphblas_tpu_torch.sparse import valdot as tvd
 
@@ -187,19 +186,30 @@ def test_valdot_refuses_small_and_udt(graph):
                                     Aj, Aj, Aj) is None
 
     # a user-defined type: the plan refuses, ESC raises a clear error
-    @dataclasses.dataclass(frozen=True)
-    class UdtLike(Type):
-        @property
-        def is_udt(self):
-            return True
-    udt = UdtLike("MYTYPE", gt.FP32.dtype, gt.FP32.storage)
-    op = gt.binary.times[gt.FP32]
-    sr_udt = gt.core.semirings.Semiring(
-        gt.monoid.plus[gt.FP32], dataclasses.replace(op, xtype=udt))
+    # a user-defined semiring: the plan refuses it and ESC folds the
+    # struct (here one FP32 field) to the plus_times values
+    ut = gt.Type.udt("MYTYPE", v=gt.FP32)
+    add = gt.BinaryOp("UPLUS", lambda x, y: {"v": x["v"] + y["v"]},
+                      ut, ut, ut)
+    mult = gt.BinaryOp("UTIMES", lambda a, b: {"v": a["v"] * b["v"]},
+                       ut, ut, ut)
+    sr_udt = gt.semiring_new(gt.monoid_new(add, {"v": 0.0}), mult)
     _, (Lt, Ut, Mt) = _lum(graph, np.float32, "FP32")
-    assert tvd.build_valdot_plan(Mt, Lt, Ut, sr_udt, min_lanes=1) is None
-    with pytest.raises(NotImplementedError, match="user-defined"):
-        tesc.csr_spgemm(sr_udt, Lt, Ut, mask=Mt)
+
+    def as_udt(X):
+        return tcontainer.CsrMatrix(X.indptr, X.indices, X.rowids,
+                                    {"v": X.values}, X.nvals, X.nrows,
+                                    X.ncols, ut)
+    Lu, Uu, Mu = as_udt(Lt), as_udt(Ut), as_udt(Mt)
+    assert tvd.build_valdot_plan(Mu, Lu, Uu, sr_udt, min_lanes=1) is None
+    got = tesc.csr_spgemm(sr_udt, Lu, Uu, mask=Mu, structural=True)
+    want = tesc.csr_spgemm(sr, Lt, Ut, mask=Mt, structural=True)
+    assert got.nvals == want.nvals
+    assert torch.equal(got.indices[:got.nvals], want.indices[:want.nvals])
+    assert torch.allclose(got.values["v"][:got.nvals],
+                          want.values[:want.nvals], rtol=5e-5, atol=1e-4)
+    with pytest.raises(TypeError, match="mask"):
+        tesc.csr_spgemm(sr_udt, Lu, Uu, mask=Mu)
 
 
 def test_valdot_plan_cache(graph, min_lanes_1, monkeypatch):

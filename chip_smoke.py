@@ -218,7 +218,26 @@ uncaught exception and a nonzero exit):
    391,597; values within K 2^-24 sum |ab| of scipy complex128 per
    entry); a bitmap ``plus_times[FC64]`` ``mxm`` at R-MAT 12 against
    scipy; a ``max`` row reduce over FC32 on R-MAT 18 against numpy's
-   lexicographic maximum.
+   lexicographic maximum;
+30. the user-facing layer (the ``facade`` path): ``grb.GrB_mxm(C<M>,
+   GxB_PLUS_TIMES_FP32, L, U)`` with phase 9's R-MAT 18 inputs (nnzC
+   1,533,157, bit-equal to ``gt.mxm`` on freshly built inputs, with
+   equal launches of the gather-dot and popcount kernels); the
+   ``tri_demo`` flow through ``grb`` names on phase 20's degree-permuted
+   graph (``GxB_select`` tril/triu, ``GrB_mxm(C<L>,
+   GxB_PLUS_TIMES_UINT32, L, U')``, ``GrB_reduce``: 82,947,332);
+   ``write_triplets`` / ``read_triplets`` of an R-MAT 18 FP32 CSR
+   (7,612,718 lines), its ``save_matrix`` / ``load_matrix(as_csr=True)``
+   round trip and that of phase 28's struct CSR {a: FP64, b: INT32};
+   ``check`` on the R-MAT 18 CSR and on phase 26's 2^60 HyperMatrix
+   (each copy with a pair of column indices swapped raises
+   ``ValueError``) and ``fprint`` at SHORT (the header and 30 entries);
+   fault-injection sweeps on the card over ``csr_spgemm``, a masked
+   ``mxm`` and a ``wait`` at R-MAT 10 (each fires, the inputs stay
+   bit-identical, the result equals the clean run); and the ten demos of
+   ``graphblas_tpu_torch.demos``, each in a subprocess on the card and
+   on the CPU (``--device cpu``), with equal result lines (their
+   launches counted as ``demos``).
 
 Launch counters are zeroed just before each path and read just after
 it: before phase 3 and after phase 9 (triangle counting and ``mxm``:
@@ -235,7 +254,8 @@ paths of phases 23-25).  Phases 26 and 27 are read apart too and
 summed as ``hyper`` (no kernel lies on their paths either; the
 hand-off's chunked CSR ESC reaches none), and phases 28 and 29 as
 ``udt`` and ``complex`` (every kernel gate refuses struct and complex
-operands).  Their references
+operands), phase 30 as ``facade`` (its steps 1 and 2) and ``demos``.
+Their references
 (``ktruss_esc``, ``tricount_esc``, ``allktruss_esc``, ``kron``,
 ``bfs_csr``) run outside the counted window, so a count is the path's own.  The line before the
 last is the per-kernel JSON summary, with each kernel's bound (the
@@ -247,6 +267,7 @@ when no CUDA device is present.
 
 import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -529,7 +550,7 @@ def wathen_lu(gt, nx: int):
     return L, U, n, len(iu)
 
 
-def rmat_lu(gt, scale: int):
+def rmat_lu(gt, scale: int, device="cuda"):
     """(L, U, nnz, A): the prepped triangular factors and the
     symmetrized graph itself."""
     n = 1 << scale
@@ -537,19 +558,35 @@ def rmat_lu(gt, scale: int):
     I, J = gt.symmetrize_pattern(I, J, n)
     A = gt.CsrMatrix.from_coo(I, J, np.ones(len(I), bool), n, n,
                               type=gt.BOOL, sum_duplicates=False,
-                              device="cuda")
+                              device=device)
     L, U = gt.tricount_prep_csr(A)
     return L, U, len(I), A
 
 
-def with_values(gt, X, rng):
+def with_values(gt, X, rng, device="cuda"):
     """bench.py's value recipe on X's pattern: uniform [0.5, 1.5)
-    float32 drawn from ``rng``, as an FP32 CSR on the card."""
+    float32 drawn from ``rng``, as an FP32 CSR on ``device``."""
     hp = X._options["host_pattern"]
     I, J = hp[0][:X.nvals], hp[1][:X.nvals]
     return gt.CsrMatrix.from_coo(
         I, J, rng.random(len(I)).astype(np.float32) + 0.5, X.nrows,
-        X.ncols, type=gt.FP32, sum_duplicates=False, device="cuda")
+        X.ncols, type=gt.FP32, sum_duplicates=False, device=device)
+
+
+def degree_permuted(gt, A, device="cuda"):
+    """The reference tri_demo's input: A's pattern with its vertices
+    renumbered in ascending degree order (``sparse/tri.py``'s prep
+    order), as a BOOL CSR."""
+    hp = A._options["host_pattern"]
+    I = hp[0][:A.nvals].astype(np.int64)
+    J = hp[1][:A.nvals].astype(np.int64)
+    n = A.nrows
+    perm = np.argsort(np.bincount(I, minlength=n), kind="stable")
+    rank = np.empty(n, np.int64)
+    rank[perm] = np.arange(n)
+    return gt.CsrMatrix.from_coo(rank[I], rank[J], np.ones(len(I), bool),
+                                 n, n, type=gt.BOOL, sum_duplicates=False,
+                                 device=device), rank[I]
 
 
 def random_gatherdot_case(rng, S: int, dtype):
@@ -1196,6 +1233,384 @@ def phase29_complex(gt, L16, U16, C16, A18, A12, dev, tag, nnzc16=None):
           f"bitmap FC64 mxm R-MAT 12 via {bm_engine} == scipy; max[FC32] "
           f"row reduce == numpy's lexicographic max")
     return launches, times
+
+
+# the demos of phase 30: (module, arguments, a line each run must print);
+# "{dir}" is a scratch directory holding the graph files
+DEMOS = (("simple", (), "simple_demo OK"),
+         ("wildtype", (), "wildtype_demo OK"),
+         ("complex", (), "complex_demo OK"),
+         ("import", (), "import_demo OK"),
+         ("mis", (), "maximal independent set status verified"),
+         ("bfs", (), "nodes reachable from node 0"),
+         ("tri", (), "method SandiaDot"),
+         ("kron", ("{dir}/a.tsv", "{dir}/b.tsv", "{dir}/c_{dev}.tsv", "2"),
+          "C = kron(A,B): 6 x 9, 9 entries"),
+         ("ktruss", (), "steps (graphblas path)"),
+         ("pagerank", ("{dir}/g.tsv",), "dpagerank2 iters:"))
+
+# runs one demo module as __main__ with the given arguments, then prints
+# the kernel launches it made as the last line
+DEMO_RUNNER = (
+    "import json, runpy, sys\n"
+    "from graphblas_tpu_torch import _build\n"
+    "sys.argv = sys.argv[1:]\n"
+    "runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)\n"
+    "print('LAUNCHES ' + json.dumps(_build.launches))\n")
+
+# a demo's timing fields ("...: 0.001234 s rate 1.00 M edges/s" of tri,
+# ", 0.056 s (...)" of kron), taken out before the card's and the CPU's
+# lines are compared
+DEMO_TIMES = (r": [0-9.]+ s( rate .*)?$", r", [0-9.]+ s \(.*\)$")
+
+
+def demo_result_lines(out: str) -> list:
+    import re
+    lines = []
+    for ln in out.splitlines():
+        for pat in DEMO_TIMES:
+            ln = re.sub(pat, "", ln)
+        lines.append(ln)
+    return lines
+
+
+def write_demo_inputs(gt, d: str) -> None:
+    """The demos' input files: kron's A and B, and pagerank's graph (the
+    symmetrized R-MAT 12 edges, one triplet line each)."""
+    with open(f"{d}/a.tsv", "w") as f:
+        f.write("0 1 2\n1 0 3\n2 2 0.5\n")
+    with open(f"{d}/b.tsv", "w") as f:
+        f.write("0 0 1\n1 1 5\n0 2 -1.25\n")
+    I, J = gt.symmetrize_pattern(*gt.rmat_edges(12, 16, seed=7), 1 << 12)
+    with open(f"{d}/g.tsv", "w") as f:
+        f.write("".join(f"{i} {j} 1\n" for i, j in zip(I.tolist(),
+                                                        J.tolist())))
+
+
+def run_demos(gt, tag: str, card: bool = True, workers: int = 5):
+    """Phase 30's last step: each demo in a subprocess on the card (no
+    ``--device``) and on the CPU (``--device cpu``), several at a time.
+    Each run must exit with 0 and print its line; the card's result lines
+    must equal the CPU's (pagerank's: its node ranking and integer
+    ranks); kron's files must be equal.  Returns the card runs' summed
+    kernel launches and the seconds each run took."""
+    import concurrent.futures as cf
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        write_demo_inputs(gt, d)
+        devs = ("cuda", "cpu") if card else ("cpu",)
+
+        def run(job):
+            name, args, _ = job[0]
+            dev = job[1]
+            argv = [a.format(dir=d, dev=dev) for a in args]
+            if dev == "cpu":
+                argv = ["--device", "cpu"] + argv
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-c", DEMO_RUNNER,
+                                f"graphblas_tpu_torch.demos.{name}", *argv],
+                               capture_output=True, text=True, timeout=600)
+            return r, time.perf_counter() - t0
+
+        jobs = [(demo, dev) for demo in DEMOS for dev in devs]
+        with cf.ThreadPoolExecutor(workers) as pool:
+            results = list(pool.map(run, jobs))
+        launches = {k: 0 for k in KERNELS}
+        secs = {}
+        outs = {}
+        for ((name, _, expect), dev), (r, dt) in zip(jobs, results):
+            assert r.returncode == 0, \
+                f"demo {name} on {dev} failed:\n{r.stdout}\n{r.stderr}"
+            body, last = r.stdout.rstrip("\n").rsplit("\n", 1)
+            assert last.startswith("LAUNCHES "), (name, dev, last)
+            assert expect in body, (name, dev, expect)
+            if dev == "cuda":
+                for k, v in json.loads(last[len("LAUNCHES "):]).items():
+                    if k in launches:
+                        launches[k] += v
+            secs[(name, dev)] = dt
+            outs[(name, dev)] = demo_result_lines(body)
+        tri = {ln.split()[1] for ln in outs[("tri", devs[0])]
+               if ln.startswith("triangles:")}
+        assert len(tri) == 1, f"tri_demo methods disagree: {tri}"
+        if card:
+            for name, _, _ in DEMOS:
+                a, b = outs[(name, "cuda")], outs[(name, "cpu")]
+                if name == "pagerank":
+                    a = [re_ranks(ln) for ln in a]
+                    b = [re_ranks(ln) for ln in b]
+                assert a == b, f"demo {name}: card and CPU lines differ"
+            with open(f"{d}/c_cuda.tsv", "rb") as f1, \
+                    open(f"{d}/c_cpu.tsv", "rb") as f2:
+                assert f1.read() == f2.read(), "kron files differ"
+    for (name, dev), dt in secs.items():
+        print(f"{tag} phase30 demo {name} on {dev}: exit 0, {dt:.3f} s")
+    return launches, secs
+
+
+def re_ranks(line: str) -> str:
+    """A pagerank demo line without its float ranks: the node ids of the
+    three variants and the integer rank stay."""
+    import re
+    return re.sub(r" : [0-9.]+e[-+][0-9]+\]", "]", line)
+
+
+def snapshot_tensors(X) -> list:
+    """Copies of every tensor a CSR or bitmap container holds."""
+    if isinstance(X.values, dict):
+        vals = [X.values[k] for k in sorted(X.values)]
+    else:
+        vals = [X.values]
+    if hasattr(X, "indptr"):
+        ts = [X.indptr, X.indices, X.rowids, *vals]
+    else:
+        ts = [X.pattern, *vals]
+    return [t.clone() for t in ts]
+
+
+def fault_sweep(op, inputs, same, max_k: int = 80):
+    """The reference's malloc-debug loop on the port's checkpoints: arm
+    the k-th site, run ``op``; after every injected ``OutOfMemory`` each
+    input's tensors must be bit-identical, and the first run that
+    completes must equal (``same``) the clean run.  Returns (faults,
+    sites crossed by the clean run)."""
+    from graphblas_tpu_torch.core.errors import OutOfMemory
+    from graphblas_tpu_torch.utils import faultinject as fi
+    fi.set_fault_countdown(10 ** 9)
+    clean = op()
+    crossed = fi.sites_crossed()
+    fi.clear_fault()
+    snaps = [snapshot_tensors(X) for X in inputs]
+
+    def unchanged():
+        for snap, X in zip(snaps, inputs):
+            for a, b in zip(snap, snapshot_tensors(X)):
+                assert torch.equal(a, b), "an input changed across a fault"
+    faults = 0
+    for k in range(1, max_k + 1):
+        fi.set_fault_countdown(k)
+        try:
+            got = op()
+        except OutOfMemory:
+            faults += 1
+            unchanged()
+            continue
+        finally:
+            fi.clear_fault()
+        same(clean, got)
+        unchanged()
+        return faults, crossed
+    raise AssertionError(f"still failing after {max_k} checkpoints")
+
+
+def deterministic(fn):
+    """fn() with torch's deterministic algorithms on (``index_add_``
+    then sums in a fixed order on the card); an op with no deterministic
+    form warns, and the warnings are counted and printed."""
+    import warnings
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    ops = {str(w.message).split(" does not")[0] for w in seen
+           if "deterministic" in str(w.message)}
+    if ops:
+        print(f"  (deterministic mode: no deterministic form of "
+              f"{sorted(ops)})")
+    return out
+
+
+def same_tuples(X, Y) -> None:
+    for a, b in zip(X.extractTuples(), Y.extractTuples()):
+        assert np.array_equal(a, b), "tuples differ"
+
+
+def phase30_facade(gt, L, U, A, H, V, P_type, dev, tag, sweep_graph,
+                   nnzc=None, ntri=None, card=True):
+    """Phase 30, the user-facing layer.  ``L``/``U``/``A``: the prepped
+    factors and the symmetrized graph (BOOL CSR); ``H`` a HyperMatrix to
+    check; ``V`` a struct CSR of ``P_type`` {a: FP64, b: INT32};
+    ``sweep_graph`` the small (L, U) of the fault sweeps.  Returns
+    (the ``facade`` path's launches, the demos' launches)."""
+    import io as _io
+    import tempfile
+    from graphblas_tpu_torch import _build, grb
+    from graphblas_tpu_torch import io as gio
+    from graphblas_tpu_torch.sparse import csr_spgemm
+    n = L.nrows
+    e = np.zeros(0, np.int64)
+
+    def empty(t, m=n):
+        return gt.CsrMatrix.from_coo(e, e, np.zeros(0, t.dtype), m, m,
+                                     type=t, device=dev)
+
+    def fresh_inputs():
+        rng = np.random.default_rng(3)
+        return [with_values(gt, X, rng, dev) for X in (L, U, L)]
+
+    def counts():
+        return {k: _build.launches[k] for k in KERNELS}
+
+    # 1. the masked product through the facade, against a direct gt.mxm
+    # on freshly built inputs (the plan cache starts empty for each).
+    # Both run with torch's deterministic algorithms: the ESC residual
+    # folds float PLUS with index_add_, whose CUDA atomics sum in no fixed
+    # order, so two runs of one product may differ in the last bit
+    Lv, Uv, Mv = fresh_inputs()
+    _build.reset_launches()
+    Cf, f_s = deterministic(lambda: timed(lambda: grb.GrB_mxm(
+        empty(gt.FP32), Mv, None, grb.GxB_PLUS_TIMES_FP32, Lv, Uv,
+        grb.GrB_Descriptor_new())))
+    f_engine = gt.last_axb_method()
+    facade = counts()
+    Lv, Uv, Mv = fresh_inputs()
+    _build.reset_launches()
+    Cd, d_s = deterministic(lambda: timed(lambda: gt.mxm(
+        empty(gt.FP32), Mv, None, gt.semiring.plus_times[gt.FP32], Lv,
+        Uv)))
+    direct = counts()
+    assert gt.last_axb_method() == f_engine, (f_engine, gt.last_axb_method())
+    if nnzc is not None:
+        assert Cf.nvals == nnzc, (Cf.nvals, nnzc)
+    assert Cf.nvals == Cd.nvals
+    for x in ("indptr", "indices"):
+        assert torch.equal(getattr(Cf, x), getattr(Cd, x)), x
+    nv = Cf.nvals
+    assert torch.equal(Cf.values[:nv].view(torch.int32),
+                       Cd.values[:nv].view(torch.int32)), "values differ"
+    for k in ("valdot_gatherdot_rows", "bitdot_popcount"):
+        assert facade[k] == direct[k], (k, facade[k], direct[k])
+    del Lv, Uv, Mv, Cd
+    print(f"{tag} phase30 GrB_mxm(C<M>, GxB_PLUS_TIMES_FP32, L, U): nnzC "
+          f"{nv} via {f_engine} in {f_s:.4f} s, bit-equal to gt.mxm "
+          f"({d_s:.4f} s) on fresh inputs; launches facade "
+          f"{json.dumps({k: v for k, v in facade.items() if v})} == direct "
+          f"{json.dumps({k: v for k, v in direct.items() if v})}")
+
+    # 2. the tri_demo flow through grb names on the degree-permuted graph
+    P, _ = degree_permuted(gt, A, dev)
+    _build.reset_launches()
+
+    def tri_flow():
+        Lp = grb.GxB_select(empty(gt.BOOL), None, None, grb.GxB_TRIL, P, -1)
+        Up = grb.GxB_select(empty(gt.BOOL), None, None, grb.GxB_TRIU, P, 1)
+        d = grb.GrB_Descriptor_set(grb.GrB_Descriptor_new(), grb.GrB_INP1,
+                                   grb.GrB_TRAN)
+        C = grb.GrB_mxm(empty(gt.UINT32), Lp, None,
+                        grb.GxB_PLUS_TIMES_UINT32, Lp, Up, d)
+        return int(grb.GrB_reduce(None, grb.GxB_PLUS_INT64_MONOID, C))
+    count, tri_s = timed(tri_flow)
+    tri_engine = gt.last_axb_method()
+    tri_counts = counts()
+    facade = {k: facade[k] + tri_counts[k] for k in KERNELS}
+    if ntri is not None:
+        assert count == ntri, (count, ntri)
+    assert count == gt.tricount_esc(L, U), count
+    del P
+    print(f"{tag} phase30 tri_demo flow through grb (GxB_select, GrB_mxm "
+          f"PLUS_TIMES_UINT32 via {tri_engine}, GrB_reduce): {count} "
+          f"triangles in {tri_s:.3f} s")
+
+    # 3. IO at full size
+    with tempfile.TemporaryDirectory() as d:
+        rng = np.random.default_rng(30)
+        Av = with_values(gt, A, rng, dev)
+        _, w_s = timed(lambda: gio.write_triplets(f"{d}/a.tsv", Av))
+        (Ir, Jr, Xr), r_s = timed(lambda: gio.read_triplets(f"{d}/a.tsv"))
+        Ia, Ja, Xa = Av.extractTuples()
+        assert np.array_equal(Ir, Ia) and np.array_equal(Jr, Ja)
+        assert np.array_equal(Xr.astype(np.float32), Xa), "values differ"
+        _, s_s = timed(lambda: gio.save_matrix(f"{d}/a.npz", Av))
+        B, l_s = timed(lambda: gio.load_matrix(f"{d}/a.npz", as_csr=True,
+                                               device=dev))
+        import scipy.sparse as ssp
+        same_csr(B, ssp.csr_matrix((Xa, (Ia, Ja)), shape=Av.shape),
+                 "load_matrix(save_matrix(A))")
+        _, vs_s = timed(lambda: gio.save_matrix(f"{d}/v.npz", V))
+        W, vl_s = timed(lambda: gio.load_matrix(f"{d}/v.npz", type=P_type,
+                                                as_csr=True, device=dev))
+        assert W.nvals == V.nvals and torch.equal(W.indptr, V.indptr)
+        assert torch.equal(W.indices[:V.nvals], V.indices[:V.nvals])
+        for k in ("a", "b"):
+            assert torch.equal(W.values[k][:V.nvals],
+                               V.values[k][:V.nvals]), k
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for f in os.listdir(d))
+    print(f"{tag} phase30 IO: write_triplets {Av.nvals} lines {w_s:.3f} s, "
+          f"read_triplets {r_s:.3f} s (equal arrays); save_matrix "
+          f"{s_s:.3f} s, load_matrix(as_csr) {l_s:.3f} s (same_csr); "
+          f"struct CSR {{a: FP64, b: INT32}} {V.nvals} entries save "
+          f"{vs_s:.3f} s, load {vl_s:.3f} s (field by field); "
+          f"{size} B of files")
+
+    # 4. check and fprint
+    for what, X in (("CSR", Av), ("HyperMatrix", H)):
+        ok, c_s = timed(lambda: gt.check(X))
+        assert ok
+        bad = X._shallow()
+        ind = X.indices.clone()
+        row0 = int((X.rowids[:X.nvals] == X.rowids[0]).sum())
+        assert row0 >= 2, what
+        ind[[0, 1]] = ind[[1, 0]]
+        bad.indices = ind
+        try:
+            gt.check(bad)
+            raise AssertionError(f"{what}: swapped indices passed check")
+        except ValueError:
+            pass
+        buf = _io.StringIO()
+        _, p_s = timed(lambda: gt.fprint(X, what, gt.SHORT, buf))
+        text = buf.getvalue()
+        assert text.count("\n    (") == 30 and text.endswith("    ...\n"), \
+            what
+        assert f"nvals: {X.nvals}" in text, what
+        print(f"{tag} phase30 check {what} ({X.nvals} entries): {c_s:.4f} s,"
+              f" the swapped copy raises ValueError; fprint SHORT: header "
+              f"and 30 entries in {p_s:.4f} s")
+    del Av, B, W
+
+    # 5. fault sweeps on the card at the small graph
+    Ls, Us = sweep_graph
+    rng = np.random.default_rng(31)
+
+    def int_values(X):
+        # small integers: every sum is exact in any order
+        hp = X._options["host_pattern"]
+        return gt.CsrMatrix.from_coo(
+            hp[0][:X.nvals], hp[1][:X.nvals],
+            rng.integers(1, 5, X.nvals).astype(np.float32), X.nrows,
+            X.ncols, type=gt.FP32, sum_duplicates=False, device=dev)
+    Li, Ui, Mi = int_values(Ls), int_values(Us), int_values(Ls)
+    ns = Ls.nrows
+    sr = gt.semiring.plus_times[gt.FP32]
+    Pw = Li
+    for k in range(200):
+        Pw = Pw.setElement(float(k % 7 + 1), int(rng.integers(ns)),
+                           int(rng.integers(ns)), blocking=False,
+                           accum=gt.binary.plus[gt.FP32] if (k // 50) % 2
+                           else None)
+    sweeps = (("csr_spgemm", lambda: csr_spgemm(sr, Li, Ui), [Li, Ui]),
+              ("masked mxm", lambda: gt.mxm(empty(gt.FP32, ns), Mi, None,
+                                            sr, Li, Ui), [Li, Ui, Mi]),
+              ("wait", Pw.wait, [Li, Pw]))
+    for name, op, inputs in sweeps:
+        (faults, crossed), sw_s = timed(lambda: fault_sweep(op, inputs,
+                                                            same_tuples))
+        assert faults >= 1, name
+        print(f"{tag} phase30 fault sweep {name} (R-MAT "
+              f"{int(np.log2(ns))}): {faults} faults of {crossed} sites, "
+              f"inputs bit-identical after each, retry == clean run; "
+              f"{sw_s:.3f} s")
+
+    # 6. the demos
+    demos, secs = run_demos(gt, tag, card=card)
+    print(f"{tag} phase30 demos: {len(secs)} runs, each exit 0 with its "
+          f"line{', card == CPU result lines' if card else ''}; slowest "
+          f"{max(secs.values()):.3f} s")
+    return facade, demos
 
 
 def main() -> None:
@@ -2363,17 +2778,8 @@ def main() -> None:
     t_phase = time.perf_counter()
     L18, U18, _, A18s = graphs[18]
     n = A18s.nrows
-    hp = A18s._options["host_pattern"]
-    I18 = hp[0][:A18s.nvals].astype(np.int64)
-    J18 = hp[1][:A18s.nvals].astype(np.int64)
     t0 = time.perf_counter()
-    deg = np.bincount(I18, minlength=n)
-    perm = np.argsort(deg, kind="stable")     # sparse/tri.py:363-367
-    rank = np.empty(n, np.int64)
-    rank[perm] = np.arange(n)
-    P = gt.CsrMatrix.from_coo(rank[I18], rank[J18], np.ones(len(I18), bool),
-                              n, n, type=gt.BOOL, sum_duplicates=False,
-                              device="cuda")
+    P, rowsP = degree_permuted(gt, A18s)      # sparse/tri.py:363-367
     p_secs = time.perf_counter() - t0
     op_times = {}
 
@@ -2399,7 +2805,7 @@ def main() -> None:
     dvec = first_warm("reduce_to_vector plus", lambda: gt.reduce_to_vector(
         gt.Vector.new(gt.INT64, n, device="cuda"), None, None,
         gt.monoid.plus[gt.INT64], P))
-    assert np.array_equal(dvec.to_dense(), np.bincount(rank[I18],
+    assert np.array_equal(dvec.to_dense(), np.bincount(rowsP,
                                                        minlength=n)), \
         "the degree reduce differs from the host degrees"
     Lt = first_warm("transpose", lambda: gt.transpose(
@@ -2427,7 +2833,7 @@ def main() -> None:
           f"{torch.cuda.max_memory_allocated()} B")
     print(f"ops-tri-demo-path launches: {json.dumps(ops_launches)}")
     path_launches["ops_tri_demo"] = ops_launches
-    del P, L, U, S, Lt, C, dvec, L18, U18, I18, J18, rank, perm, deg
+    del P, L, U, S, Lt, C, dvec, L18, U18, rowsP
 
     # 21. k-truss through the operations on CSR (models/ktruss.py's loop):
     # R-MAT 16, k = 5; only models.ktruss runs inside the counted window
@@ -2997,6 +3403,35 @@ def main() -> None:
           f"peak device memory {torch.cuda.max_memory_allocated()} B")
     print(f"complex-path launches: {json.dumps(path_launches['complex'])}")
     del A12
+
+    # ---- the user-facing layer: 30 ----
+    # phase 26's 2^60 HyperMatrix and phase 28's struct CSR, rebuilt from
+    # their recipes; the fault sweeps' R-MAT 10 factors
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    A18 = graphs[18][3]
+    I18, J18, _ = A18.extractTuples()
+    X26 = np.random.default_rng(26).integers(1, 100, len(I18)).astype(
+        np.int64)
+    ids18 = id_map(A18.nrows)
+    H30 = gt.hyper_from_coo(ids18[I18], ids18[J18], X26, gt.GxB_INDEX_MAX,
+                            gt.GxB_INDEX_MAX, type=gt.INT64, dup=None,
+                            device="cuda")
+    P30 = gt.Type.udt("ab", a=gt.FP64, b=gt.INT32)
+    rng28 = np.random.default_rng(28)
+    V30 = gt.CsrMatrix.from_coo(
+        I18, J18, {"a": rng28.integers(1, 100, len(I18)).astype(np.float64),
+                   "b": rng28.integers(1, 100, len(I18)).astype(np.int32)},
+        A18.nrows, A18.ncols, type=P30, sum_duplicates=False, device="cuda")
+    L10, U10, _, _ = rmat_lu(gt, 10)
+    path_launches["facade"], path_launches["demos"] = phase30_facade(
+        gt, graphs[18][0], graphs[18][1], A18, H30, V30, P30, "cuda", tag,
+        (L10, U10), nnzc=VALUED_NNZC[18], ntri=RMAT_ANCHORS[18][1])
+    print(f"{tag} phase30 phase {time.perf_counter() - t_phase:.3f} s, "
+          f"peak device memory {torch.cuda.max_memory_allocated()} B")
+    print(f"facade-path launches: {json.dumps(path_launches['facade'])}")
+    print(f"demos-path launches: {json.dumps(path_launches['demos'])}")
+    del H30, V30, L10, U10, I18, J18, X26
 
     sources = {
         "tri_band_ring": ("graphblas_tpu_torch/csrc/window.cu",

@@ -45,7 +45,13 @@ and imports no JAX.  The slices so far:
 * user-defined struct types (``Type.udt``, values as dicts of tensors,
   :mod:`utils.tree`) over every container and engine, with the UDT
   PageRank ``dpagerank2``/``dpagerank2_csr``, and the complex types
-  ``FC32``/``FC64``.
+  ``FC32``/``FC64``;
+* the user-facing layer: the ``GrB_*``/``GxB_*`` facade (:mod:`grb`)
+  and the m4 example objects (:mod:`user_objects`), ``fprint`` and
+  ``check`` (:mod:`core.printing`), triplet/MatrixMarket IO and ``.npz``
+  checkpoints (:mod:`io`), ``isequal``, timers and fault injection
+  (:mod:`utils`), and the single-card demos (:mod:`demos`, run as
+  ``python -m graphblas_tpu_torch.demos.<name>``).
 
 The kernels are built with ``nvcc`` on first use, never at import.
 
@@ -65,6 +71,7 @@ from .core.matrix import Matrix, Vector
 from .core.monoids import MONOIDS, Monoid, monoid, monoid_new
 from .core.ops import (BinaryOp, SelectOp, UnaryOp, binary, binary_op,
                        select as selectop, unary, unary_op)
+from .core.printing import COMPLETE, SHORT, SILENT, SUMMARY, check, fprint
 from .core.io_export import (export_csc, export_csr, export_hyper_csc,
                              export_hyper_csr, export_vector, import_csc,
                              import_csr, import_hyper_csc, import_hyper_csr,
@@ -72,10 +79,11 @@ from .core.io_export import (export_csc, export_csr, export_hyper_csc,
 from .core.options import (BLOCKING, BY_COL, BY_ROW, NONBLOCKING, Options,
                            get_option, global_options, init, set_option)
 from .core.resolve import UnsupportedOp
-from .core.semirings import semiring, semiring_new
-from .core.types import (BOOL, FC32, FC64, FP32, FP64, INT8, INT16, INT32,
-                         INT64, UINT8, UINT16, UINT32, UINT64, Type,
-                         type_of_dtype)
+from .core.semirings import SEMIRINGS, Semiring, semiring, semiring_new
+from .core.semirings import lookup as semiring_lookup
+from .core.types import (BOOL, BUILTIN_TYPES, FC32, FC64, FP32, FP64, INT8,
+                         INT16, INT32, INT64, UINT8, UINT16, UINT32, UINT64,
+                         Type, type_of_dtype)
 from .models.generate import wathen_coo
 from .models.rmat import rmat_edges, symmetrize_pattern
 from .utils.indices import ALL
@@ -97,7 +105,9 @@ __all__ = [
     "IndexOutOfBounds", "Info", "InvalidValue",
     "BOOL", "FP32", "FP64", "INT8", "INT16", "INT32", "INT64", "UINT8",
     "UINT16", "UINT32", "UINT64", "FC32", "FC64", "Type", "type_of_dtype",
-    "semiring_new",
+    "BUILTIN_TYPES", "Semiring", "SEMIRINGS", "semiring_lookup",
+    "semiring_new", "fprint", "check", "SILENT", "SUMMARY", "SHORT",
+    "COMPLETE",
     "Descriptor", "NULL_DESC", "REPLACE", "SCMP", "TRAN0", "TRAN1", "RT",
     "ST", "RST", "TT", "Matrix", "Vector", "Monoid", "monoid", "MONOIDS",
     "monoid_new", "UnaryOp", "BinaryOp", "SelectOp", "unary", "binary",

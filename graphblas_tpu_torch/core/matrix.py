@@ -36,6 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils import faultinject
 from ..utils.tree import tree_map
 from .errors import DimensionMismatch, IndexOutOfBounds
 from .ops import BinaryOp, binary
@@ -287,14 +288,18 @@ class _Bitmap:
     ``type.storage`` and a bool ``pattern`` of one shape, on one
     device."""
 
-    __slots__ = ("values", "pattern", "type", "_pending")
+    __slots__ = ("values", "pattern", "type", "_pending", "_options")
 
-    def _init(self, values, pattern, type, pending):
+    def _init(self, values, pattern, type, pending, options=None):
         self.values = values
         self.pattern = pattern
         self.type = _typed(type)
         # the non-blocking delta list: (index tuple, scalar, accum op)
         self._pending = as_pending(pending)
+        # per-object options (GxB_Matrix_Option_set scope): set through
+        # the facade, carried by every container derived through
+        # _replace (setElement, wait, canonical, dup)
+        self._options = dict(options) if options else {}
 
     @property
     def shape(self):
@@ -309,10 +314,15 @@ class _Bitmap:
         return int(self.wait().pattern.sum())
 
     def _replace(self, values=None, pattern=None, pending=None):
+        # the universal new-container site (every derived container
+        # lands here): the faultable "allocation" of the functional
+        # design, as in the JAX package
+        faultinject.checkpoint("Matrix._replace")
         return type(self)(self.values if values is None else values,
                           self.pattern if pattern is None else pattern,
                           self.type,
-                          self._pending if pending is None else pending)
+                          self._pending if pending is None else pending,
+                          self._options)
 
     def wait(self):
         """Fold the pending tuples (reference ``GB_wait``): per run of
@@ -321,6 +331,7 @@ class _Bitmap:
         already present takes accum(old, new), or new without accum."""
         if not self._pending:
             return self
+        faultinject.checkpoint("Matrix.wait")
         t = self.type
         shape = self.shape
         dev = self.device
@@ -452,17 +463,18 @@ class Matrix(_Bitmap):
     __slots__ = ()
 
     def __init__(self, values, pattern: torch.Tensor,
-                 type: Type, pending=None):
+                 type: Type, pending=None, options=None):
         shape = value_shape(values)
         if len(shape) != 2 or shape != tuple(pattern.shape):
             raise ValueError(f"a Matrix needs 2-D values and pattern of "
                              f"one shape, got {shape} and "
                              f"{tuple(pattern.shape)}")
-        self._init(values, pattern, type, pending)
+        self._init(values, pattern, type, pending, options)
 
     # -- constructors -------------------------------------------------------
     @staticmethod
     def new(type: Type, nrows: int, ncols: int, device=None) -> "Matrix":
+        faultinject.checkpoint("Matrix.new")
         _typed(type)
         dev = _resolve(device)
         return Matrix(zeros_like_typed((nrows, ncols), type, dev),
@@ -474,6 +486,7 @@ class Matrix(_Bitmap):
                    device=None) -> "Matrix":
         """Every entry of the 2-D ``arr`` (numpy or torch, cast to
         ``type``) present, or those ``pattern`` marks."""
+        faultinject.checkpoint("Matrix.from_dense")
         return Matrix(*_dense_parts(arr, type, pattern, device)).canonical()
 
     @staticmethod
@@ -483,6 +496,7 @@ class Matrix(_Bitmap):
         """Build from (i, j, value) tuples; duplicates fold in input
         order with ``dup`` (default PLUS), as the reference's
         ``GrB_Matrix_build``."""
+        faultinject.checkpoint("Matrix.from_coo")
         I = np.asarray(I, dtype=np.int64)
         J = np.asarray(J, dtype=np.int64)
         if I.size and (I.min() < 0 or I.max() >= nrows or J.min() < 0
@@ -568,13 +582,13 @@ class Vector(_Bitmap):
     __slots__ = ()
 
     def __init__(self, values, pattern: torch.Tensor,
-                 type: Type, pending=None):
+                 type: Type, pending=None, options=None):
         shape = value_shape(values)
         if len(shape) != 1 or shape != tuple(pattern.shape):
             raise ValueError(f"a Vector needs 1-D values and pattern of "
                              f"one shape, got {shape} and "
                              f"{tuple(pattern.shape)}")
-        self._init(values, pattern, type, pending)
+        self._init(values, pattern, type, pending, options)
 
     # -- constructors -------------------------------------------------------
     @staticmethod

@@ -29,7 +29,8 @@ import dataclasses
 import threading
 
 __all__ = ["Options", "global_options", "init", "set_option", "get_option",
-           "BLOCKING", "NONBLOCKING", "BY_ROW", "BY_COL"]
+           "BLOCKING", "NONBLOCKING", "BY_ROW", "BY_COL", "is_cache_key",
+           "public_options"]
 
 BLOCKING = "blocking"
 NONBLOCKING = "nonblocking"
@@ -73,3 +74,25 @@ def set_option(name: str, value) -> None:
 
 def get_option(name: str):
     return getattr(global_options(), name)
+
+
+# A sparse container's ``_options`` holds two kinds of keys.  The
+# engines' caches are tied to the container's tensors: the host pattern
+# (``host_pattern``), the bitdot plan (``bitdot_plan``), and plans under
+# names that start with "_" or under tuple keys.  Every other key is a
+# per-object option (``GxB_Matrix_Option_set``: ``format``,
+# ``hyper_ratio``, ``bsr_spmv``, or any name of the caller's).
+_CACHE_NAMES = frozenset({"host_pattern", "bitdot_plan"})
+
+
+def is_cache_key(key) -> bool:
+    """Whether ``key`` of a container's ``_options`` names an engine
+    cache (which a user option may not overwrite)."""
+    return (not isinstance(key, str) or key.startswith("_")
+            or key in _CACHE_NAMES)
+
+
+def public_options(options: dict) -> dict:
+    """The per-object options of ``options`` without the engine caches:
+    what a container with a new pattern inherits from its source."""
+    return {k: v for k, v in options.items() if not is_cache_key(k)}

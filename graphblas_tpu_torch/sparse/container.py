@@ -38,6 +38,7 @@ import torch
 from ..core.errors import IndexOutOfBounds
 from ..core.matrix import Matrix, as_pending, device_values, host_values
 from ..core.types import Type, type_of_dtype
+from ..utils import faultinject
 from ..utils.tree import tree_map
 from ..io.native import sort_dedup_native, sort_pairs_native
 
@@ -370,6 +371,7 @@ def csr_from_coo(I, J, X, nrows: int, ncols: int,
                  sum_duplicates: bool = True, device=None) -> CsrMatrix:
     """Host-side CSR build: lexsort (i, j), optional dup-sum, pad to
     capacity, move to ``device`` (see :func:`resolve_device`)."""
+    faultinject.checkpoint("csr_from_coo")
     device = resolve_device(device)
     I = np.asarray(I, np.int64)
     J = np.asarray(J, np.int64)

@@ -52,6 +52,7 @@ from ..core.semirings import Semiring
 from ..core.types import (Type, cast, cast_result, tree_where, value_take,
                           zeros_like_typed)
 from ..ops.flopcount import record_axb_method
+from ..utils import faultinject
 from ..utils.tree import tree_map
 from .container import CsrMatrix
 from .spmv import segment_fold
@@ -227,6 +228,7 @@ def csr_spgemm(sr: Semiring, A: CsrMatrix, B: CsrMatrix,
     output nnz are cached per (A, B, mask) with the expansion carries,
     keyed weakly on the operands' tensors, so repeated calls read no
     scalar back from the device."""
+    faultinject.checkpoint("csr_spgemm")
     m, k = A.shape
     k2, n = B.shape
     if k != k2:

@@ -62,6 +62,7 @@ from ..core.semirings import Semiring
 from ..core.matrix import host_values
 from ..core.types import (Type, cast, cast_result, tree_where, type_of_dtype,
                           value_take, zeros_like_typed)
+from ..utils import faultinject
 from ..utils.tree import tree_map
 from .container import resolve_device
 from .spmv import segment_fold, segment_reduce
@@ -375,6 +376,7 @@ def hyper_from_coo(I, J, X, nrows: int, ncols: int,
     import and container-conversion paths).  Tuples with duplicates
     fold on the host, in input order within a run, as the JAX package
     folds them; unique tuples sort on the device."""
+    faultinject.checkpoint("hyper_from_coo")
     from ..core.errors import IndexOutOfBounds
     device = resolve_device(device)
     I = np.asarray(I, np.int64)
@@ -500,6 +502,7 @@ def hyper_spgemm(sr: Semiring, A: HyperMatrix, B: HyperMatrix,
     """C<M> = A *.sr* B on hypersparse operands: the ESC engine with pair
     keys.  Dimension-independent: only nnz- and nvec-sized tensors.
     Reads two scalars back (the flop total, the output count)."""
+    faultinject.checkpoint("hyper_spgemm")
     from ..core.errors import DimensionMismatch
     from ..ops.flopcount import record_axb_method
     from . import esc
@@ -796,8 +799,8 @@ def nvec_nonempty(A) -> int:
 def _public_options(A) -> dict:
     """A container's settable options (``hyper_ratio``, ``format``),
     without the host pattern and plan caches tied to its tensors."""
-    return {k: v for k, v in A._options.items()
-            if not k.startswith("_") and k != "host_pattern"}
+    from ..core.options import public_options
+    return public_options(A._options)
 
 
 def _ratio_of(A, ratio):

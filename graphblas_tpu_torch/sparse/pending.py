@@ -42,7 +42,9 @@ from ..core.errors import IndexOutOfBounds
 from ..core.matrix import (_fold_runs, device_values, global_blocking,
                            host_values, pending_runs)
 from ..core.ops import BinaryOp
+from ..core.options import public_options
 from ..core.types import Type, cast_result, cast_value
+from ..utils import faultinject
 from ..utils.tree import tree_leaves, tree_map
 
 __all__ = ["fold_pending_csr", "fold_pending_hyper", "csr_resize",
@@ -141,6 +143,7 @@ def _merge_op(accum: Optional[BinaryOp], t: Type) -> BinaryOp:
 
 def fold_pending_csr(A):
     """GB_wait on CsrMatrix: one union merge per accum run."""
+    faultinject.checkpoint("csr_wait")
     from .container import csr_from_coo
     from .ewise import csr_ewise_add
     out = A
@@ -149,11 +152,13 @@ def fold_pending_csr(A):
         D = csr_from_coo(I, J, X, A.nrows, A.ncols, type=A.type,
                          sum_duplicates=False, device=A.device)
         out = csr_ewise_add(_merge_op(accum, A.type), out, D)
+    out._options.update(public_options(A._options))
     return out
 
 
 def fold_pending_hyper(A):
     """GB_wait on HyperMatrix: one pair-key union merge per accum run."""
+    faultinject.checkpoint("hyper_wait")
     from .hyper import hyper_ewise, hyper_from_coo
     out = A
     for accum, tuples in _runs(A._pending):
@@ -162,6 +167,7 @@ def fold_pending_hyper(A):
                            dup=None, device=A.device)
         out = hyper_ewise(_merge_op(accum, A.type), out, D, union=True,
                           ztype=A.type)
+    out._options.update(public_options(A._options))
     return out
 
 

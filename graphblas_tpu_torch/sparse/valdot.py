@@ -53,6 +53,7 @@ from ..core.errors import DimensionMismatch
 from ..core.semirings import Semiring
 from ..core.types import cast
 from ..ops.flopcount import record_axb_method
+from ..utils import faultinject
 from . import bitdot as _bd
 from .bitdot import _auto_budget, _bitdot_pass, _host_cols_rows, _pack
 from .container import CsrMatrix
@@ -739,6 +740,7 @@ def valdot_masked_spgemm(sr: Semiring, A: CsrMatrix, B: CsrMatrix,
     refuses (small flop counts, flat profiles, UDT): the caller falls
     back to the pure ESC path.  Non-complemented masks only.  Engine
     names: ``valdot:full``, ``valdot:hybrid`` (as in the JAX package)."""
+    faultinject.checkpoint("valdot_masked_spgemm")
     m, k = A.shape
     n = B.ncols
     if M.shape != (m, n):

@@ -743,3 +743,89 @@ def test_rmat_types_slice_matches_jax():
                 gt.Descriptor(tran1=True, mask_structure=True))
     _, _, Xw = Cw.extractTuples()
     np.testing.assert_allclose(Xt["w"], Xw, rtol=1e-12)
+
+
+def test_rmat_facade_matches_jax(tmp_path):
+    """The user-facing layer on R-MAT 10 (the thirteenth slice), against
+    the JAX package: the masked product through the facade,
+    ``GrB_mxm(C<M>, GxB_PLUS_TIMES_FP32, L, U)`` with bench.py's values,
+    bit-equal to the port's ``mxm`` on the same inputs and within rtol
+    2e-5, atol 2e-6 of the JAX facade's (reassociation); the
+    ``tri_demo`` flow through ``grb`` names (``GxB_select``,
+    ``GrB_mxm(C<L>, GxB_PLUS_TIMES_UINT32, L, U')``, ``GrB_reduce``:
+    exact, equal to ``tricount_esc``); ``write_triplets`` bytes and the
+    ``.npz`` round trip of L; ``check`` and the ``fprint`` text."""
+    import io as _io
+    from graphblas_tpu import grb as jgrb
+    from graphblas_tpu import io as jio
+    from graphblas_tpu_torch import grb
+    from graphblas_tpu_torch import io as tio
+    (Lt, Ut), (Lj, Uj) = _rmat_both(10)
+    n = Lt.nrows
+    rng = np.random.default_rng(3)
+    (Lvt, Lvj), (Uvt, Uvj), (Mvt, Mvj) = (_with_values(rng, a, b) for a, b
+                                          in ((Lt, Lj), (Ut, Uj), (Lt, Lj)))
+    e = np.zeros(0, np.int64)
+
+    def empty(t):
+        return gt.csr_from_coo(e, e, np.zeros(0, t.dtype), n, n, type=t,
+                               device="cpu")
+
+    def jempty(t):
+        return jsp.CsrMatrix.from_coo(e, e, np.zeros(0, t.dtype), n, n,
+                                      type=t)
+    # 1. the masked product through the facade
+    Cf = grb.GrB_mxm(empty(gt.FP32), Mvt, None, grb.GxB_PLUS_TIMES_FP32,
+                     Lvt, Uvt, grb.GrB_Descriptor_new())
+    Cd = gt.mxm(empty(gt.FP32), Mvt, None, gt.semiring.plus_times[gt.FP32],
+                Lvt, Uvt)
+    assert Cf.nvals == Cd.nvals > 0
+    for a, b in zip(Cf.extractTuples(), Cd.extractTuples()):
+        assert np.array_equal(a, b)
+    Cj = jgrb.GrB_mxm(jempty(gb.FP32), Mvj, None, jgrb.GxB_PLUS_TIMES_FP32,
+                      Lvj, Uvj, jgrb.GrB_Descriptor_new())
+    It, Jt, Xt = Cf.extractTuples()
+    Ij, Jj, Xj = Cj.extractTuples()
+    assert np.array_equal(It, np.asarray(Ij))
+    assert np.array_equal(Jt, np.asarray(Jj))
+    np.testing.assert_allclose(Xt, np.asarray(Xj), rtol=2e-5, atol=2e-6)
+    # 2. the tri_demo flow through grb names
+    I, J = gt.symmetrize_pattern(*gt.rmat_edges(10, 16, seed=7), n)
+    X = np.ones(len(I), bool)
+    counts = []
+    for g, mk, A in ((grb, empty, gt.csr_from_coo(
+            I, J, X, n, n, type=gt.BOOL, sum_duplicates=False,
+            device="cpu")), (jgrb, jempty, jsp.CsrMatrix.from_coo(
+                I, J, X, n, n, type=gb.BOOL, sum_duplicates=False))):
+        L = g.GxB_select(mk(g.GrB_BOOL), None, None, g.GxB_TRIL, A, -1)
+        U = g.GxB_select(mk(g.GrB_BOOL), None, None, g.GxB_TRIU, A, 1)
+        d = g.GrB_Descriptor_set(g.GrB_Descriptor_new(), g.GrB_INP1,
+                                 g.GrB_TRAN)
+        C = g.GrB_mxm(mk(g.GrB_UINT32), L, None, g.GxB_PLUS_TIMES_UINT32,
+                      L, U, d)
+        counts.append(int(g.GrB_reduce(None, g.GxB_PLUS_INT64_MONOID, C)))
+    assert counts[0] == counts[1] == gt.tricount_esc(Lt, Ut) > 0
+    # 3. IO: triplet bytes, read back, the .npz round trip
+    tio.write_triplets(tmp_path / "t.tsv", Lvt)
+    jio.write_triplets(tmp_path / "j.tsv", Lvj)
+    assert (tmp_path / "t.tsv").read_bytes() == \
+        (tmp_path / "j.tsv").read_bytes()
+    Ir, Jr, Xr = tio.read_triplets(str(tmp_path / "t.tsv"))
+    Il, Jl, Xl = Lvt.extractTuples()
+    assert np.array_equal(Ir, Il) and np.array_equal(Jr, Jl)
+    assert np.array_equal(Xr.astype(np.float32), Xl)
+    tio.save_matrix(tmp_path / "l.npz", Lvt)
+    Lb = tio.load_matrix(tmp_path / "l.npz", as_csr=True, device="cpu")
+    for a, b in zip(Lb.extractTuples(), Lvt.extractTuples()):
+        assert np.array_equal(a, b)
+    Lj2 = jio.load_matrix(tmp_path / "l.npz", as_csr=True)
+    for a, b in zip(Lj2.extractTuples(), Lvt.extractTuples()):
+        assert np.array_equal(np.asarray(a), b)
+    # 4. check and fprint
+    assert gt.check(Lvt) and gt.check(Lb)
+    for level in (gt.SUMMARY, gt.SHORT):
+        bt, bj = _io.StringIO(), _io.StringIO()
+        gt.fprint(Lvt, "L", level, bt)
+        gb.fprint(Lvj, "L", level, bj)
+        assert bt.getvalue() == bj.getvalue()
+    assert bt.getvalue().count("\n    (") == 30

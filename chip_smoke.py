@@ -7,7 +7,8 @@ and the gather probes, the element-wise, select, reduce and
 transpose operations with the counting models built on them, and
 pending tuples, extract/assign and the graph models BFS, MIS and
 PageRank, the hypersparse containers, user-defined struct types and
-the complex types), and check each hand-written kernel against its
+the complex types, the user-facing layer and the distributed layer on
+a world of ranks), and check each hand-written kernel against its
 plain PyTorch version.
 
     python3 chip_smoke.py
@@ -237,7 +238,23 @@ uncaught exception and a nonzero exit):
    bit-identical, the result equals the clean run); and the ten demos of
    ``graphblas_tpu_torch.demos``, each in a subprocess on the card and
    on the CPU (``--device cpu``), with equal result lines (their
-   launches counted as ``demos``).
+   launches counted as ``demos``);
+31. the distributed layer (``graphblas_tpu_torch.parallel``): a gloo
+   world of 4 ranks on the card (every collective staged through host
+   memory, counted in the census) runs ``dist_tricount_csr``
+   (82,947,332), ``dist_csr_bfs`` (the BFS anchor),
+   ``dist_csr_pagerank`` (the PageRank top-10) and
+   ``dist_masked_spgemm`` with phase 9's values (nnzC 1,533,157, within
+   rtol=5e-5, atol=1e-4 of ``gt.mxm``) on R-MAT 18; ``dist_vxm``,
+   ``dist_mxm`` (masked, unmasked, and FP32 ``min_plus``, which runs the
+   tropical kernel on every rank), ``dist_mxm_bshard``,
+   ``dist_mxm_summa`` on a (2, 2) mesh, ``dist_bfs``, ``dist_pagerank``
+   and ``dist_tricount`` on R-MAT 12 as bitmap blocks, each equal to
+   its single-card counterpart; ``dist_spgemm`` on R-MAT 14's valued
+   tril against scipy; each rank's times, census and peak memory
+   printed.  Then the same calls over NCCL at world 1 (R-MAT 14 in the
+   CSR calls: 2,860,691 triangles), the dryrun and the ``dist`` (4
+   gloo ranks) and ``large`` (NCCL) demos in subprocesses.
 
 Launch counters are zeroed just before each path and read just after
 it: before phase 3 and after phase 9 (triangle counting and ``mxm``:
@@ -254,7 +271,10 @@ paths of phases 23-25).  Phases 26 and 27 are read apart too and
 summed as ``hyper`` (no kernel lies on their paths either; the
 hand-off's chunked CSR ESC reaches none), and phases 28 and 29 as
 ``udt`` and ``complex`` (every kernel gate refuses struct and complex
-operands), phase 30 as ``facade`` (its steps 1 and 2) and ``demos``.
+operands), phase 30 as ``facade`` (its steps 1 and 2) and ``demos``,
+phase 31 as ``dist`` and ``dist_nccl`` (each world's ranks' counts,
+zeroed in each rank before its distributed calls and summed over the
+ranks; the single-card checks run after the read).
 Their references
 (``ktruss_esc``, ``tricount_esc``, ``allktruss_esc``, ``kron``,
 ``bfs_csr``) run outside the counted window, so a count is the path's own.  The line before the
@@ -1611,6 +1631,339 @@ def phase30_facade(gt, L, U, A, H, V, P_type, dev, tag, sweep_graph,
           f"line{', card == CPU result lines' if card else ''}; slowest "
           f"{max(secs.values()):.3f} s")
     return facade, demos
+
+
+# ---- phase 31: the distributed layer ----
+
+#: ranks of phase 31's gloo world on the one card
+DIST_WORLD = 4
+#: the ring SpGEMM's lane chunk in phase 31 (4 M lanes, ~0.3 GB of lane
+#: temporaries a rank)
+DIST_CHUNK = 1 << 22
+def phase31_inputs(gt, path: str, A, Lv, Uv, Mv, block_scale: int,
+                   spgemm_scale: int) -> None:
+    """Write phase 31's host inputs to ``path`` (.npz): the symmetrized
+    graph A's tuples and the valued L, U, M of phase 9's recipe (the CSR
+    calls), the weighted R-MAT ``block_scale`` graph of ``apsp_d0`` (the
+    dense blocks) and a u for its vxm, and the valued strict lower
+    triangle of R-MAT ``spgemm_scale`` (the unmasked product, L·L)."""
+    def tup(X):
+        I, J, V = X.extractTuples()
+        return I, J, V
+    out = {"n": A.nrows}
+    out["aI"], out["aJ"], _ = tup(A)
+    for key, X in (("l", Lv), ("u", Uv), ("m", Mv)):
+        out[key + "I"], out[key + "J"], out[key + "X"] = tup(X)
+    nb = 1 << block_scale
+    I, J = gt.symmetrize_pattern(*gt.rmat_edges(block_scale, 16, seed=7), nb)
+    up = I < J
+    w = (1 + 9 * np.random.default_rng(5).random(int(up.sum()))).astype(
+        np.float32)
+    out.update(nb=nb, bI=np.concatenate([I[up], J[up]]),
+               bJ=np.concatenate([J[up], I[up]]), bW=np.concatenate([w, w]),
+               bu=np.random.default_rng(31).random(nb).astype(np.float32))
+    ns = 1 << spgemm_scale
+    I, J = gt.symmetrize_pattern(*gt.rmat_edges(spgemm_scale, 16, seed=7),
+                                 ns)
+    lo = I > J
+    out.update(ns=ns, sI=I[lo], sJ=J[lo], sX=(np.random.default_rng(14)
+                                              .random(int(lo.sum()))
+                                              .astype(np.float32) + 0.5))
+    np.savez(path, **out)
+
+
+def _dev_sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def phase31_rank(rank: int, path: str, device: str):
+    """One rank of phase 31's world: every distributed call of the layer
+    on the inputs of ``path``, each timed (host clock to a device
+    synchronize); the launch counters zeroed just before the first and
+    read just after the last.  Every rank's launches, times, census and
+    peak memory are gathered on rank 0, which then runs the single-card
+    counterparts and returns every result and check."""
+    import scipy.sparse as ssp
+    import torch.distributed as dist
+    import graphblas_tpu_torch as gt
+    from graphblas_tpu_torch import _build, models, parallel as par
+    from graphblas_tpu_torch.parallel import introspect
+    f = np.load(path)
+    mesh = par.make_mesh(device=device)
+    d = mesh.size
+    a = int(np.floor(np.sqrt(d)))
+    while d % a:
+        a -= 1
+    mesh2 = par.make_mesh(shape=(a, d // a), axis_names=("i", "j"),
+                          device=device)
+    dev = mesh.device
+    n, nb, ns = int(f["n"]), int(f["nb"]), int(f["ns"])
+
+    def csr(k, t, m):
+        X = f[k + "X"] if k + "X" in f else np.ones(len(f[k + "I"]), bool)
+        return gt.CsrMatrix.from_coo(f[k + "I"], f[k + "J"], X, m, m,
+                                     type=t, sum_duplicates=False,
+                                     device=dev)
+    A = csr("a", gt.BOOL, n)
+    Lv, Uv, Mv = (csr(k, gt.FP32, n) for k in "lum")
+    S = csr("s", gt.FP32, ns)
+    Ab = gt.Matrix.from_coo(f["bI"], f["bJ"], f["bW"], nb, nb,
+                            type=gt.FP32, device=dev)
+    diag = np.arange(nb)
+    D0 = gt.Matrix.from_coo(np.concatenate([f["bI"], diag]),
+                            np.concatenate([f["bJ"], diag]),
+                            np.concatenate([f["bW"], np.zeros(nb,
+                                                              np.float32)]),
+                            nb, nb, type=gt.FP32, device=dev)
+    u = gt.Vector.from_dense(f["bu"], gt.FP32, device=dev)
+    sr = gt.semiring.plus_times[gt.FP32]
+    mp = gt.semiring.min_plus[gt.FP32]
+    times = {}
+    out = {}
+
+    def run(name, fn):
+        _dev_sync(dev)
+        t0 = time.perf_counter()
+        out[name] = fn()
+        _dev_sync(dev)
+        times[name] = time.perf_counter() - t0
+
+    dist.barrier()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    # the sharded-CSR calls
+    run("dist_tricount_csr", lambda: par.dist_tricount_csr(
+        A, mesh, chunk=DIST_CHUNK))
+    run("dist_csr_bfs", lambda: par.dist_csr_bfs(A, 0, mesh))
+    run("dist_csr_pagerank", lambda: par.dist_csr_pagerank(A, 20, mesh))
+    run("dist_masked_spgemm", lambda: par.dist_masked_spgemm(
+        sr, Lv, Uv, Mv, mesh, chunk=DIST_CHUNK))
+    # the dense blocks
+    Db = par.distribute(Ab, mesh, square=True)
+    run("dist_vxm", lambda: par.collect(par.dist_vxm(
+        sr, par.distribute(u, mesh, spec=par.P("i")), Db)))
+    run("dist_mxm", lambda: par.collect(par.dist_mxm(sr, Db, Db, M=Db)))
+    run("dist_mxm_unmasked", lambda: par.collect(par.dist_mxm(sr, Db,
+                                                              Db)))
+    run("dist_mxm_bshard", lambda: par.collect(par.dist_mxm_bshard(
+        sr, Db, Db, M=Db)))
+    D2 = par.distribute(Ab, mesh2)
+    run("dist_mxm_summa", lambda: par.collect(par.dist_mxm_summa(sr, D2,
+                                                                 D2)))
+    run("dist_bfs", lambda: par.dist_bfs(Ab, 0, mesh))
+    run("dist_pagerank", lambda: par.dist_pagerank(Ab, 20, mesh))
+    run("dist_tricount", lambda: par.dist_tricount(Ab, mesh))
+    Dd = par.distribute(D0, mesh, square=True)
+    run("dist_mxm_min_plus", lambda: par.collect(par.dist_mxm(mp, Dd, Dd)))
+    # the unmasked ring product
+    run("dist_spgemm", lambda: par.dist_spgemm(sr, S, S, mesh,
+                                               chunk=DIST_CHUNK))
+    launches = dict(_build.launches)
+    census = {k: introspect.program_stats(
+        "dist_mxm" if k in ("dist_mxm_unmasked", "dist_mxm_min_plus")
+        else k) for k in ("dist_tricount_csr", "dist_masked_spgemm",
+                          "dist_csr_bfs", "dist_csr_pagerank", "dist_vxm",
+                          "dist_mxm_bshard", "dist_mxm_summa", "dist_bfs",
+                          "dist_pagerank", "dist_tricount", "dist_spgemm",
+                          "dist_mxm_min_plus")}
+    stats = {"rank": rank, "device": str(dev), "launches": launches,
+             "times": times, "census": census,
+             "peak": (int(torch.cuda.max_memory_allocated(dev))
+                      if dev.type == "cuda" else None)}
+    every = [None] * d
+    dist.all_gather_object(every, stats)
+    if rank != 0:
+        return None
+
+    # rank 0: the single-card counterparts
+    res = {"stats": every, "backend": mesh.backend, "world": d}
+    res["ntri"] = out["dist_tricount_csr"]
+    res["ntri_single"] = gt.tricount_esc(*gt.tricount_prep_csr(A))
+    lev = out["dist_csr_bfs"]
+    res["levels"] = dict(zip(*(x.tolist() for x in np.unique(
+        lev, return_counts=True))))
+    assert np.array_equal(lev, gt.bfs_csr(A, 0)), "dist_csr_bfs"
+    res["top10"] = np.argsort(-out["dist_csr_pagerank"],
+                              kind="stable")[:10].tolist()
+    res["top10_single"] = np.argsort(-gt.pagerank_csr(A, 20),
+                                     kind="stable")[:10].tolist()
+    C = out["dist_masked_spgemm"]
+    e = np.zeros(0, np.int64)
+    C0 = gt.CsrMatrix.from_coo(e, e, np.zeros(0, np.float32), n, n,
+                               type=gt.FP32, device=dev)
+    W = gt.mxm(C0, Mv, None, "plus_times", Lv, Uv)
+    gI, gJ, gX = C.extractTuples()
+    wI, wJ, wX = W.extractTuples()
+    assert np.array_equal(gI, wI) and np.array_equal(gJ, wJ), "nnzC"
+    np.testing.assert_allclose(gX, wX, rtol=5e-5, atol=1e-4)
+    res["nnzc"] = C.nvals
+    res["nnzc_maxerr"] = float(np.abs(gX - wX).max()) if len(gX) else 0.0
+
+    def same(name, got, want, exact=False):
+        gv, gp = got.to_dense(), got.pattern_np()
+        wv, wp = want.to_dense(), want.pattern_np()
+        assert np.array_equal(gp, wp), f"{name}: pattern"
+        if exact:
+            assert np.array_equal(gv, wv), f"{name}: values"
+        else:
+            np.testing.assert_allclose(gv, wv, rtol=1e-5, atol=1e-6,
+                                       err_msg=name)
+        return float(np.abs(gv[gp] - wv[wp]).max()) if gp.any() else 0.0
+    errs = {}
+    errs["dist_vxm"] = same("dist_vxm", out["dist_vxm"], gt.vxm(
+        gt.Vector.new(gt.FP32, nb, device=dev), None, None, sr, u, Ab))
+    full = gt.mxm(gt.Matrix.new(gt.FP32, nb, nb, device=dev), None, None,
+                  sr, Ab, Ab)
+    masked = gt.mxm(gt.Matrix.new(gt.FP32, nb, nb, device=dev), Ab, None,
+                    sr, Ab, Ab)
+    errs["dist_mxm"] = same("dist_mxm", out["dist_mxm"], masked)
+    errs["dist_mxm_unmasked"] = same("dist_mxm_unmasked",
+                                     out["dist_mxm_unmasked"], full)
+    errs["dist_mxm_bshard"] = same("dist_mxm_bshard",
+                                   out["dist_mxm_bshard"], masked)
+    errs["dist_mxm_summa"] = same("dist_mxm_summa", out["dist_mxm_summa"],
+                                  full)
+    errs["dist_mxm_min_plus"] = same(
+        "dist_mxm_min_plus", out["dist_mxm_min_plus"],
+        gt.mxm(gt.Matrix.new(gt.FP32, nb, nb, device=dev), None, None, mp,
+               D0, D0), exact=True)
+    assert np.array_equal(out["dist_bfs"], models.bfs_jit(Ab, 0)), "bfs"
+    np.testing.assert_allclose(out["dist_pagerank"],
+                               models.pagerank_jit(Ab, 20), rtol=1e-12,
+                               atol=0, err_msg="dist_pagerank")
+    P = torch.from_numpy(Ab.pattern_np()).to(dev, torch.float64)
+    res["ntri_blocks"] = out["dist_tricount"]
+    assert out["dist_tricount"] == int((P @ P * P).sum().item()) // 6
+    res["errs"] = errs
+    # the unmasked product against a scipy rebuild
+    Sh = ssp.csr_matrix((f["sX"].astype(np.float64), (f["sI"], f["sJ"])),
+                        shape=(ns, ns))
+    Want = (Sh @ Sh).tocoo()
+    order = np.lexsort((Want.col, Want.row))
+    gI, gJ, gX = out["dist_spgemm"].extractTuples()
+    assert np.array_equal(gI, Want.row[order]) and \
+        np.array_equal(gJ, Want.col[order]), "dist_spgemm pattern"
+    np.testing.assert_allclose(gX, Want.data[order], rtol=1e-5, atol=1e-5)
+    res["spgemm_nnz"] = len(gI)
+    return res
+
+
+def phase31_dist(gt, tag: str, path: str, device: str = "cuda",
+                 world: int = DIST_WORLD, backend: str = "gloo",
+                 anchors=18) -> dict:
+    """Phase 31's world: ``world`` ranks over ``backend`` on ``device``
+    run :func:`phase31_rank` on the inputs of ``path``; ``anchors`` names
+    the scale of the CSR graph whose ROADMAP.md anchors are held (18: the
+    triangle count, the BFS levels, the PageRank top-10 and nnzC; 14: the
+    triangle count; None: the single-card results only).  Prints the
+    census, the times and each rank's peak memory, and returns the
+    launches summed over the ranks (every rank must have launched the
+    tropical kernel on a CUDA device)."""
+    from graphblas_tpu_torch import parallel as par
+    t0 = time.perf_counter()
+    res = par.run_world(phase31_rank, world, backend, device, path, device)
+    secs = time.perf_counter() - t0
+    assert res["ntri"] == res["ntri_single"], (res["ntri"],
+                                               res["ntri_single"])
+    assert res["top10"] == res["top10_single"], res["top10"]
+    if anchors == 14:
+        assert res["ntri"] == RMAT14_NTRI, res["ntri"]
+    if anchors == 18:
+        assert res["ntri"] == RMAT_ANCHORS[18][1], res["ntri"]
+        assert res["levels"] == RMAT18_BFS_LEVELS, res["levels"]
+        assert res["top10"] == RMAT18_PAGERANK_TOP10, res["top10"]
+        assert res["nnzc"] == VALUED_NNZC[18], res["nnzc"]
+    what = f"{res['world']} ranks over {res['backend']} on {device}"
+    print(f"{tag} phase31 {what}: dist_tricount_csr {res['ntri']}, "
+          f"dist_csr_bfs levels {res['levels']}, dist_csr_pagerank top-10 "
+          f"{res['top10']}, dist_masked_spgemm nnzC {res['nnzc']} (max abs "
+          f"err {res['nnzc_maxerr']:.3g} against gt.mxm), each == its "
+          f"single-card counterpart; dense blocks == single card (max abs "
+          f"err {json.dumps(res['errs'])}), dist_bfs == bfs_jit, "
+          f"dist_pagerank == pagerank_jit, dist_tricount "
+          f"{res['ntri_blocks']}; dist_spgemm nnz {res['spgemm_nnz']} == "
+          f"scipy; world {secs:.3f} s")
+    launches = {k: 0 for k in KERNELS}
+    for st in res["stats"]:
+        times = ", ".join(f"{k} {v:.4f}" for k, v in st["times"].items())
+        print(f"{tag} phase31 rank {st['rank']} on {st['device']}: peak "
+              f"device memory {st['peak']} B; seconds: {times}")
+        for k in KERNELS:
+            launches[k] += st["launches"].get(k, 0)
+        if device != "cpu":
+            assert st["launches"]["tropical_mm"] >= 1, \
+                f"rank {st['rank']} ran no tropical kernel"
+        for k, c in st["census"].items():
+            if c is not None:
+                print(f"{tag} phase31 rank {st['rank']} census {k}: "
+                      f"{json.dumps(c['collectives'])}; device memory "
+                      f"{json.dumps(c['device_memory'])}")
+    staged = sum(c["staged_calls"] for st in res["stats"]
+                 for cen in st["census"].values() if cen is not None
+                 for c in cen["collectives"].values())
+    if backend == "gloo" and device != "cpu":
+        assert staged > 0, "gloo with CUDA shards staged nothing"
+    if backend == "nccl":
+        assert staged == 0, "nccl staged collectives"
+    print(f"{tag} phase31 {what}: {staged} staged collectives; tropical "
+          f"launches per rank "
+          f"{[st['launches']['tropical_mm'] for st in res['stats']]}")
+    return launches
+
+
+# the dryrun and the distributed demos on the card: (module, arguments, a
+# line each run must print)
+DIST_RUNS = (("graphblas_tpu_torch.parallel.dryrun", (), "dryrun ok"),
+             ("graphblas_tpu_torch.demos.dist",
+              ("--world", str(DIST_WORLD), "--backend", "gloo"),
+              "dist_demo OK"),
+             ("graphblas_tpu_torch.demos.large", (), "large_demo OK"))
+
+
+def phase31_runs(tag: str) -> None:
+    """The dryrun (NCCL, one rank per GPU), the dist demo on four gloo
+    ranks and the large demo (NCCL) as subprocesses, side by side; each
+    must exit with 0 and print its line."""
+    import concurrent.futures as cf
+
+    def run(job):
+        mod, args, _ = job
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", mod, *args],
+                           capture_output=True, text=True, timeout=600)
+        return r, time.perf_counter() - t0
+    with cf.ThreadPoolExecutor(len(DIST_RUNS)) as pool:
+        results = list(pool.map(run, DIST_RUNS))
+    for (mod, args, expect), (r, dt) in zip(DIST_RUNS, results):
+        assert r.returncode == 0 and expect in r.stdout, \
+            f"{mod} {args} failed:\n{r.stdout}\n{r.stderr}"
+        head = r.stdout.strip().splitlines()[0]
+        print(f"{tag} phase31 {mod} {' '.join(args)}: exit 0, {dt:.3f} s "
+              f"({head})")
+
+
+def phase31(gt, tag: str, A18, Lv, Uv, Mv) -> tuple:
+    """Phase 31: the gloo world of DIST_WORLD ranks on the card over the
+    R-MAT 18 CSR calls (phase 9's valued L, U, M), the R-MAT 12 dense
+    blocks and the R-MAT 14 unmasked product; then NCCL at world 1 over
+    the same calls with R-MAT 14 in the CSR calls; then the dryrun and
+    the distributed demos.  Returns the two worlds' launches."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "rmat18.npz")
+        phase31_inputs(gt, path, A18, Lv, Uv, Mv, 12, 14)
+        gloo = phase31_dist(gt, tag, path)
+        L14, U14, _, A14 = rmat_lu(gt, 14)
+        rng3 = np.random.default_rng(3)
+        path = os.path.join(d, "rmat14.npz")
+        phase31_inputs(gt, path, A14, *(with_values(gt, X, rng3)
+                                        for X in (L14, U14, L14)), 12, 14)
+        nccl = phase31_dist(gt, tag, path, world=1, backend="nccl",
+                            anchors=14)
+    phase31_runs(tag)
+    return gloo, nccl
 
 
 def main() -> None:
@@ -3432,6 +3785,19 @@ def main() -> None:
     print(f"facade-path launches: {json.dumps(path_launches['facade'])}")
     print(f"demos-path launches: {json.dumps(path_launches['demos'])}")
     del H30, V30, L10, U10, I18, J18, X26
+
+    # ---- the distributed layer: 31 ----
+    # (a world of ranks, each a process on the card; every rank's
+    # counters are zeroed just before its distributed calls and read
+    # just after them, and summed over the ranks as ``dist`` and
+    # ``dist_nccl``; the single-card counterparts run after the read)
+    t_phase = time.perf_counter()
+    path_launches["dist"], path_launches["dist_nccl"] = phase31(
+        gt, tag, graphs[18][3], *valued[18][:3])
+    print(f"{tag} phase31 phase {time.perf_counter() - t_phase:.3f} s")
+    print(f"dist-path launches: {json.dumps(path_launches['dist'])}")
+    print(f"dist_nccl-path launches: "
+          f"{json.dumps(path_launches['dist_nccl'])}")
 
     sources = {
         "tri_band_ring": ("graphblas_tpu_torch/csrc/window.cu",

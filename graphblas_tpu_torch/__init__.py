@@ -51,7 +51,12 @@ and imports no JAX.  The slices so far:
   ``check`` (:mod:`core.printing`), triplet/MatrixMarket IO and ``.npz``
   checkpoints (:mod:`io`), ``isequal``, timers and fault injection
   (:mod:`utils`), and the single-card demos (:mod:`demos`, run as
-  ``python -m graphblas_tpu_torch.demos.<name>``).
+  ``python -m graphblas_tpu_torch.demos.<name>``);
+* the distributed layer (:mod:`parallel`, imported on its own): rank
+  meshes on ``torch.distributed`` (one process per rank; NCCL, or gloo
+  with the collectives staged through host memory), sharded bitmap and
+  CSR containers, the ring SpGEMM, the distributed graph models and the
+  collective census.
 
 The kernels are built with ``nvcc`` on first use, never at import.
 
@@ -92,7 +97,7 @@ from .ops.assign import (assign, assign_scalar, assign_vector, col_assign,
                          subassign_vector)
 from .ops.containers import UnsupportedContainer
 from .ops.extract import extract, extract_col, extract_vector
-from .ops.flopcount import jax_engine_name, last_axb_method
+from .ops.flopcount import last_axb_method, jax_engine_name
 from .ops.ewise import apply, eWiseAdd, eWiseMult, select
 from .ops.mxm import mxm, mxv, semiring_mm, vxm
 from .ops.reduce import reduce, reduce_to_scalar, reduce_to_vector

@@ -9,8 +9,10 @@ off a JAX package ``CsrMatrix`` (pattern-only or valued: FP32, INT32,
 FP64, BOOL and the other builtin types), ``CscMatrix``, bitmap
 ``Matrix``, ``Vector``, ``BandPlan``, ``WindowPlan``, ``TilePattern``,
 ``Semiring`` (by its operator names and type) or BSR SpMV plan (the
-8-tuple ``bsr_spmv_plan`` returns), and the hypersparse ``HyperMatrix``,
-``HyperCscMatrix`` and ``SparseVec``.  A container's pending tuples come
+8-tuple ``bsr_spmv_plan`` returns), the hypersparse ``HyperMatrix``,
+``HyperCscMatrix`` and ``SparseVec``, and the distributed ``DistMatrix``,
+``DistVector`` and ``DistCsr`` (collected whole, then re-sharded over
+the port's mesh on the calling rank).  A container's pending tuples come
 across as host tuples (their accum ops as the port's builtin op of the
 same name and types), to be folded by the port's ``wait``; a
 hypersparse container also carries its options (``hyper_ratio``,
@@ -219,13 +221,19 @@ def _host_values(values):
     return tree_map(np.asarray, values)
 
 
-def from_jax(obj, device=None):
+def from_jax(obj, device=None, mesh=None):
     """The port's counterpart of a JAX package CsrMatrix, CscMatrix,
     HyperMatrix, HyperCscMatrix, SparseVec, bitmap Matrix, Vector (each
     with its pending tuples), BandPlan,
     WindowPlan, TilePattern, BSR SpMV plan (read through numpy) or
-    builtin Semiring (by name)."""
+    builtin Semiring (by name).  A JAX DistMatrix, DistVector or DistCsr
+    is collected into its single-device container and re-sharded with
+    the port's ``distribute`` (same placement spec) or
+    ``dist_csr_from_matrix`` over ``mesh`` (default: ``make_mesh()``);
+    every rank of the port's world calls it alike."""
     kind = type(obj).__name__
+    if kind in ("DistMatrix", "DistVector", "DistCsr"):
+        return _dist_from_jax(obj, kind, mesh)
     if kind == "tuple" and len(obj) == 8:
         return bsr_spmv_plan_from_arrays(*(np.asarray(a) for a in obj[:5]),
                                          *obj[5:], device=device)
@@ -276,3 +284,33 @@ def from_jax(obj, device=None):
         return tile_pattern_from_arrays(obj.tiles, obj.grid, obj.index,
                                         obj.shape, obj.T, device)
     raise TypeError(f"cannot convert a {kind}")
+
+
+def _dist_from_jax(obj, kind: str, mesh):
+    from .parallel import P, distribute, make_mesh
+    from .parallel.dist_csr import _slab_from_tuples
+    mesh = mesh or make_mesh()
+    if kind != "DistCsr":
+        whole = obj.to_matrix() if kind == "DistMatrix" else obj.to_vector()
+        return distribute(from_jax(whole, mesh.device), mesh,
+                          spec=P(*obj.spec))
+    # a DistCsr's slabs hold (slab row, column, value) per live lane
+    t = type_from_jax(obj.type)
+    loc = np.asarray(obj.locrow)
+    d = loc.shape[0]
+    starts = (np.asarray(obj.starts, np.int64) if obj.starts is not None
+              else np.arange(d + 1, dtype=np.int64) * obj.blk)
+    live = loc < obj.blk
+    I = (starts[:d, None] + loc)[live]
+    J = np.asarray(obj.indices)[live].astype(np.int64)
+
+    def vals(v, ft):
+        if ft.is_udt:
+            return {k: vals(v[k], sub) for k, sub in ft.fields}
+        return np.asarray(v)[live].astype(ft.dtype)
+    # the JAX slab boundaries carry over when the rank counts agree
+    bnd = obj.starts if (obj.starts is not None
+                         and len(obj.starts) == mesh.shape["i"] + 1) \
+        else None
+    return _slab_from_tuples(I, J, vals(obj.values, t), obj.nrows,
+                             obj.ncols, t, mesh, boundaries=bnd)

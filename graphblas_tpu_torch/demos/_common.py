@@ -28,3 +28,24 @@ def demo_args(argv: Optional[List[str]] = None) -> Tuple[object, List[str]]:
             rest.append(a)
         k += 1
     return device, rest
+
+
+def world_args(argv: Optional[List[str]] = None):
+    """(device, world, backend, the other arguments) of a distributed
+    demo: ``--device`` as for every demo, ``--world N`` ranks and
+    ``--backend nccl|gloo``.  On the card (no ``--device``) the default
+    is one rank per visible GPU over NCCL; with ``--device cpu`` four
+    ranks over gloo."""
+    import argparse
+    import torch
+    from graphblas_tpu_torch.sparse.container import resolve_device
+    device, rest = demo_args(argv)
+    ap = argparse.ArgumentParser(add_help=False)
+    ap.add_argument("--world", type=int)
+    ap.add_argument("--backend")
+    opts, args = ap.parse_known_args(rest)
+    dev = resolve_device(device)
+    cpu = dev.type == "cpu"
+    world = opts.world or (4 if cpu else torch.cuda.device_count())
+    backend = opts.backend or ("gloo" if cpu else "nccl")
+    return str(dev), world, backend, args

@@ -118,3 +118,49 @@ def test_demo_without_a_card_fails():
                        timeout=240)
     assert r.returncode != 0
     assert "no CUDA device" in r.stderr
+
+
+def _dist_lines(out: str):
+    """The distributed demos' result lines: the device line, the mesh
+    shape (8 JAX devices, 4 ranks), the timings and the top PageRank
+    node (a tie between symmetric nodes, broken by rounding) taken
+    out."""
+    subs = ((r", mesh \(.*\)$", ""), (r"top node \d+ ", ""),
+            (r" \([0-9.]+s gen\)", ""), (r"^csr build: [0-9.]+s", "csr build:"),
+            (r"^spmv: .*$", "spmv:"), (r"^bfs: [0-9.]+s, ", "bfs: "))
+    lines = []
+    for ln in out.splitlines():
+        if ln.startswith(("devices:", "ranks:")):
+            continue
+        for pat, rep in subs:
+            ln = re.sub(pat, rep, ln)
+        lines.append(ln)
+    return lines
+
+
+@pytest.mark.parametrize("demo,args,expect", [
+    ("dist", (), "dist_demo OK"),
+    ("large", ("10", "8"), "large_demo OK"),
+])
+def test_dist_demos_match_jax(demo, args, expect):
+    """The distributed demos on 4 gloo ranks beside the JAX demos on 8
+    virtual devices."""
+    port, jax = run_both(demo, *args)
+    if demo == "dist":
+        assert port.splitlines()[0] == "ranks: 4 x gloo on cpu"
+    assert expect in port
+    assert _dist_lines(port) == _dist_lines(jax)
+
+
+def test_dist_demo_world_and_backend():
+    """``--world`` sets the rank count; NCCL refuses CPU ranks."""
+    out = _run([sys.executable, "-m", "graphblas_tpu_torch.demos.dist",
+                "--device", "cpu", "--world", "2"])
+    assert out.splitlines()[0] == "ranks: 2 x gloo on cpu"
+    assert "dist_demo OK" in out
+    r = subprocess.run([sys.executable, "-m",
+                        "graphblas_tpu_torch.demos.dist", "--device", "cpu",
+                        "--backend", "nccl"], capture_output=True,
+                       text=True, cwd=str(ROOT), timeout=240)
+    assert r.returncode != 0
+    assert "nccl backend carries CUDA tensors only" in r.stderr

@@ -1787,8 +1787,12 @@ def phase31_rank(rank: int, path: str, device: str):
     assert np.array_equal(lev, gt.bfs_csr(A, 0)), "dist_csr_bfs"
     res["top10"] = np.argsort(-out["dist_csr_pagerank"],
                               kind="stable")[:10].tolist()
-    res["top10_single"] = np.argsort(-gt.pagerank_csr(A, 20),
-                                     kind="stable")[:10].tolist()
+    pr = gt.pagerank_csr(A, 20)
+    res["top10_single"] = np.argsort(-pr, kind="stable")[:10].tolist()
+    np.testing.assert_allclose(out["dist_csr_pagerank"], pr, rtol=1e-5,
+                               atol=1e-7, err_msg="dist_csr_pagerank")
+    res["pagerank_maxerr"] = float(np.abs(out["dist_csr_pagerank"] -
+                                          pr).max())
     C = out["dist_masked_spgemm"]
     e = np.zeros(0, np.int64)
     C0 = gt.CsrMatrix.from_coo(e, e, np.zeros(0, np.float32), n, n,
@@ -1829,6 +1833,17 @@ def phase31_rank(rank: int, path: str, device: str):
         "dist_mxm_min_plus", out["dist_mxm_min_plus"],
         gt.mxm(gt.Matrix.new(gt.FP32, nb, nb, device=dev), None, None, mp,
                D0, D0), exact=True)
+    # K6 at the block shape this path gives it: rank 0's row block of D0
+    # times the whole D0, against the kernel's plain version
+    from graphblas_tpu_torch.sparse import cuda_tropical as ct
+    blk = Dd.pattern.shape[0]
+    dd = torch.where(torch.from_numpy(D0.pattern_np()),
+                     torch.from_numpy(D0.to_dense()), float("inf")).to(dev)
+    want = ct._tropical_mm_plain(dd[:blk], dd, "MIN", "PLUS").cpu()
+    got = out["dist_mxm_min_plus"]
+    errs["dist_mxm_min_plus_plain"] = tropical_err(torch.where(
+        torch.from_numpy(got.pattern_np()[:blk]),
+        torch.from_numpy(got.to_dense()[:blk]), float("inf")), want)
     assert np.array_equal(out["dist_bfs"], models.bfs_jit(Ab, 0)), "bfs"
     np.testing.assert_allclose(out["dist_pagerank"],
                                models.pagerank_jit(Ab, 20), rtol=1e-12,
@@ -1878,7 +1893,8 @@ def phase31_dist(gt, tag: str, path: str, device: str = "cuda",
     what = f"{res['world']} ranks over {res['backend']} on {device}"
     print(f"{tag} phase31 {what}: dist_tricount_csr {res['ntri']}, "
           f"dist_csr_bfs levels {res['levels']}, dist_csr_pagerank top-10 "
-          f"{res['top10']}, dist_masked_spgemm nnzC {res['nnzc']} (max abs "
+          f"{res['top10']} (max abs err {res['pagerank_maxerr']:.3g} "
+          f"against pagerank_csr), dist_masked_spgemm nnzC {res['nnzc']} (max abs "
           f"err {res['nnzc_maxerr']:.3g} against gt.mxm), each == its "
           f"single-card counterpart; dense blocks == single card (max abs "
           f"err {json.dumps(res['errs'])}), dist_bfs == bfs_jit, "

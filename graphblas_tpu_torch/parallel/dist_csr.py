@@ -25,8 +25,8 @@ import numpy as np
 import torch
 
 from ..core.matrix import Matrix, device_values
-from ..core.semirings import Semiring
-from ..core.types import FP64, Type, cast, tree_where
+from ..core.semirings import Semiring, semiring
+from ..core.types import FP32, FP64, Type, cast, tree_where
 from ..sparse.spmv import _as_storage, _mult_apply, segment_fold
 from ..utils.tree import tree_map
 from . import comm, introspect
@@ -142,16 +142,12 @@ def _slab_from_tuples(I, J, X, nr: int, nc: int, t: Type, mesh: Mesh,
                    nrows, ncols, blk, t, starts)
 
 
-def _local_spmv(sr: Optional[Semiring], D: DistCsr, x_ext):
+def _local_spmv(sr: Semiring, D: DistCsr, x_ext):
     """This slab's rows of y = A *.sr* x: gather x at the columns,
     multiply, reduce by row (padded lanes and empty rows hold the add
     identity)."""
     cols = D.indices.long()
     seg = D.locrow.clamp(max=D.blk)
-    if sr is None:              # plus_times on x's dtype
-        y = torch.zeros(D.blk + 1, dtype=x_ext.dtype, device=x_ext.device)
-        y.index_add_(0, seg.long(), D.values.to(x_ext.dtype) * x_ext[cols])
-        return y[:D.blk]
     zt = sr.ztype
     if zt.is_udt or D.type.is_udt:
         # the operands are already in the semiring's domains
@@ -178,11 +174,9 @@ def dist_csr_mxv(D: DistCsr, x, sr: Optional[Semiring] = None):
             "only)")
     mesh = D.mesh
     dev = mesh.device
-    udt = sr is not None and (sr.ztype.is_udt or D.type.is_udt)
-    if udt:
+    sr = sr or semiring.plus_times[FP32]
+    if sr.ztype.is_udt or D.type.is_udt:
         x = tree_map(lambda v: torch.as_tensor(v).to(dev), x)
-    elif sr is None:
-        x = torch.as_tensor(x).to(dev, torch.float32)
     else:
         x, xt = _as_storage(x, None, dev)
         x = cast(x, sr.ytype, xt)

@@ -42,14 +42,14 @@ import torch
 from ..core.errors import DimensionMismatch
 from ..core.matrix import Matrix, device_values, host_values
 from ..core.semirings import Semiring
-from ..core.types import cast, cast_result
+from ..core.types import Type, cast, cast_result
 from ..sparse.container import CsrMatrix, csr_from_coo
 from ..sparse.esc import _bucket
 from ..sparse.spmv import segment_fold
 from ..sparse.tri import csr_filter_lanes, csr_tril
 from ..utils.tree import tree_flatten, tree_map, tree_unflatten
 from . import comm, introspect
-from .dist_csr import dist_csr_from_matrix
+from .dist_csr import _slab_from_tuples, _tuples
 from .mesh import Mesh, make_mesh, pad_to_multiple
 
 __all__ = ["dist_masked_spgemm", "dist_spgemm", "dist_tricount_csr"]
@@ -91,13 +91,13 @@ def _balanced_boundaries(w: np.ndarray, d: int, npad: int) -> np.ndarray:
     return np.maximum.accumulate(bnd)
 
 
-def _ksorted_slabs(A: CsrMatrix, p: int, d: int, blkA: int,
+def _ksorted_slabs(I, J, X, t: Type, p: int, d: int, blkA: int,
                    bndB: np.ndarray, degB: np.ndarray, device):
-    """Rank p's ring plan: its A entries sorted by the contraction
-    column k (then row), the offsets ``offs[s]:offs[s+1]`` of the
-    entries whose k lies in B slab s, and the most lanes one step
-    forms.  Returns (a_idx, a_loc, a_val, offs, max_step_flops)."""
-    I, J, X = A.extractTuples()
+    """Rank p's ring plan from A's host tuples (I, J, X) of type ``t``:
+    its A entries sorted by the contraction column k (then row), the
+    offsets ``offs[s]:offs[s+1]`` of the entries whose k lies in B slab
+    s, and the most lanes one step forms.  Returns (a_idx, a_loc, a_val,
+    offs, max_step_flops)."""
     sel = (I // blkA) == p
     I, J = I[sel], J[sel]
     order = np.lexsort((I, J))
@@ -109,7 +109,7 @@ def _ksorted_slabs(A: CsrMatrix, p: int, d: int, blkA: int,
     flops = flc[offs[1:]] - flc[offs[:-1]]
     return (torch.from_numpy(J).to(device),
             torch.from_numpy(I - p * blkA).to(device),
-            device_values(X, A.type, device), offs,
+            device_values(X, t, device), offs,
             int(flops.max()) if flops.size else 0)
 
 
@@ -165,13 +165,16 @@ def dist_masked_spgemm(sr: Semiring, A, B, M,
     nzM = int(sel.sum())
 
     # the ring plan: B's slabs cut at equal flop weight, A k-sorted
-    degB = np.bincount(B.extractTuples()[0], minlength=k).astype(np.int64)
-    indegA = np.bincount(A.extractTuples()[1], minlength=k)
+    # (each operand copied to the host once)
+    Ia, Ja, Xa = _tuples(A)[:3]
+    tB = _tuples(B)
+    degB = np.bincount(tB[0], minlength=k).astype(np.int64)
+    indegA = np.bincount(Ja, minlength=k)
     bndB = _balanced_boundaries(degB * indegA, d, pad_to_multiple(
         max(k, 1), d))
-    DB = dist_csr_from_matrix(B, mesh, boundaries=bndB)
+    DB = _slab_from_tuples(*tB, mesh, boundaries=bndB)
     a_idx, a_loc, a_val, offs, max_fl = _ksorted_slabs(
-        A, p, d, blkA, bndB, degB, dev)
+        Ia, Ja, Xa, A.type, p, d, blkA, bndB, degB, dev)
     chunk = min(chunk, _bucket(max(max_fl, 1 << 12)))
     av = cast(a_val, sr.xtype, A.type) if not zt.is_udt else a_val
 
@@ -263,13 +266,14 @@ def dist_spgemm(sr: Semiring, A, B, mesh: Optional[Mesh] = None,
     A, B = _as_csr(A), _as_csr(B)
     m, k, n = _check_dims(A, B)
     zt = sr.ztype
-    DA = dist_csr_from_matrix(A, mesh)
-    DB = dist_csr_from_matrix(B, mesh)
+    tA, tB = _tuples(A), _tuples(B)
+    DA = _slab_from_tuples(*tA, mesh)
+    DB = _slab_from_tuples(*tB, mesh)
     blkA, blkB = DA.blk, DB.blk
 
     # lanes each rank forms, from the host patterns
-    Ia, Ja, _ = A.extractTuples()
-    degB = np.bincount(B.extractTuples()[0], minlength=k + 1)
+    Ia, Ja = tA[:2]
+    degB = np.bincount(tB[0], minlength=k + 1)
     flops = np.zeros((d, d), np.int64)
     np.add.at(flops, (Ia // blkA, np.minimum(Ja // blkB, d - 1)), degB[Ja])
     lanes = int(flops.sum(1).max())

@@ -115,16 +115,23 @@ uncaught exception and a nonzero exit):
    the rest within the bound); then timed at Wathen 384 (52,820 triples)
    in turns with its plain version and the gathered-tile float16
    ``torch.bmm`` + ``index_add_`` on the same triples (the library
-   formulation, unmasked; timed only here), and the values form timed on
-   the same schedule with 0/1 float32 tiles (equal to the counts);
+   formulation, unmasked; timed only here); the values form (split TF32
+   products on the tensor cores) on the same schedule with 0/1 float32
+   tiles (equal to the counts), then with values U[0.5, 1.5) within the
+   bound of the float64 plain version, timed in turns with its plain
+   version and the float32 gathered ``torch.bmm`` + ``index_add_`` with
+   TF32 off, beside two bounds: three TF32 products a term on the tensor
+   cores, and the float32 FMAs of the CUDA cores;
 18. the probes' kernels: the row-window gather (P1) against
    ``torch.take_along_dim`` at the TPU probe's shape (2^15 rows x 128),
    exactly, timed beside it, with ``torch.take``'s flat gather rate; the
-   ``cp.async`` gather-dot (P2) against ``(A[ai] * B[bj]).sum(1)`` and
-   the gather-dot kernel K4 at the TPU probe's tables (32,768 x 1,024
-   float32, 65,536 pairs), each within S * 2^-24 * sum a * b of the
-   float64 sum, timed in turns with ``torch.sparse.sampled_addmm`` over
-   the distinct pairs (the library call, timed only here);
+   bulk-copy gather-dot (P2) with its grouping pass, on the pairs handed
+   over grouped, and the gather-dot kernel K4, against ``(A[ai] *
+   B[bj]).sum(1)`` at the TPU probe's tables (32,768 x 1,024 float32,
+   65,536 pairs), each within S * 2^-24 * sum a * b of the float64 sum,
+   timed in turns (forward, then backward) with
+   ``torch.sparse.sampled_addmm`` over the distinct pairs (the library
+   call, timed only here), and the grouping pass alone;
 19. the tile engine, k-truss and the probes through their entry points:
    ``bsr_masked_count_pallas`` on Wathen 128 from COO tiles (884,992)
    and Wathen 384 (equal to phase 4's count); ``tricount_bsr_pallas`` on
@@ -132,7 +139,9 @@ uncaught exception and a nonzero exit):
    on Wathen 64 with bench.py's values in its four modes against
    ``mxm`` into a bitmap with the same mask (counts and patterns exact,
    the structural counts summing to ``tricount_auto``'s; values within
-   rtol=1e-5, atol=1e-4); ``ktruss_esc`` on the symmetrized R-MAT 16
+   rtol=1e-5, atol=1e-4; one K7 launch for the structural counts and, but
+   in ``count_structural``, one more: the values form or the truthy
+   counts); ``ktruss_esc`` on the symmetrized R-MAT 16
    (k=5: 726,973 edges, 10 sweeps) and 18 (k=10: 2,292,950 edges, 13
    sweeps), edges being half the symmetric truss's entries, through
    ``bitdot:ktruss_incremental``; ``allktruss_esc`` on R-MAT 16 to k=5;
@@ -333,10 +342,11 @@ KTRUSS_ANCHORS = {16: (5, 726_973, 10), 18: (10, 2_292_950, 13)}
 KERNELS = tuple(dict.fromkeys(MXM_PATH + SPMV_PATH + BITMAP_PATH + BSR_PATH))
 
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes/s,
-# int8 tensor-core ops/s, and the CUDA cores' 32-bit ops/s (the float32
-# rate outside the tensor cores, used for 32-bit integer ops too)
+# int8 and TF32 tensor-core ops/s, and the CUDA cores' 32-bit ops/s (the
+# float32 rate outside the tensor cores, used for 32-bit integer ops too)
 HBM_BPS = 3.35e12
 INT8_OPS = 1.979e15
+TF32_OPS = 495e12
 CUDA32_OPS = 67e12
 # 32-bit instructions the CUDA cores issue per second: one per lane per
 # clock, 132 SMs x 128 lanes x 1.98 GHz (an FMA counts two of CUDA32_OPS)
@@ -771,13 +781,14 @@ def k7_schedule(tcb, Mp, Ap, Bp):
 
 
 def k7_bound(sched, in_bytes: int, out_bytes: int, ops_rate=INT8_OPS,
-             a_is_m: bool = False):
+             a_is_m: bool = False, passes: int = 1):
     """K7's bound on a schedule: each distinct A, B and M tile read once
     (``in_bytes`` per A/B element, 1 per M element; a tile of one stack
     that serves as both A and M, ``a_is_m``, once), each output tile
-    written once, the schedule read once; 2 * 128^3 operations per
-    triple at ``ops_rate`` (int8 tensor-core peak for the counting form,
-    the CUDA cores' float32 rate for the values form)."""
+    written once, the schedule read once; ``passes`` * 2 * 128^3
+    operations per triple at ``ops_rate`` (int8 tensor-core peak for the
+    counting form; for the values form three TF32 tensor-core products a
+    term, or the CUDA cores' float32 rate of the form it replaced)."""
     starts, ta, tb, mslot, _, _ = sched
     t2 = 128 * 128
     if a_is_m:
@@ -787,7 +798,7 @@ def k7_bound(sched, in_bytes: int, out_bytes: int, ops_rate=INT8_OPS,
     nbytes = (am + len(np.unique(tb)) * t2 * in_bytes
               + len(mslot) * t2 * out_bytes
               + 4 * (len(starts) + len(ta) + len(tb) + len(mslot)))
-    return bound(nbytes, 2 * 128 ** 3 * len(ta), ops_rate)
+    return bound(nbytes, passes * 2 * 128 ** 3 * len(ta), ops_rate)
 
 
 def values_err(got, want, mag, K):
@@ -2939,19 +2950,57 @@ def main() -> None:
           f"({bounds['bsr_masked_mm'][1]})")
     # the values form on the same schedule: 0/1 float32 tiles sum exactly
     Af, Bf = Lt.tiles.float(), Bt.tiles.float()
+    assert torch.equal(tcb.bsr_tiles_mm(*args, Af, Bf, Lt.tiles,
+                                        torch.float32), got.float()), \
+        "K7 values form != counts"
+    # then timed on values U[0.5, 1.5) on the same tiles (default_rng(17)),
+    # within the bound of the float64 plain version; the yardstick is the
+    # float32 gathered torch.bmm + index_add_ with TF32 off, unmasked
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    Af = Af * (torch.rand(Af.shape, generator=gen, device="cuda") + 0.5)
+    Bf = Bf * (torch.rand(Bf.shape, generator=gen, device="cuda") + 0.5)
+    ta_l, tb_l = args[1].long(), args[2].long()
+    oid = torch.repeat_interleave(
+        torch.arange(nout, device="cuda"),
+        torch.from_numpy(np.diff(sched[0]).astype(np.int64)).cuda())
 
     def k7f():
         return tcb.bsr_tiles_mm(*args, Af, Bf, Lt.tiles, torch.float32)
 
-    assert torch.equal(k7f(), got.float()), "K7 values form != counts"
-    fms = min(cuda_ms(k7f, 10), cuda_ms(k7f, 10))
-    fbound = k7_bound(sched, 4, 4, CUDA32_OPS)
+    def k7f_plain():
+        return tcb._bsr_mm_plain(*args, Af, Bf, Lt.tiles, torch.float32)
+
+    def k7f_library():
+        prod = torch.bmm(Af[ta_l], Bf[tb_l].transpose(1, 2))
+        return torch.zeros((nout, 128, 128), device="cuda").index_add_(
+            0, oid, prod)
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    want = tcb._bsr_mm_plain(*args, Af.double(), Bf.double(), Lt.tiles,
+                             torch.float64)
+    f384err = values_err(k7f(), want, want, 128 * sched[4])
+    del want
+    fms, fpms, flms = turns(k7f, k7f_plain, 10, 2, k7f_library)
+    # three TF32 tensor-core products a term; and the float32 FMAs of the
+    # CUDA cores, the bound of the form this kernel replaced
+    fbound = k7_bound(sched, 4, 4, TF32_OPS, passes=3)
+    cbound = k7_bound(sched, 4, 4, CUDA32_OPS)
+    values_err_of["bsr_masked_mm"] = max(verr, ierr, f384err)
+    extra_of["bsr_masked_mm"] = {
+        "values_ms": fms, "values_plain_ms": fpms, "values_library_ms": flms,
+        "values_bound_ms": fbound[0], "values_bound_by": fbound[1],
+        "values_cuda_core_bound_ms": cbound[0]}
     print(f"{tag} phase17 bsr_masked_mm values form at Wathen 384 (0/1 "
-          f"float32 tiles, equal to the counts): kernel {fms:.4f} ms, bound "
-          f"{fbound[0]:.4f} ms ({fbound[1]}, float32 FMAs at "
-          f"{CUDA32_OPS / 1e12:.0f} T/s)")
-    del Lt, Bt, Af, Bf, args, got
+          f"float32 tiles equal to the counts; values U[0.5,1.5) within K "
+          f"2^-24 sum|ab| of float64, max_abs_err {f384err}): kernel "
+          f"{fms:.4f} ms, plain {fpms:.4f} ms, float32 bmm + index_add_ "
+          f"{flms:.4f} ms, bound {fbound[0]:.4f} ms ({fbound[1]}, 3 TF32 "
+          f"products a term at {TF32_OPS / 1e12:.0f} T/s; float32 FMAs on "
+          f"the CUDA cores at {CUDA32_OPS / 1e12:.0f} T/s: "
+          f"{cbound[0]:.4f} ms)")
+    del Lt, Bt, Af, Bf, args, got, ta_l, tb_l, oid
     sync()
+    torch.cuda.empty_cache()   # the gathered tiles' 10 GB, back to the card
 
     # ---- 18. the probes' kernels against their plain versions ----
     from graphblas_tpu_torch.tools import gather_probe as gp
@@ -2990,7 +3039,10 @@ def main() -> None:
         crow, key % gdp.NA, torch.ones(key.numel(), device="cuda"),
         (gdp.NA, gdp.NA), check_invariants=True)
     Bt_ = B.t()
+    ai_g, bj_g, perm = gdp.group_pairs(ai, bj)
     forms = {"gatherdot_async": lambda: gdp.gatherdot_async(A, B, ai, bj),
+             "pregrouped": lambda: gdp.gatherdot_async(A, B, ai_g, bj_g,
+                                                       grouped=True),
              "plain": lambda: gdp._gatherdot_async_plain(A, B, ai, bj),
              "valdot_k4": lambda: gt.valdot_gatherdot(A, B, ai, bj, gdp.E),
              "sampled_addmm": lambda: torch.sparse.sampled_addmm(
@@ -2999,30 +3051,47 @@ def main() -> None:
         got = fn()
         if name == "sampled_addmm":
             got = got.values()[inv]
+        elif name == "pregrouped":
+            got = torch.empty_like(got).index_copy_(0, perm.long(), got)
         e = (got.double() - ref).abs()
         if bool((e > tol).any()):
             raise AssertionError(f"{name} beyond the bound: {e.max()}")
         errs[name] = float(e.max())
-    k4a = cuda_ms(forms["valdot_k4"], 20)
-    ms, pms, lms = turns(forms["gatherdot_async"], forms["plain"], 20, 5,
-                         forms["sampled_addmm"])
-    k4ms = min(k4a, cuda_ms(forms["valdot_k4"], 20))
+    # in turns on the card: the kernel with its grouping pass, on pairs
+    # handed over grouped, K4 (synchronous loads) and cuSPARSE's SDDMM,
+    # forward then backward; the plain version around them
+    timed_forms = ("gatherdot_async", "pregrouped", "valdot_k4",
+                   "sampled_addmm")
+    p2 = {k: [] for k in timed_forms}
+    p1 = cuda_ms(forms["plain"], 5)
+    for order in (timed_forms, timed_forms[::-1]):
+        for k in order:
+            p2[k].append(cuda_ms(forms[k], 20))
+    pms = min(p1, cuda_ms(forms["plain"], 5))
+    ms, gms, k4ms, lms = (min(p2[k]) for k in timed_forms)
+    sort_ms = cuda_ms(lambda: gdp.group_pairs(ai, bj), 20)
     summary["gatherdot_async"] = (errs["gatherdot_async"], ms, pms)
     library_ms["gatherdot_async"] = lms
     rows = 2 * gdp.E * gdp.S * 4
     bounds["gatherdot_async"] = bound(
         (distinct(ai) + distinct(bj)) * gdp.S * 4 + gdp.E * 12,
         2 * gdp.S * gdp.E, CUDA32_OPS)
+    extra_of["gatherdot_async"] = {
+        "pregrouped_ms": gms, "grouping_pass_ms": sort_ms,
+        "valdot_k4_ms": k4ms}
     print(f"{tag} phase18 gatherdot_async (P2) at NA {gdp.NA}, S {gdp.S}, "
-          f"E {gdp.E}: within bound (max_abs_err "
-          f"{errs['gatherdot_async']}); cp.async ring {ms:.4f} ms "
-          f"({rows / (ms * 1e6):.1f} GB/s of gathered rows), K4 "
-          f"(synchronous loads) {k4ms:.4f} ms ({rows / (k4ms * 1e6):.1f} "
-          f"GB/s), plain {pms:.4f} ms ({rows / (pms * 1e6):.1f} GB/s), "
-          f"sampled_addmm {lms:.4f} ms ({key.numel()} distinct pairs), bound "
-          f"{bounds['gatherdot_async'][0]:.4f} ms "
-          f"({bounds['gatherdot_async'][1]})")
-    del A, B, Bt_, ai, bj, ref, tol, pairs, key, inv
+          f"E {gdp.E} ({distinct(ai)} runs of A rows, {distinct(bj)} "
+          f"distinct B rows): within bound (max_abs_err "
+          f"{errs['gatherdot_async']}, pregrouped {errs['pregrouped']}); "
+          f"bulk-copy ring with the grouping pass {ms:.4f} ms "
+          f"({rows / (ms * 1e6):.1f} GB/s of gathered rows), on pairs "
+          f"handed over grouped {gms:.4f} ms ({rows / (gms * 1e6):.1f} GB/s),"
+          f" the grouping pass alone {sort_ms:.4f} ms; K4 (synchronous "
+          f"loads) {k4ms:.4f} ms ({rows / (k4ms * 1e6):.1f} GB/s), plain "
+          f"{pms:.4f} ms, sampled_addmm {lms:.4f} ms ({key.numel()} distinct "
+          f"pairs), bound {bounds['gatherdot_async'][0]:.4f} ms "
+          f"({bounds['gatherdot_async'][1]}); turns {json.dumps(p2)}")
+    del A, B, Bt_, ai, bj, ref, tol, pairs, key, inv, ai_g, bj_g, perm
     sync()
 
     # ---- the tile engine, k-truss and the probes: 19, counted ----
@@ -3062,8 +3131,14 @@ def main() -> None:
              ("bool", S_.lor_land[gt.BOOL], S_.lor_land[gt.BOOL]),
              ("values", S_.plus_times[gt.FP32], S_.plus_times[gt.FP32]))
     for mode, sr, ref_sr in modes:
+        before = _build.launches["bsr_masked_mm"]
         C, first = timed(lambda: gt.masked_mxm(Lv, Lv, Uv, semiring=sr))
         engine = gt.last_axb_method()
+        # the structural counts, then (but in count_structural) the values
+        # form or the truthy counts
+        k7_calls = _build.launches["bsr_masked_mm"] - before
+        assert k7_calls == (1 if mode == "count_structural" else 2), \
+            (mode, k7_calls)
         _, warm = timed(lambda: gt.masked_mxm(Lv, Lv, Uv, semiring=sr))
         want = gt.mxm(gt.Matrix.new(ref_sr.ztype, n, n, device="cuda"), Lv,
                       None, ref_sr, Lv, Uv)
@@ -3081,7 +3156,8 @@ def main() -> None:
             assert int(C.values.sum(dtype=torch.int64)) == ntri64
         print(f"{tag} phase19 masked_mxm Wathen 64 (n {n}) {mode} via "
               f"{engine}: {int(C.pattern.sum())} entries == mxm with the "
-              f"same mask; first {first:.4f} s, warm {warm:.4f} s")
+              f"same mask, {k7_calls} K7 launches; first {first:.4f} s, "
+              f"warm {warm:.4f} s")
     del C, want, Lv, Uv, L, U
     # 19d. k-truss on the symmetrized R-MAT graphs
     for scale in (16, 18):
@@ -3808,6 +3884,7 @@ def main() -> None:
     # just after them, and summed over the ranks as ``dist`` and
     # ``dist_nccl``; the single-card counterparts run after the read)
     t_phase = time.perf_counter()
+    torch.cuda.empty_cache()   # the ranks share the card with this process
     path_launches["dist"], path_launches["dist_nccl"] = phase31(
         gt, tag, graphs[18][3], *valued[18][:3])
     print(f"{tag} phase31 phase {time.perf_counter() - t_phase:.3f} s")

@@ -62,8 +62,8 @@ _SIGNATURES = {
     "bsr_masked_mm": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     # x, idx, out, R, Wx, L, stream
     "row_gather": (_P, _P, _P, _I, _I, _I, _P),
-    # A, B, ai, bj, out, E, na, nb, S, blocks, stream
-    "gatherdot_async": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # A, B, ai, bj, perm, out, E, na, nb, S, blocks, stream
+    "gatherdot_async": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 #: kernel launches per launcher since the last :func:`reset_launches`;

@@ -9,11 +9,12 @@ stream.  The names are the JAX package's.
 For every nonempty tile (I, J) of the mask's grid the kernel computes
 ``C[o] = (sum_K A(I, K) · B(J, K)ᵀ) * (M(I, J) != 0)``: int8 0/1 tiles into
 int32 (the counting semirings) or float32 value tiles into float32
-(PLUS_TIMES, true float32).  The schedule lists each output's (A tile,
-B tile) pairs in (I, J, K) order; it is built on the host by joining the
-grids' nonempty tiles (:func:`bsr.tile_triples`), not from the JAX
-package's dense Tm x Tn x Tk cube, which cannot be built at Wathen 384
-(3,469³ booleans).  On a CUDA tensor the wrapper launches the kernel or
+(PLUS_TIMES, float32 accuracy from three TF32 tensor-core products a
+term over a split of each operand, :func:`_tf32_split`).  The schedule
+lists each output's (A tile, B tile) pairs in (I, J, K) order; it is
+built on the host by joining the grids' nonempty tiles
+(:func:`bsr.tile_triples`), not from the JAX package's dense Tm x Tn x
+Tk cube, which cannot be built at Wathen 384 (3,469³ booleans).  On a CUDA tensor the wrapper launches the kernel or
 raises; on a CPU tensor it runs the plain PyTorch version defined here.
 
 Engine names (``last_axb_method``), port <-> JAX package:
@@ -116,6 +117,35 @@ def _bsr_mm_plain(starts, ta, tb, mslot, Atiles, Btiles, Mtiles,
         torch.backends.cuda.matmul.allow_tf32 = allow
     mask = (Mtiles[mslot.long()] != 0).to(work)
     return (out * mask).to(acc_dtype)
+
+
+def _tf32_split(x: torch.Tensor):
+    """K7's split of float32 values for its TF32 tensor-core products,
+    as the kernel does it (``split_tf32`` in ``csrc/bsr.cu``; no path
+    calls this): (hi, lo) float32 with ``hi`` = x with its low 13
+    mantissa bits cleared (a truncation, so no finite x becomes inf) and
+    ``lo`` = x - hi rounded to TF32, to nearest with ties away from zero;
+    a non-finite x gives hi = x (a NaN as the quiet NaN of its sign, so
+    that it keeps a payload in TF32's 10 mantissa bits) and lo = 0.  The
+    kernel sums hi_a hi_b + hi_a lo_b + lo_a hi_b, with 0 in place of a
+    non-finite hi in the two cross products."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"expected float32, got {x.dtype}")
+    hi_mask = 0xFFFFE000
+    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+    def as_f32(bits):
+        return ((bits ^ 0x80000000) - 0x80000000).to(torch.int32).view(
+            torch.float32)
+
+    hi = as_f32(u & hi_mask)
+    r = (x - hi).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    lo = as_f32((r + 0x1000) & hi_mask)
+    fin = torch.isfinite(x)
+    quiet = as_f32((u & 0x80000000) | 0x7FC00000)
+    hi = torch.where(torch.isnan(x), quiet, hi)
+    lo = torch.where(fin, lo, torch.zeros((), dtype=torch.float32))
+    return hi, lo
 
 
 def _check_tiles(starts, ta, tb, mslot, Atiles, Btiles, Mtiles,

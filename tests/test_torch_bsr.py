@@ -205,6 +205,141 @@ def test_k7_plain_matches_jax_kernel(acc):
                                    atol=1e-4)
 
 
+def _f32(bits):
+    return torch.tensor(np.array(bits, np.uint32).view(np.float32))
+
+
+def _within_values_bound(got, want, mag, K):
+    """values_err of chip_smoke.py phase 17: NaN where the float64 plain
+    version has NaN, its infinities, every finite entry within K * 2^-24
+    * mag."""
+    g = got.double()
+    nan_w, inf_w = torch.isnan(want), torch.isinf(want)
+    assert torch.equal(torch.isnan(g), nan_w)
+    assert torch.equal(g[inf_w], want[inf_w])
+    fin = ~(nan_w | inf_w)
+    assert bool(((g[fin] - want[fin]).abs()
+                 <= K * 2.0 ** -24 * mag[fin]).all())
+
+
+@pytest.mark.parametrize("case", ["random", "edges"])
+def test_tf32_split(case):
+    """K7's operand split: hi and lo have their low 13 mantissa bits
+    clear (exact in TF32), hi truncates (FLT_MAX stays finite), lo
+    rounds the rest so x - hi - lo is within 2^-21 |x| (for |x| >=
+    2^-116; below, within 2^-137);
+    a non-finite x gives hi = x (NaN stays NaN, also a NaN whose payload
+    lies in the low bits) and lo = 0."""
+    if case == "random":
+        rng = np.random.default_rng(41)
+        bits = rng.integers(0, 1 << 32, 200_000, dtype=np.uint64)
+        bits = bits.astype(np.uint32)
+        bits = bits[(bits & 0x7F800000) != 0x7F800000]   # finite
+    else:
+        bits = [0x00000000, 0x80000000,              # +-0
+                0x00000001, 0x80001FFF, 0x00400000,  # subnormals
+                0x00800000, 0x3F800000, 0xBF800FFF,  # FLT_MIN, 1, a tie
+                0x3F801000, 0x3F801002, 0xBF801002,  # 1 + 2^-11, ties
+                0x7F7FFFFF, 0xFF7FFFFF,              # +-FLT_MAX
+                0x7F800000, 0xFF800000,              # +-inf
+                0x7FC00000, 0xFFC00001, 0x7F800001, 0xFF801FFF]  # NaNs
+    x = _f32(bits)
+    hi, lo = tcb._tf32_split(x)
+    for y in (hi, lo):
+        assert not bool((y.view(torch.int32) & 0x1FFF).any())
+    fin = torch.isfinite(x)
+    assert bool(torch.isfinite(hi[fin]).all())
+    assert bool(torch.isfinite(lo[fin]).all())
+    xd, hd, ld = x[fin].double(), hi[fin].double(), lo[fin].double()
+    # hi truncates: |hi| <= |x|, same sign; lo has x's sign or is 0
+    assert bool((hd.abs() <= xd.abs()).all())
+    assert bool((hd * xd >= 0).all() and (ld * xd >= 0).all())
+    # within 2^-21 |x|; where x - hi is subnormal (|x| < 2^-116), within
+    # half of TF32's subnormal step 2^-136
+    err = (xd - hd - ld).abs()
+    assert bool((err <= torch.clamp(2.0 ** -21 * xd.abs(),
+                                    min=2.0 ** -137)).all())
+    assert bool((err[xd.abs() >= 2.0 ** -116]
+                 <= 2.0 ** -21 * xd[xd.abs() >= 2.0 ** -116].abs()).all())
+    nonfin = ~fin
+    assert torch.equal(torch.isnan(hi[nonfin]), torch.isnan(x[nonfin]))
+    inf = torch.isinf(x)
+    assert torch.equal(hi[inf], x[inf])
+    assert not bool(lo[nonfin].any())
+    if case == "edges":
+        assert float(hi[11]) == float(_f32([0x7F7FE000])[0])
+        assert float(lo[11]) == 2.0 ** 117
+        assert (float(hi[8]), float(lo[8])) == (1.0, 2.0 ** -11)
+        assert float(lo[7]) == -2.0 ** -11
+        assert float(lo[9]) == -float(lo[10]) == 2.0 ** -11 + 2.0 ** -21
+        assert float(hi[1]) == 0.0 and torch.signbit(hi[1])
+        assert torch.equal(torch.isnan(hi[15:]), torch.ones(4, dtype=bool))
+
+
+def _split_emulation(args, A, B, M):
+    """K7's three TF32 products in float64, from _tf32_split: hi_a hi_b
+    + hc_a lo_b + lo_a hc_b (hc: hi with 0 for a non-finite x)."""
+    def parts(X):
+        hi, lo = tcb._tf32_split(X)
+        hc = torch.where(torch.isfinite(X), hi, torch.zeros(()))
+        return hi.double(), lo.double(), hc.double()
+
+    ha, la, ca = parts(A)
+    hb, lb, cb = parts(B)
+    return sum(tcb._bsr_mm_plain(*args, x, y, M, torch.float64)
+               for x, y in ((ca, lb), (la, cb), (ha, hb)))
+
+
+@pytest.mark.parametrize("case", ["wathen16", "random"])
+def test_k7_split_emulation_within_bound(case):
+    """The values form's arithmetic (three TF32 products a term over
+    _tf32_split, summed exactly here in float64) lies within phase 17's
+    bound K * 2^-24 * sum |a b| of the float64 plain version, K = 128 *
+    the most triples of an output, and each term within 2^-19."""
+    rng = np.random.default_rng(43)
+    if case == "wathen16":
+        I, J, _, n = gt.wathen_coo(16, 16, seed=1)
+        ku = np.unique(I * n + J)
+        iu, ju = ku // n, ku % n
+        pat = np.zeros((n, n), bool)
+        pat[iu, ju] = True
+        np.fill_diagonal(pat, False)
+        Lp, Up = np.tril(pat, -1), np.triu(pat, 1)
+        Lt = gt.tile_pattern(Lp, device=CPU)
+        Av = gt.tile_matrix((rng.random(pat.shape) + 0.5).astype(np.float32),
+                            Lp, device=CPU)
+        Bv = gt.tile_matrix((rng.random(pat.shape) + 0.5).astype(np.float32)
+                            .T.copy(), Up.T.copy(), device=CPU)
+        sched = tcb._schedule(Lt, Av, Bv)
+        args = [torch.from_numpy(a) for a in sched[:4]]
+        A, B, M, kmax = Av.tiles, Bv.tiles, Lt.tiles, sched[4]
+    else:
+        def tiles(k):
+            mag = 2.0 ** rng.uniform(-20, 20, (k, 128, 128))
+            v = rng.normal(size=(k, 128, 128)) * mag
+            v[rng.random(v.shape) < 0.5] = 0.0
+            return torch.from_numpy(v.astype(np.float32))
+        A, B = tiles(9), tiles(7)
+        M = torch.from_numpy(rng.integers(-2, 3, (5, 128, 128))
+                             .astype(np.int8))
+        cnt = rng.integers(0, 6, 40)
+        cnt[:2] = (0, 5)
+        starts = np.zeros(41, np.int32)
+        starts[1:] = np.cumsum(cnt)
+        args = [torch.from_numpy(x) for x in (
+            starts, rng.integers(0, 9, starts[-1]).astype(np.int32),
+            rng.integers(0, 7, starts[-1]).astype(np.int32),
+            rng.integers(0, 5, 40).astype(np.int32))]
+        kmax = int(cnt.max())
+    want = tcb._bsr_mm_plain(*args, A.double(), B.double(), M, torch.float64)
+    mag = tcb._bsr_mm_plain(*args, A.double().abs(), B.double().abs(), M,
+                            torch.float64)
+    emu = _split_emulation(args, A, B, M)
+    _within_values_bound(emu, want, mag, 128 * kmax)
+    assert bool(((emu - want).abs() <= 1.01 * 2.0 ** -19 * mag).all())
+    assert bool((mag > 0).any())
+
+
 def test_k7_wrapper_checks_its_arguments():
     tp = gt.tile_pattern(_sym(130, 0.05, 1), device=CPU)
     starts, ta, tb, _, _, _ = tcb.build_schedule(tp, tp, tp)
@@ -419,7 +554,10 @@ def test_k7_kernel_on_card():
     exactly (on the int8 tensor-core tile) on a random schedule of
     signed int8 tiles whose outputs take 0, 1 or up to 12 triples under
     a mask of bytes in -2..2, on the Wathen 128 schedule and on a random
-    pattern; values within the float32 reassociation bound."""
+    pattern; values (the split TF32 products) within the float32
+    reassociation bound, also at mixed signs and magnitudes 2^+-20 with
+    +-inf and NaN entries, whose NaN and inf positions are the float64
+    plain version's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from graphblas_tpu_torch import _build
@@ -476,3 +614,37 @@ def test_k7_kernel_on_card():
     kmax = sched[4]
     assert bool(((got.double() - want).abs()
                  <= kmax * 128 * 2.0 ** -24 * mag).all())
+    # float32 values of mixed signs and magnitudes 2^-20 .. 2^20 (half of
+    # them 0) on the random schedule, then with +-inf and NaN entries, one
+    # inf meeting a column of B with TF32-exact values (lo = 0) and zeros
+    rng = np.random.default_rng(10)
+
+    def values(k):
+        v = rng.normal(size=(k, 128, 128)) * 2.0 ** rng.uniform(
+            -20, 20, (k, 128, 128))
+        v[rng.random(v.shape) < 0.5] = 0.0
+        return torch.from_numpy(v.astype(np.float32)).cuda()
+
+    Af, Bf = values(40), values(30)
+    K = 128 * 12
+    for special in (False, True):
+        if special:
+            Af[0, 5, 7] = float("inf")
+            Af[1, 9, 3] = -float("inf")
+            Af[2, 0, 0] = float("nan")
+            Bf[3, 4, 4] = float("nan")
+            Bf[4, 17, 9] = -float("inf")
+            ex = torch.tensor([1.0, -2.0, 0.5, 0.0, 3.0], device="cuda")
+            Bf[:, :, 7] = ex.repeat(26)[:128]   # meets A[0, 5, 7] = inf
+        before = _build.launches["bsr_masked_mm"]
+        got = tcb.bsr_tiles_mm(*rand, Af, Bf, M, torch.float32)
+        torch.cuda.synchronize()
+        assert _build.launches["bsr_masked_mm"] == before + 1
+        want = tcb._bsr_mm_plain(*rand, Af.double(), Bf.double(), M,
+                                 torch.float64)
+        fin = [torch.where(torch.isfinite(x), x, 0).double().abs()
+               for x in (Af, Bf)]
+        mag = tcb._bsr_mm_plain(*rand, *fin, M, torch.float64)
+        _within_values_bound(got, want, mag, K)
+        if special:
+            assert bool(torch.isinf(want).any() and torch.isnan(want).any())

@@ -161,6 +161,86 @@ def test_gatherdot_async_plain_matches_numpy_and_k4(na, S, E):
     assert (np.abs(k4 - terms.sum(1)) <= tol).all()
 
 
+def _pairs_case(case):
+    """Tables and pairs for the grouped kernel: ``long_runs`` (three A
+    rows), ``runs_of_one`` (distinct A rows), ``below_ring`` (E under
+    the ring's depth) and ``above_ring`` (random, with out-of-range rows
+    the kernel clamps)."""
+    rng = np.random.default_rng(len(case))
+    na, S = 150, 64
+    E = {"long_runs": 300, "runs_of_one": 100, "below_ring": 5,
+         "above_ring": 1000}[case]
+    A = rng.random((na, S), np.float32) - 0.5
+    B = rng.random((na + 5, S), np.float32) - 0.5
+    if case == "long_runs":
+        ai = rng.choice([4, 77, 149], E)
+    elif case == "runs_of_one":
+        ai = rng.permutation(na)[:E]
+    else:
+        ai = rng.integers(0, na, E)
+    bj = rng.integers(0, na + 5, E)
+    if case == "above_ring":
+        ai[:3], bj[:3] = (-1, na, na + 9), (na + 5, -4, 0)
+    return [torch.from_numpy(x) for x in (A, B, ai.astype(np.int32),
+                                          bj.astype(np.int32))]
+
+
+def _kernel_walk(A, B, ai, bj, blocks, stages=gdp.RING_STAGES):
+    """The wrapper's run plan and the kernel's walk, in Python: the
+    pairs sorted by ai (group_pairs), cut into the blocks' chunks; in a
+    chunk a run of equal (clamped) ai takes A slot run % stages, entry i
+    B stage i % stages, and the producer runs as far ahead as the ring
+    lets it (entry i + stages - 1 before entry i is released); the
+    result goes to out[perm[i]].  Returns (out, A rows loaded)."""
+    ai_s, bj_s, perm = gdp.group_pairs(ai, bj)
+    a_c = ai_s.long().clamp(0, A.shape[0] - 1).tolist()
+    b_c = bj_s.long().clamp(0, B.shape[0] - 1).tolist()
+    perm = perm.tolist()
+    E = len(a_c)
+    out = torch.full((E,), float("nan"))
+    chunk = -(-E // blocks)
+    loads = 0
+    for p0 in range(0, E, chunk):
+        n = min(chunk, E - p0)
+        aslot, bstage, meta = [None] * stages, [None] * stages, [None] * stages
+        run, filled = -1, 0
+        for i in range(n):
+            while filled < min(n, i + stages):     # the producer
+                f = filled
+                if f == 0 or a_c[p0 + f] != a_c[p0 + f - 1]:
+                    run += 1
+                    aslot[run % stages] = (run, a_c[p0 + f])
+                    loads += 1
+                bstage[f % stages] = b_c[p0 + f]
+                meta[f % stages] = (run, perm[p0 + f])
+                filled += 1
+            r, o = meta[i % stages]                # a consumer
+            slot_run, arow = aslot[r % stages]
+            assert slot_run == r and arow == a_c[p0 + i]
+            out[o] = (A[arow] * B[bstage[i % stages]]).sum()
+    return out, loads
+
+
+@pytest.mark.parametrize("case", ["long_runs", "runs_of_one", "below_ring",
+                                  "above_ring"])
+def test_gatherdot_run_plan(case):
+    """P2's run plan (sort by ai, runs, A slots and B stages of the
+    ring, the scatter back to pair order) gives the plain version's
+    result, each A row loaded once a run of its chunk."""
+    A, B, ai, bj = _pairs_case(case)
+    want = gdp._gatherdot_async_plain(A.double(), B.double(), ai, bj)
+    tol = A.shape[1] * 2.0 ** -24 * gdp._gatherdot_async_plain(
+        A.double().abs(), B.double().abs(), ai, bj)
+    runs = int(torch.unique(ai.clamp(0, A.shape[0] - 1)).numel())
+    for blocks in (1, 3, 7):
+        got, loads = _kernel_walk(A, B, ai, bj, blocks)
+        assert not bool(torch.isnan(got).any())
+        assert bool(((got.double() - want).abs() <= tol).all())
+        assert runs <= loads <= runs + blocks - 1
+    assert torch.equal(gdp.gatherdot_async(A, B, ai, bj),
+                       gdp._gatherdot_async_plain(A, B, ai, bj))
+
+
 def test_gatherdot_async_checks_its_arguments():
     A = torch.zeros((4, 8))
     i = torch.zeros(3, dtype=torch.int32)
@@ -192,7 +272,9 @@ def test_probes_refuse_to_run_without_a_card(monkeypatch):
 
 @pytest.mark.cuda
 def test_probe_kernels_on_card():
-    """Both kernels against their plain versions on the card."""
+    """Both kernels against their plain versions on the card; the
+    grouped gather-dot also on long runs, runs of one, fewer entries than
+    its ring's stages and clamped rows."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     x, idx = _gather_case(4096, 512, 128, 1)
@@ -206,3 +288,20 @@ def test_probe_kernels_on_card():
     ref = gdp._gatherdot_async_plain(A.double(), A.double(), ai, bj)
     got = gdp.gatherdot_async(A, A, ai, bj).double()
     assert bool(((got - ref).abs() <= 1024 * 2.0 ** -24 * ref).all())
+    # the grouped kernel on the run plan's cases, with its grouping pass
+    # and on pairs handed over grouped (results in their order)
+    from graphblas_tpu_torch import _build
+    for case in ("long_runs", "runs_of_one", "below_ring", "above_ring"):
+        A, B, ai, bj = (x.cuda() for x in _pairs_case(case))
+        want = gdp._gatherdot_async_plain(A.double(), B.double(), ai, bj)
+        tol = A.shape[1] * 2.0 ** -24 * gdp._gatherdot_async_plain(
+            A.double().abs(), B.double().abs(), ai, bj)
+        ai_g, bj_g, perm = gdp.group_pairs(ai, bj)
+        before = _build.launches["gatherdot_async"]
+        got = gdp.gatherdot_async(A, B, ai, bj).double()
+        pre = gdp.gatherdot_async(A, B, ai_g, bj_g, grouped=True).double()
+        torch.cuda.synchronize()
+        assert _build.launches["gatherdot_async"] == before + 2
+        assert bool(((got - want).abs() <= tol).all()), case
+        assert bool(((pre - want[perm.long()]).abs()
+                     <= tol[perm.long()]).all()), case

@@ -263,7 +263,21 @@ uncaught exception and a nonzero exit):
    tril against scipy; each rank's times, census and peak memory
    printed.  Then the same calls over NCCL at world 1 (R-MAT 14 in the
    CSR calls: 2,860,691 triangles), the dryrun and the ``dist`` (4
-   gloo ranks) and ``large`` (NCCL) demos in subprocesses.
+   gloo ranks) and ``large`` (NCCL) demos in subprocesses;
+32. R-MAT 20 through the ported tools, in-process
+   (``graphblas_tpu_torch.tools.scale_run`` and ``valdot_sweep``; the
+   module function ``phase32_scale``): the graph built once and its
+   prep shared; ``tricount_esc`` cold and warm (423,537,282 on both),
+   the scale run's BFS (levels and visited equal to ``bfs_csr`` and to
+   scipy's unweighted ``shortest_path``, the level histogram printed)
+   and PageRank (each entry and the sum within 1e-4 relative of a
+   float64 rebuild of the same 20 steps), the slab-width sweep on the
+   prepped L, U at S = 1,024, 2,048, 8,192, 4,096 (nnzC 5,891,774 at
+   every width, sums within 1e-4 of the first) and ``gt.mxm(C0, M, None,
+   "plus_times", L, U)`` through ``valdot:*`` (the same nnzC, its values
+   within rtol=5e-5, atol=1e-4 of the ESC-only engine and of the
+   sweep's product); each tool's JSON lines, build + prep seconds, peak
+   device memory and the engine names printed.
 
 Launch counters are zeroed just before each path and read just after
 it: before phase 3 and after phase 9 (triangle counting and ``mxm``:
@@ -272,7 +286,8 @@ and after phase 13 (SpMV: K5), before and after phase 16 (the bitmap
 ``mxm`` path: K6 and K3), before and after phase 19 (the tile engine,
 k-truss and the probes: K7, the popcount pass, both probe kernels and
 the dense gather-dot, which the gather-dot probe times); every kernel of
-a path must have launched there.  Phases 20 to 25 are read apart
+a path must have launched there; and around phase 32 (``scale20``:
+the popcount pass and the compacted gather-dot).  Phases 20 to 25 are read apart
 (``ops_tri_demo``, ``ops_ktruss``, ``models``, ``ops_assign``,
 ``models_bfs``, ``models_mis_pagerank``), every kernel's count
 printed: their engines choose which kernels run (no kernel lies on the
@@ -294,6 +309,7 @@ the card's peak for their type); the last line is
 when no CUDA device is present.
 """
 
+import gc
 import hashlib
 import json
 import os
@@ -332,6 +348,8 @@ MXM_PATH = ("tri_band_ring", "window_count", "bitdot_popcount",
             "valdot_gatherdot_rows")
 SPMV_PATH = ("bsr_spmv",)
 BITMAP_PATH = ("tropical_mm", "window_mm")
+# the kernels of phase 32's R-MAT 20 run
+SCALE20_PATH = ("bitdot_popcount", "valdot_gatherdot_rows")
 # the gather-dot probe's run() times the dense gather-dot kernel
 BSR_PATH = ("bsr_masked_mm", "bitdot_popcount", "row_gather",
             "gatherdot_async", "valdot_gatherdot")
@@ -1991,6 +2009,155 @@ def phase31(gt, tag: str, A18, Lv, Uv, Mv) -> tuple:
                             anchors=14)
     phase31_runs(tag)
     return gloo, nccl
+
+
+# ---- phase 32: R-MAT 20 through the ported tools ----
+
+#: the R-MAT 20 anchors (ROADMAP.md; the JAX package's record,
+#: 8d74a21:PERF.md:240 and :675-676): the SandiaDot count and the masked
+#: plus_times[FP32] nnzC with bench.py's values
+RMAT20_NTRI = 423_537_282
+RMAT20_VALUED_NNZC = 5_891_774
+#: the slab widths phase 32 sweeps (the default width last)
+PHASE32_WIDTHS = (1024, 2048, 8192, 4096)
+#: PageRank of the scale run against its float64 recurrence: each entry
+#: within this relative error, and the rank sum
+PHASE32_PAGERANK_RTOL = 1e-4
+
+
+def scipy_pattern(A):
+    """A's pattern as a scipy CSR of float64 ones (from the host
+    pattern)."""
+    import scipy.sparse as sps
+    I, J = (np.asarray(x[:A.nvals], np.int64)
+            for x in A._options["host_pattern"])
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(
+        I, minlength=A.nrows))])
+    return sps.csr_matrix((np.ones(len(J)), J, indptr),
+                          shape=(A.nrows, A.ncols))
+
+
+def phase32_scale(gt, tag: str, scale: int = 20, device: str = "cuda",
+                  widths=PHASE32_WIDTHS, anchors: bool = True) -> dict:
+    """Phase 32: the R-MAT ``scale`` graph through the ported tools,
+    in-process.  ``scale_run``'s build, tricount (cold and warm), BFS
+    and PageRank, then ``valdot_sweep`` on the same prepped L, U at
+    ``widths``, then ``gt.mxm(C0, M, None, "plus_times", L, U)``, all in
+    one counted window; then the references outside it: ``bfs_csr`` and
+    scipy's unweighted shortest paths, the float64 PageRank recurrence,
+    the ESC-only product.  ``anchors`` holds the R-MAT 20 anchors.
+    Returns the window's launches (on the card; {} on the CPU)."""
+    from scipy.sparse.csgraph import shortest_path
+    from graphblas_tpu_torch import _build
+    from graphblas_tpu_torch.sparse.tri import masked_pair_counts
+    from graphblas_tpu_torch.tools import scale_run as sr_tool
+    from graphblas_tpu_torch.tools import valdot_sweep as vs_tool
+    card = device == "cuda"
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+    engines = {}
+    t0 = time.perf_counter()
+    A, n, nnz = sr_tool.build(scale, device)
+    build_s = time.perf_counter() - t0
+    print(json.dumps({"alg": "build", "scale": scale, "n": n, "nnz": nnz,
+                      "time_s": build_s, "device": str(A.device)}),
+          flush=True)
+    rec_t, (L, U) = sr_tool.run_tricount(A, n, nnz, scale)
+    engines["tricount"] = gt.last_axb_method()
+    rec_b, visited = sr_tool.run_bfs(A, n, nnz, scale)
+    engines["bfs"] = gt.last_axb_method()
+    rec_p, ranks = sr_tool.run_pagerank(A, n, nnz, scale)
+    engines["pagerank"] = gt.last_axb_method()
+    t0 = time.perf_counter()
+    Lv, Uv, Mv = vs_tool.valued(L, U)
+    vals_s = time.perf_counter() - t0
+    recs, Cs = vs_tool.sweep(Lv, Uv, Mv, widths, scale)
+    engines["sweep"] = gt.last_axb_method()
+    # the public entry plans anew (the sweep seeded the cache)
+    Mv._options.pop(vs_tool.PLAN_KEY, None)
+    e = np.zeros(0, np.int64)
+    C0 = gt.CsrMatrix.from_coo(e, e, np.zeros(0, np.float32), n, n,
+                               type=gt.FP32, device=device)
+    C, first = timed(lambda: gt.mxm(C0, Mv, None, "plus_times", Lv, Uv))
+    engines["mxm"] = gt.last_axb_method()
+    C2, warm = timed(lambda: gt.mxm(C0, Mv, None, "plus_times", Lv, Uv))
+    launches = {}
+    if card:
+        sync()
+        launches = {k: _build.launches[k] for k in KERNELS}
+    peak = max(torch.cuda.max_memory_allocated(),
+               *(r["peak_dev_bytes"] for r in (rec_t, rec_b, rec_p))) \
+        if card else None
+    print(f"{tag} phase32 R-MAT {scale}: n {n}, nnz {nnz}; build "
+          f"{build_s:.3f} s + prep {rec_t['prep_s']:.3f} s + values "
+          f"{vals_s:.3f} s; engines {json.dumps(engines)}; mxm first "
+          f"{first:.4f} s, warm {warm:.6f} s; peak device memory {peak} B")
+    print(f"scale{scale}-path launches: {json.dumps(launches)}")
+
+    # the checks, outside the counted window
+    # a rehearsal without anchors counts on the sort-merge engine alone
+    want_ntri = RMAT20_NTRI if anchors else int(
+        masked_pair_counts(L, L, U).sum(dtype=torch.int64))
+    assert rec_t["ntri"] == want_ntri, (rec_t["ntri"], want_ntri)
+    assert engines["mxm"].startswith("valdot:"), engines["mxm"]
+    assert all(r.get("plan", True) is not None for r in recs), recs
+    nnzc = {r["S"]: r["nnzC"] for r in recs}
+    assert C.nvals == C2.nvals == Cs.nvals == recs[0]["nnzC"], \
+        (C.nvals, C2.nvals, nnzc)
+    if anchors:
+        assert set(nnzc.values()) == {RMAT20_VALUED_NNZC}, nnzc
+    lev = gt.bfs_csr(A, 0)
+    S = scipy_pattern(A)
+    dist = shortest_path(S, unweighted=True, indices=0)
+    reach = np.isfinite(dist)
+    assert np.array_equal(reach, lev > 0), "bfs_csr and scipy differ"
+    assert np.array_equal(dist[reach].astype(np.int64) + 1,
+                          lev[reach].astype(np.int64)), \
+        "bfs_csr levels differ from scipy's distances"
+    assert np.array_equal(visited.cpu().numpy(), lev > 0), \
+        "the scale run's visited set differs from bfs_csr's"
+    assert rec_b["levels"] == int(lev.max()) - 1 == int(dist[reach].max()), \
+        (rec_b["levels"], int(lev.max()))
+    assert rec_b["visited"] == int(reach.sum()), rec_b["visited"]
+    hist = {int(k): int(v) for k, v in zip(*np.unique(lev,
+                                                      return_counts=True))}
+    deg = np.maximum(np.diff(S.indptr), 1).astype(np.float64)
+    r64 = np.full(n, 1.0 / n)
+    for _ in range(rec_p["iters"]):
+        r64 = S @ (0.85 * r64 / deg) + 0.15 / n
+    r32 = ranks.cpu().numpy().astype(np.float64)
+    rel = float(np.max(np.abs(r32 - r64) / r64))
+    tol = PHASE32_PAGERANK_RTOL
+    assert rel <= tol, f"PageRank off its float64 recurrence by {rel}"
+    sum_rel = abs(rec_p["rank_sum"] - r64.sum()) / r64.sum()
+    assert sum_rel <= tol, (rec_p["rank_sum"], r64.sum())
+    Ce, esc_s = timed(lambda: gt.mxm(
+        C0, Mv, None, "plus_times", Lv, Uv,
+        gt.Descriptor(axb_method="gustavson")))
+    engines["esc_only"] = gt.last_axb_method()
+    Ig, Jg, Xg = C.extractTuples()
+    Ie, Je, Xe = Ce.extractTuples()
+    assert np.array_equal(Ig, Ie) and np.array_equal(Jg, Je), \
+        "valdot and ESC patterns differ"
+    np.testing.assert_allclose(Xg, Xe, rtol=5e-5, atol=1e-4)
+    assert np.isfinite(Xg).all()
+    Is, Js, Xs = Cs.extractTuples()
+    assert np.array_equal(Ig, Is) and np.array_equal(Jg, Js), \
+        "the sweep's product and gt.mxm's differ in pattern"
+    np.testing.assert_allclose(Xs, Xg, rtol=5e-5, atol=1e-4)
+    print(f"{tag} phase32 R-MAT {scale} checks: ntri {rec_t['ntri']} on "
+          f"both tricount_esc calls ({engines['tricount']}); BFS "
+          f"({engines['bfs']}) {rec_b['levels']} levels, "
+          f"{rec_b['visited']} visited == bfs_csr == scipy shortest_path "
+          f"(level histogram {json.dumps(hist)}); PageRank "
+          f"({engines['pagerank']}) within {rel:.3e} of the float64 "
+          f"recurrence (tolerance {tol} an entry and on the sum, sum "
+          f"{rec_p['rank_sum']} vs {r64.sum()}); nnzC {json.dumps(nnzc)} "
+          f"by width, gt.mxm nnzC {C.nvals} via {engines['mxm']} == the "
+          f"sweep's == ESC-only ({engines['esc_only']}, {esc_s:.3f} s) "
+          f"within rtol 5e-5, atol 1e-4")
+    return launches
 
 
 def main() -> None:
@@ -3891,6 +4058,19 @@ def main() -> None:
     print(f"dist-path launches: {json.dumps(path_launches['dist'])}")
     print(f"dist_nccl-path launches: "
           f"{json.dumps(path_launches['dist_nccl'])}")
+
+    # ---- R-MAT 20 through the ported tools: 32, counted ----
+    # (the earlier graphs go first: the phase holds the R-MAT 20 graph,
+    # its factors, their bitdot plan, the valued copies and the plans)
+    del graphs, valued
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    launches = phase32_scale(gt, tag)
+    missing = [k for k in SCALE20_PATH if launches[k] == 0]
+    assert not missing, f"kernels not launched at R-MAT 20: {missing}"
+    path_launches["scale20"] = launches
+    print(f"{tag} phase32 phase {time.perf_counter() - t_phase:.3f} s")
 
     sources = {
         "tri_band_ring": ("graphblas_tpu_torch/csrc/window.cu",

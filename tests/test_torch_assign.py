@@ -360,3 +360,32 @@ def test_unported_containers_raise():
     with pytest.raises(gt.IndexOutOfBounds):
         gt.extract(gt.Matrix.new(gt.FP64, 1, 1, device="cpu"), None, None,
                    C, [3], [0])
+
+
+@pytest.mark.parametrize("kind", ["csr", "csc", "hyper"])
+@pytest.mark.parametrize("fn", ["assign", "subassign"])
+@pytest.mark.parametrize("accum", [None, "plus"])
+def test_sparse_a_into_bitmap_pinned(fn, kind, accum):
+    """A reference defect, not copied: the JAX ``assign`` / ``subassign``
+    of a CSR, CSC or hypersparse A into a bitmap C raises
+    ``AttributeError`` (``ops/assign.py`` hands A to ``accum_values``,
+    which reads ``A.pattern``).  The port's result equals the JAX result
+    with A as a bitmap, and the spec."""
+    from .test_ewise_containers import om_to
+    from .test_torch_ewise_containers import om_to_gt
+    rng = np.random.default_rng(16)
+    C = rand_om(rng, (6, 7), np.float64, 0.5)
+    Ii, Jj = np.array([1, 3, 4]), np.array([0, 2, 5, 6])
+    A = rand_om(rng, (3, 4), np.float64, 0.6)
+    M = rand_om(rng, (6, 7) if fn == "assign" else (3, 4), np.bool_, 0.5)
+    spec = o_assign if fn == "assign" else o_subassign
+    want = spec(C, M, accum, A, Ii, Jj)
+    (Ct, Cj), (Mt, Mj) = to_both(C, "FP64"), to_both(M, "BOOL")
+    with pytest.raises(AttributeError, match="pattern"):
+        getattr(gb, fn)(Cj, Mj, _op(gb, accum, "FP64"),
+                        om_to(kind, A, gb.FP64), Ii, Jj)
+    got = getattr(gt, fn)(Ct, Mt, _op(gt, accum, "FP64"),
+                          om_to_gt(kind, A, "FP64"), Ii, Jj)
+    ref = getattr(gb, fn)(Cj, Mj, _op(gb, accum, "FP64"),
+                          to_both(A, "FP64")[1], Ii, Jj)
+    same(got, ref, want, f"{fn} of a {kind} A")

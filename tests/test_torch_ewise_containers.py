@@ -368,3 +368,27 @@ def test_hypersparse_raises_typed():
         for a, b in zip(x.extractTuples(), y.extractTuples()):
             assert np.array_equal(a, np.asarray(b))
     assert got[-1] == out[-1] == 1.0
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("opname", ["first", "second", "any"])
+def test_kron_first_second_any_pinned(kind, opname):
+    """A reference defect, not copied: the JAX ``kron`` with FIRST,
+    SECOND or ANY into a CSR, CSC or hypersparse C raises ``IndexError``
+    (``ops/transpose.py`` forms ``op(xa[:, None], xb[None, :])``, and
+    these ops return one operand unbroadcast, so Z holds nnzA or nnzB
+    values for nnzA * nnzB pairs).  The port gives the JAX bitmap
+    ``kron``'s 9 entries."""
+    A = orc.OM(np.array([[1., 2.], [3., 0.]]),
+               np.array([[True, True], [True, False]]))
+    B = orc.OM(np.array([[5., 6., 7.]]), np.ones((1, 3), bool))
+    C = orc.OM(np.zeros((2, 6)), np.zeros((2, 6), bool))
+    (At, Aj), (Bt, Bj) = both("bitmap", A, "FP64"), both("bitmap", B, "FP64")
+    Ct, Cj = both(kind, C, "FP64")
+    with pytest.raises(IndexError):
+        gb.kron(Cj, None, None, getattr(gb.binary, opname)[gb.FP64], Aj, Bj)
+    want = gb.kron(om_to("bitmap", C, gb.FP64), None, None,
+                   getattr(gb.binary, opname)[gb.FP64], Aj, Bj)
+    got = gt.kron(Ct, None, None, getattr(gt.binary, opname)[gt.FP64], At, Bt)
+    assert len(tuples(want)) == 9
+    assert_same_tuples(got, want, kind)

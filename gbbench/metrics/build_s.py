@@ -1,0 +1,6 @@
+"""build_s: the harness's ``build`` span in set-up (host clock, ended
+by a device synchronize); the entry's module says what it covers."""
+
+
+def read(ctx):
+    return ctx["spans"].get("build")

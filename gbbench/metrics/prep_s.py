@@ -1,0 +1,6 @@
+"""prep_s: the harness's ``prep`` span in set-up (host clock, ended
+by a device synchronize); the entry's module says what it covers."""
+
+
+def read(ctx):
+    return ctx["spans"].get("prep")

@@ -1,0 +1,2 @@
+"""The roofline of gbbench, each module found by its name
+(``gbbench/__init__.py``)."""

@@ -319,16 +319,18 @@ def _mxm_sparse(C, M, accum, sr: Semiring, A, B, d: Descriptor):
         raise DimensionMismatch(f"C is {C.shape}, product is {(m, n)}")
     # exact flop count when the build-time host patterns are around
     # (GB_AxB_flopcount.c)
-    hpA = A._options.get("host_pattern")
-    hpB = B._options.get("host_pattern")
-    if hpA is not None and hpB is not None:
-        degB = np.bincount(hpB[0][:B.nvals], minlength=k + 1)
-        est_flops = max(1, int(degB[hpA[1][:A.nvals]].sum()))
-    else:
-        est_flops = max(1, (A.nvals * B.nvals) // max(k, 1))
-    engine = choose_axb_method(
-        m, k, n, A.nvals, B.nvals,
-        mnnz=Mc.nvals if Mc is not None else None, est_flops=est_flops)
+    with counters.span("gb.planning.flopcount"):
+        hpA = A._options.get("host_pattern")
+        hpB = B._options.get("host_pattern")
+        if hpA is not None and hpB is not None:
+            degB = np.bincount(hpB[0][:B.nvals], minlength=k + 1)
+            est_flops = max(1, int(degB[hpA[1][:A.nvals]].sum()))
+        else:
+            est_flops = max(1, (A.nvals * B.nvals) // max(k, 1))
+    with counters.span("gb.planning.choose"):
+        engine = choose_axb_method(
+            m, k, n, A.nvals, B.nvals,
+            mnnz=Mc.nvals if Mc is not None else None, est_flops=est_flops)
     counters.add_flops(est_flops)
     if d.axb_method in ("gustavson", "heap"):
         engine = "esc"
@@ -454,6 +456,7 @@ def _spmv_hyper(w, m, accum, sr: Semiring, A, u, d: Descriptor, tran: bool):
 
 
 @counters.counted("mxm")
+@counters.spanned("gb.entry.mxm")
 def mxm(C, M, accum: Optional[BinaryOp], semiring: Semiring, A, B,
         desc: Optional[Descriptor] = None):
     """C<M> = accum(C, A*B) (reference ``GrB_mxm`` -> ``GB_mxm.c``).

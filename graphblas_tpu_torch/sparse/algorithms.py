@@ -16,15 +16,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import counters
+from ..utils.counters import host_read
 from .container import CsrMatrix
 
 __all__ = ["bfs_csr", "pagerank_csr"]
 
 
+@counters.spanned("gb.entry.bfs_csr")
 def bfs_csr(A: CsrMatrix, s: int) -> np.ndarray:
     """BFS levels from vertex ``s`` (1 = source, 0 = unreachable): the
     frontier q expands along the entries, from their rows to their
-    columns."""
+    columns.  The level loop is the span ``gb.engines.bfs_loop``; it
+    reads back one flag a level (``gb.read.bfs_frontier``), then the
+    levels once."""
     n = A.nrows
     dev = A.device
     rows = A.rowids.clamp(max=n).long()      # sentinel -> dropped slot
@@ -33,13 +38,14 @@ def bfs_csr(A: CsrMatrix, s: int) -> np.ndarray:
     q = torch.zeros(n + 1, dtype=torch.bool, device=dev)
     q[s] = True
     level = 1
-    while level <= n and bool(q.any()):
-        lev = torch.where(q[:n], level, lev)
-        hit = torch.zeros(n + 1, dtype=torch.int32, device=dev)
-        hit.index_add_(0, cols, q[rows].to(torch.int32))
-        q[:n] = (hit[:n] > 0) & (lev == 0)
-        level += 1
-    return lev.cpu().numpy()
+    with counters.span("gb.engines.bfs_loop"):
+        while level <= n and host_read(q.any(), "bfs_frontier", bool):
+            lev = torch.where(q[:n], level, lev)
+            hit = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+            hit.index_add_(0, cols, q[rows].to(torch.int32))
+            q[:n] = (hit[:n] > 0) & (lev == 0)
+            level += 1
+    return host_read(lev, "bfs_levels", np.ndarray)
 
 
 def pagerank_csr(A: CsrMatrix, iters: int = 20) -> np.ndarray:

@@ -50,6 +50,8 @@ import torch
 
 from .. import _build
 from ..ops.flopcount import record_axb_method
+from ..utils import counters
+from ..utils.counters import host_read
 from .bitpack import popcount
 from .container import CsrMatrix
 from .esc import _bucket
@@ -151,8 +153,8 @@ def _host_cols_rows(X: CsrMatrix):
     hp = X._options.get("host_pattern")
     if hp is not None:
         return (np.asarray(hp[0][:X.nvals]), np.asarray(hp[1][:X.nvals]))
-    return (X.rowids[:X.nvals].cpu().numpy(),
-            X.indices[:X.nvals].cpu().numpy())
+    return (host_read(X.rowids[:X.nvals], "host_rows", np.ndarray),
+            host_read(X.indices[:X.nvals], "host_cols", np.ndarray))
 
 
 def _pack(nrows: int, W: int, rows: torch.Tensor, slots: torch.Tensor,
@@ -551,6 +553,7 @@ def _level_live(lv: PackLevel, alive_a, alive_b):
     return la, lb
 
 
+@counters.spanned("gb.engines.bitdot_count")
 def bitdot_counts(plan: BitdotPlan, M: CsrMatrix, alive_a=None,
                   alive_b=None) -> torch.Tensor:
     """Heavy-slab counts per M padded entry: the cached level-1 panels
@@ -599,15 +602,20 @@ def _cached_plan(M: CsrMatrix, A: CsrMatrix, B: CsrMatrix,
                  ) -> Optional[BitdotPlan]:
     """Per-(M, A, B) pattern plan cache, stored on M: the panels depend
     only on the operand patterns, so repeated calls skip the host
-    selection and the pack scatters."""
+    selection and the pack scatters.  A build (the span
+    ``gb.planning.bitdot_plan``) counts ``plan.bitdot.built``, a cached
+    plan or refusal ``plan.bitdot.reused``."""
     entry = M._options.get("bitdot_plan")
     if entry is not None:
         ra, rb, plan = entry
         if ra() is A.indices and rb() is B.indices:
+            counters.count("plan.bitdot.reused")
             return None if plan is _NO_PLAN else plan
+    counters.count("plan.bitdot.built")
     if budget_bytes is None:
         budget_bytes = _auto_budget(M.device)
-    plan = build_bitdot_plan(M, A, B, budget_bytes=budget_bytes)
+    with counters.span("gb.planning.bitdot_plan"):
+        plan = build_bitdot_plan(M, A, B, budget_bytes=budget_bytes)
     M._options["bitdot_plan"] = (weakref.ref(A.indices),
                                  weakref.ref(B.indices),
                                  _NO_PLAN if plan is None else plan)

@@ -38,7 +38,7 @@ import torch
 from ..core.errors import IndexOutOfBounds
 from ..core.matrix import Matrix, as_pending, device_values, host_values
 from ..core.types import Type, type_of_dtype
-from ..utils import faultinject
+from ..utils import counters, faultinject
 from ..utils.tree import tree_map
 from ..io.native import sort_dedup_native, sort_pairs_native
 
@@ -366,11 +366,14 @@ def _sort_tuples(I, J, X, nrows: int, ncols: int, sum_duplicates: bool):
     return I, J, X
 
 
+@counters.spanned("gb.containers.from_coo")
 def csr_from_coo(I, J, X, nrows: int, ncols: int,
                  type: Optional[Type] = None, nzmax: Optional[int] = None,
                  sum_duplicates: bool = True, device=None) -> CsrMatrix:
     """Host-side CSR build: lexsort (i, j), optional dup-sum, pad to
-    capacity, move to ``device`` (see :func:`resolve_device`)."""
+    capacity, move to ``device`` (see :func:`resolve_device`).  The sort
+    and the row counts are the span ``gb.containers.sort``, the copies
+    to the device ``gb.containers.copy``."""
     faultinject.checkpoint("csr_from_coo")
     device = resolve_device(device)
     I = np.asarray(I, np.int64)
@@ -389,14 +392,16 @@ def csr_from_coo(I, J, X, nrows: int, ncols: int,
             raise IndexOutOfBounds(
                 f"tuple index out of range for {nrows}x{ncols}: "
                 f"rows [{imin},{imax}], cols [{jmin},{jmax}]")
-        I, J, X = _sort_tuples(I, J, X, nrows, ncols, sum_duplicates)
-    nvals = len(I)
-    cap = nzmax or _round_up(max(nvals, 8), 128)
-    if cap < nvals:
-        raise ValueError(f"nzmax {cap} < nvals {nvals}")
-    indptr = np.zeros(nrows + 1, np.int32)
-    np.add.at(indptr, I + 1, 1)
-    indptr = np.cumsum(indptr).astype(np.int32)
+    with counters.span("gb.containers.sort"):
+        if I.size:
+            I, J, X = _sort_tuples(I, J, X, nrows, ncols, sum_duplicates)
+        nvals = len(I)
+        cap = nzmax or _round_up(max(nvals, 8), 128)
+        if cap < nvals:
+            raise ValueError(f"nzmax {cap} < nvals {nvals}")
+        indptr = np.zeros(nrows + 1, np.int32)
+        np.add.at(indptr, I + 1, 1)
+        indptr = np.cumsum(indptr).astype(np.int32)
     indices = np.full(cap, ncols, np.int32)
     rowids = np.full(cap, nrows, np.int32)
     values = np.zeros(cap, t.dtype)
@@ -405,10 +410,11 @@ def csr_from_coo(I, J, X, nrows: int, ncols: int,
     values[:nvals] = X.astype(t.dtype, copy=False)
 
     def dev(a):
-        return torch.from_numpy(a).to(device)
+        return counters.to_device(a, device)
 
-    A = CsrMatrix(dev(indptr), dev(indices), dev(rowids),
-                  dev(t.to_storage(values)), nvals, nrows, ncols, t)
+    with counters.span("gb.containers.copy"):
+        A = CsrMatrix(dev(indptr), dev(indices), dev(rowids),
+                      dev(t.to_storage(values)), nvals, nrows, ncols, t)
     A._options["host_pattern"] = (rowids, indices)
     return A
 

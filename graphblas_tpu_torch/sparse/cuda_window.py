@@ -30,6 +30,7 @@ import torch
 
 from .. import _build
 from ..ops.flopcount import record_axb_method
+from ..utils import counters
 from .window import (T, BandPlan, TileSchedule, WindowPlan, band_schedule,
                      window_schedule)
 
@@ -130,6 +131,7 @@ def _check_aligned(*xs):
         raise ValueError("the window kernels read 16-byte aligned panels")
 
 
+@counters.spanned("gb.engines.band_ring")
 def tricount_band_partials(plan: BandPlan) -> torch.Tensor:
     """Per-block-row triangle partials (nI,) int32 of a band plan; the
     triangle count is their int64 sum.  The mask is the P panel itself
@@ -204,6 +206,7 @@ def _check_window(plan: WindowPlan):
     return P, Q, M, dev
 
 
+@counters.spanned("gb.engines.window_count")
 def window_count_partials(plan: WindowPlan) -> torch.Tensor:
     """Per-block-row masked-count partials (nI,) int32 of a window plan.
     Each partial is bounded by 128 * (16*128)^2 < 2^31, so int32 is safe;

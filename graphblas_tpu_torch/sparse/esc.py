@@ -52,7 +52,8 @@ from ..core.semirings import Semiring
 from ..core.types import (Type, cast, cast_result, tree_where, value_take,
                           zeros_like_typed)
 from ..ops.flopcount import record_axb_method
-from ..utils import faultinject
+from ..utils import counters, faultinject
+from ..utils.counters import host_read
 from ..utils.tree import tree_map
 from .container import CsrMatrix
 from .spmv import segment_fold
@@ -227,7 +228,9 @@ def csr_spgemm(sr: Semiring, A: CsrMatrix, B: CsrMatrix,
     on the pattern); ``complement`` flips it.  The flop total and the
     output nnz are cached per (A, B, mask) with the expansion carries,
     keyed weakly on the operands' tensors, so repeated calls read no
-    scalar back from the device."""
+    scalar back from the device.  A plan build (the spans
+    ``gb.planning.esc_plan``) counts ``plan.esc.built``, a cached plan
+    ``plan.esc.reused``; the product itself is ``gb.engines.esc``."""
     faultinject.checkpoint("csr_spgemm")
     m, k = A.shape
     k2, n = B.shape
@@ -262,17 +265,11 @@ def csr_spgemm(sr: Semiring, A: CsrMatrix, B: CsrMatrix,
             flops, nnz_known, carries = pf, pn, pc
 
     if flops is None:
-        hpA = A._options.get("host_pattern")
-        hpB = B._options.get("host_pattern")
-        if hpA is not None and hpB is not None:
-            degB = np.bincount(hpB[0][:B.nvals], minlength=k)
-            flops = int(degB[hpA[1][:A.nvals]].sum())
-        else:
-            degB = torch.cat([(B.indptr[1:] - B.indptr[:-1]).long(),
-                              torch.zeros(1, dtype=torch.int64,
-                                          device=A.device)])
-            lens = degB[A.indices.long().clamp(max=k)][:A.nvals]
-            flops = int(lens.sum())
+        counters.count("plan.esc.built")
+        with counters.span("gb.planning.esc_plan"):
+            flops = _flop_total(A, B)
+    else:
+        counters.count("plan.esc.reused")
     if flops == 0 or (mask is not None and not complement
                       and mask.nvals == 0):
         return _empty_csr(m, n, zt, A.device)
@@ -281,23 +278,42 @@ def csr_spgemm(sr: Semiring, A: CsrMatrix, B: CsrMatrix,
                                    flops)
     E = _bucket4(flops)
     if carries is None:
-        carries = _carries(A, B)
+        with counters.span("gb.planning.esc_plan"):
+            carries = _carries(A, B)
 
-    has_mask = mask is not None
-    m_keys = (_mask_keys(mask, n, kdt, torch.iinfo(kdt).max // 2 - 1,
-                         structural) if has_mask else None)
-    indptr, oj, oi, ov, nnzC = _esc_core(
-        sr, E, m, n, has_mask, complement, kdt, carries, flops,
-        A.rowids, A.values, B.indices, B.values, m_keys, A.type, B.type)
-    if nnz_known is not None:
-        nnz = nnz_known          # plan hit: nothing read back
-    else:
-        nnz = int(nnzC)          # the one scalar read of a cold call
-        A._options[pkey] = (_ref(B.indices), _ref(mask_buf),
-                            _ref(mask_vbuf), flops, nnz, carries)
-    cap = min(_bucket(max(nnz, 8)), E + 1)
+    with counters.span("gb.engines.esc"):
+        has_mask = mask is not None
+        m_keys = (_mask_keys(mask, n, kdt, torch.iinfo(kdt).max // 2 - 1,
+                             structural) if has_mask else None)
+        indptr, oj, oi, ov, nnzC = _esc_core(
+            sr, E, m, n, has_mask, complement, kdt, carries, flops,
+            A.rowids, A.values, B.indices, B.values, m_keys, A.type,
+            B.type)
+        if nnz_known is not None:
+            nnz = nnz_known          # plan hit: nothing read back
+        else:
+            # the one scalar read of a cold call
+            nnz = host_read(nnzC, "esc_nnz")
+            A._options[pkey] = (_ref(B.indices), _ref(mask_buf),
+                                _ref(mask_vbuf), flops, nnz, carries)
+        cap = min(_bucket(max(nnz, 8)), E + 1)
     record_axb_method("esc:csr_spgemm")
     return CsrMatrix(indptr, oj[:cap], oi[:cap], tree_map(lambda v: v[:cap], ov), nnz, m, n, zt)
+
+
+def _flop_total(A: CsrMatrix, B: CsrMatrix) -> int:
+    """The product's lane count: from the build-time host patterns when
+    both operands keep them, else from the device (one scalar read)."""
+    k = A.ncols
+    hpA = A._options.get("host_pattern")
+    hpB = B._options.get("host_pattern")
+    if hpA is not None and hpB is not None:
+        degB = np.bincount(hpB[0][:B.nvals], minlength=k)
+        return int(degB[hpA[1][:A.nvals]].sum())
+    degB = torch.cat([(B.indptr[1:] - B.indptr[:-1]).long(),
+                      torch.zeros(1, dtype=torch.int64, device=A.device)])
+    lens = degB[A.indices.long().clamp(max=k)][:A.nvals]
+    return host_read(lens.sum(), "esc_flops")
 
 
 def _csr_spgemm_chunked(sr: Semiring, A: CsrMatrix, B: CsrMatrix,
@@ -328,8 +344,10 @@ def _csr_spgemm_chunked(sr: Semiring, A: CsrMatrix, B: CsrMatrix,
                                minlength=k).astype(np.int64)
             csum = np.cumsum(degB[hpA[1][:A.nvals]])
         else:
-            degB = (B.indptr[1:] - B.indptr[:-1]).long().cpu().numpy()
-            acol = A.indices[:A.nvals].long().cpu().numpy()
+            degB = host_read((B.indptr[1:] - B.indptr[:-1]).long(),
+                             "esc_block_degrees", np.ndarray)
+            acol = host_read(A.indices[:A.nvals].long(), "esc_block_cols",
+                             np.ndarray)
             csum = np.cumsum(degB[acol])
         nz = len(csum)
         bounds = [0]
@@ -396,7 +414,7 @@ def _merge_partials(sr: Semiring, P: CsrMatrix, Q: CsrMatrix,
         keys, tags, va, vb, zt, True, big,
         pair_fn=lambda a, b: sr.add.op(a, b),
         single_a_fn=lambda a: a, single_b_fn=lambda b: b)
-    nnz = int(nnz)
+    nnz = host_read(nnz, "esc_merge_nnz")
     E = ok.shape[0]
     indptr, oj, oi = _assemble(torch.where(ok == big, m * n, ok), m * n,
                                m, n)

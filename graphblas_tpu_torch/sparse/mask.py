@@ -28,6 +28,8 @@ from ..core.errors import DimensionMismatch
 from ..core.ops import BinaryOp
 from ..core.types import (Type, cast, tree_where, value_take,
                           zeros_like_typed)
+from ..utils import counters
+from ..utils.counters import host_read
 from ..utils.tree import tree_map
 from .container import CsrMatrix
 from .esc import _assemble, _bucket, _empty_csr
@@ -130,6 +132,7 @@ def csr_clear(C: CsrMatrix) -> CsrMatrix:
     return _empty_csr(C.nrows, C.ncols, C.type, C.device)
 
 
+@counters.spanned("gb.engines.accum_mask")
 def csr_accum_mask(C: CsrMatrix, M: Optional[CsrMatrix], T: CsrMatrix,
                    accum: Optional[BinaryOp],
                    desc: Optional[Descriptor]) -> CsrMatrix:
@@ -156,7 +159,7 @@ def csr_accum_mask(C: CsrMatrix, M: Optional[CsrMatrix], T: CsrMatrix,
     indptr, oj, oi, ov, nnzC = _epilogue(
         C.type, T.type, accum, d.replace, d.mask_scmp, M is not None,
         m, n, kdt, c_keys, C.values, t_keys, T.values, m_keys)
-    nnz = int(nnzC)
+    nnz = host_read(nnzC, "accum_nnz")
     E = c_keys.shape[0] + t_keys.shape[0]
     cap = min(_bucket(max(nnz, 8)), E + 1)
     return CsrMatrix(indptr, oj[:cap], oi[:cap],

@@ -35,6 +35,8 @@ from ..utils.tree import tree_map
 
 from ..core.errors import DimensionMismatch
 from ..ops.flopcount import record_axb_method
+from ..utils import counters
+from ..utils.counters import host_read
 from .container import CsrMatrix
 from .cuda_window import tricount_band_partials, window_count_partials
 from .window import build_band_plan, build_window_plan
@@ -103,6 +105,7 @@ def _entry_flops_csum(A: CsrMatrix, B: CsrMatrix) -> torch.Tensor:
     return torch.cumsum(lens, 0)
 
 
+@counters.spanned("gb.engines.sort_merge")
 def masked_pair_counts(M: CsrMatrix, A: CsrMatrix, B: CsrMatrix,
                        chunk: int = _LANE_CAP) -> torch.Tensor:
     """counts[e] = (A·B)[i_e, j_e] over PLUS_PAIR for every entry e of M
@@ -118,7 +121,7 @@ def masked_pair_counts(M: CsrMatrix, A: CsrMatrix, B: CsrMatrix,
     if M.shape != (m, n):
         raise DimensionMismatch(f"mask {M.shape} vs product {(m, n)}")
     csum = _entry_flops_csum(A, B)
-    flops = int(csum[-1]) if A.nzmax else 0
+    flops = host_read(csum[-1], "sort_merge_lanes") if A.nzmax else 0
     if flops == 0 or M.nvals == 0:
         return torch.zeros(M.nzmax, dtype=torch.int32, device=M.device)
     cap = max(min(chunk, _LANE_CAP), 1 << 14)
@@ -129,7 +132,7 @@ def masked_pair_counts(M: CsrMatrix, A: CsrMatrix, B: CsrMatrix,
     # Host split: contiguous A-entry blocks of <= cap lanes each (a
     # block is never empty, so a single entry with more than `cap`
     # lanes still goes through as its own block).
-    csum = csum.cpu().numpy()
+    csum = host_read(csum, "sort_merge_blocks", np.ndarray)
     nz = A.nzmax
     bounds = [0]
     prev = 0
@@ -189,9 +192,10 @@ def tricount_esc(L: CsrMatrix, U: Optional[CsrMatrix] = None,
     (L·U)[i,j]; with ``U=None`` the pure-Sandia form (L·L).<L.  Routes
     through the heavy/light bitdot split (:mod:`bitdot`): power-law
     graphs count on bitmaps, the residual on the sort-merge."""
-    return int(tricount_device(L, U, chunk))
+    return host_read(tricount_device(L, U, chunk), "tri_count")
 
 
+@counters.spanned("gb.entry.tricount_auto")
 def tricount_auto(L: CsrMatrix, U: CsrMatrix) -> int:
     """SandiaDot triangle count with engine auto-select:
 
@@ -202,10 +206,12 @@ def tricount_auto(L: CsrMatrix, U: CsrMatrix) -> int:
     Engine recorded in ``last_axb_method``."""
     plan = build_band_plan(L, U)
     if plan is not None:
-        return int(tricount_band_partials(plan).sum(dtype=torch.int64))
+        return host_read(tricount_band_partials(plan).sum(dtype=torch.int64),
+                         "tri_count")
     wplan = build_window_plan(L, U, L)
     if wplan is not None:
-        return int(window_count_partials(wplan).sum(dtype=torch.int64))
+        return host_read(window_count_partials(wplan).sum(dtype=torch.int64),
+                         "tri_count")
     return tricount_esc(L, U)
 
 
@@ -235,11 +241,13 @@ def csr_filter_lanes(A: CsrMatrix, keep) -> CsrMatrix:
                      int(keep.sum()), A.nrows, A.ncols, A.type)
 
 
+@counters.spanned("gb.containers.tril")
 def csr_tril(A: CsrMatrix, k: int = -1) -> CsrMatrix:
     """Entries on/below diagonal k (GxB_TRIL at CSR scale)."""
     return csr_filter_lanes(A, A.indices.long() - A.rowids.long() <= k)
 
 
+@counters.spanned("gb.containers.triu")
 def csr_triu(A: CsrMatrix, k: int = 1) -> CsrMatrix:
     """Entries on/above diagonal k (GxB_TRIU at CSR scale)."""
     return csr_filter_lanes(A, A.indices.long() - A.rowids.long() >= k)
@@ -350,6 +358,7 @@ def allktruss_esc(A: CsrMatrix, kmax: Optional[int] = None,
     return out
 
 
+@counters.spanned("gb.planning.tri_prep")
 def tricount_prep_csr(A: CsrMatrix):
     """Degree-ascending relabel + L/U split (the reference's
     ``tri_prep.c`` / ``tricount.c`` prep): returns (L, U) of the

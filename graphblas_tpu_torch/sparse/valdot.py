@@ -53,7 +53,8 @@ from ..core.errors import DimensionMismatch
 from ..core.semirings import Semiring
 from ..core.types import cast
 from ..ops.flopcount import record_axb_method
-from ..utils import faultinject
+from ..utils import counters, faultinject
+from ..utils.counters import host_read, to_device
 from . import bitdot as _bd
 from .bitdot import _auto_budget, _bitdot_pass, _host_cols_rows, _pack
 from .container import CsrMatrix
@@ -284,7 +285,7 @@ def build_valdot_plan(M: CsrMatrix, A: CsrMatrix, B: CsrMatrix,
     b_rank_s = b_rank[b_ord]
 
     def dev_i32(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+        return to_device(np.ascontiguousarray(a, np.int32), dev)
 
     levels = []
     cnt_total = None
@@ -324,8 +325,8 @@ def build_valdot_plan(M: CsrMatrix, A: CsrMatrix, B: CsrMatrix,
         aidx[:len(ae)] = ae
         bidx = np.zeros(cb, np.int64)
         bidx[:len(be)] = be
-        av = xv[torch.from_numpy(aidx).to(dev)]
-        bv = yv[torch.from_numpy(bidx).to(dev)]
+        av = xv[to_device(aidx, dev)]
+        bv = yv[to_device(bidx, dev)]
         z = torch.zeros(8, dtype=torch.int32, device=dev)
         lv = ValLevel(S, na, nb, dev_i32(arr), dev_i32(asl), av,
                       dev_i32(bjr), dev_i32(bsl), bv, z, z, z, 0, None,
@@ -619,10 +620,12 @@ def _use_kernel(sr: Semiring, fast: bool, device: torch.device) -> bool:
             and zd in (np.dtype(np.float32), np.dtype(np.int32)))
 
 
+@counters.spanned("gb.engines.valdot_slabs")
 def _valdot_heavy(plan: ValdotPlan, sr: Semiring, M: CsrMatrix):
     """All slabs, each gathering value rows only at its live mask
     entries, merged by the add monoid into the full accumulator (the
-    identity start makes the plain add correct)."""
+    identity start makes the plain add correct).  Counts the slabs run
+    (``valdot.slabs``) and their live lanes (``valdot.lanes``)."""
     zt = sr.ztype
     dev = M.device
     fast = _plus_times_fast(sr, plan.finite_ok)
@@ -632,6 +635,8 @@ def _valdot_heavy(plan: ValdotPlan, sr: Semiring, M: CsrMatrix):
     for lv in plan.levels:
         if lv.nlive == 0:
             continue
+        counters.count("valdot.slabs")
+        counters.count("valdot.lanes", lv.nlive)
         if kernel:
             part = valdot_gatherdot_rows(*compact_level(lv), lv.live_ai,
                                          lv.live_bj, lv.nlive, lv.S)
@@ -646,6 +651,7 @@ def _valdot_heavy(plan: ValdotPlan, sr: Semiring, M: CsrMatrix):
     return acc[:M.nzmax], plan.cnt
 
 
+@counters.spanned("gb.engines.valdot_combine")
 def _combine(sr: Semiring, E: int, m: int, n: int, m_rowids, m_indices,
              m_nvals: int, m_truthy, acc, cnt, r_rowids, r_indices, r_vals,
              r_nvals: int, r_type):
@@ -719,15 +725,21 @@ def cached_plan(M: CsrMatrix, A: CsrMatrix, B: CsrMatrix,
 
 
 def _cached_plan(M, A, B, sr, budget_bytes):
-    """Per-(M, A, B, semiring-types) plan cache on M."""
+    """Per-(M, A, B, semiring-types) plan cache on M.  A build (the span
+    ``gb.planning.valdot_plan``) counts ``plan.valdot.built``, a cached
+    plan or refusal ``plan.valdot.reused``."""
     plan = _cached_entry(M, A, B, sr)
     if plan is None:
-        plan = build_valdot_plan(M, A, B, sr, budget_bytes=budget_bytes)
+        counters.count("plan.valdot.built")
+        with counters.span("gb.planning.valdot_plan"):
+            plan = build_valdot_plan(M, A, B, sr,
+                                     budget_bytes=budget_bytes)
         M._options[("valdot_plan", sr.xtype.name, sr.ytype.name)] = (
             weakref.ref(A.indices), weakref.ref(A.values),
             weakref.ref(B.indices), weakref.ref(B.values),
             _NO_PLAN if plan is None else plan)
         return plan
+    counters.count("plan.valdot.reused")
     return None if plan is _NO_PLAN else plan
 
 
@@ -769,6 +781,6 @@ def valdot_masked_spgemm(sr: Semiring, A: CsrMatrix, B: CsrMatrix,
     indptr, oj, oi, ov, nnzC = _combine(
         sr, M.nzmax, m, n, M.rowids, M.indices, M.nvals, m_truthy, acc, cnt,
         *r_args)
-    nnz = int(nnzC)
+    nnz = host_read(nnzC, "valdot_nnz")
     cap = min(_bucket(max(nnz, 8)), M.nzmax + 1)
     return CsrMatrix(indptr, oj[:cap], oi[:cap], ov[:cap], nnz, m, n, zt)

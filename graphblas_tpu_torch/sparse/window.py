@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..ops.flopcount import record_axb_method
+from ..utils import counters
 
 __all__ = ["WindowPlan", "BandPlan", "build_window_plan",
            "build_band_plan", "window_masked_count_sum", "window_masked_mm",
@@ -135,14 +136,23 @@ def build_window_plan(A, B, M) -> Optional[WindowPlan]:
     """Host-side plan for C<M> = A · B^T on CsrMatrix patterns (B given
     in ROW form: Q panels take B's rows).  Returns a WindowPlan on A's
     device, or None when the window structure doesn't pay.  Cached on
-    A._options keyed by the operand identities."""
+    A._options keyed by the operand identities; a build (the span
+    ``gb.planning.window_plan``) counts ``plan.window.built``, a cached
+    plan or refusal ``plan.window.reused``."""
     key = ("_window_plan", id(B), id(M))
     plan = A._options.get(key)
     if plan is not None:
+        counters.count("plan.window.reused")
         return plan if isinstance(plan, WindowPlan) else None
+    with counters.span("gb.planning.window_plan"):
+        return _build_window_plan(A, B, M, key)
+
+
+def _build_window_plan(A, B, M, key) -> Optional[WindowPlan]:
     hA, hB, hM = _host_coo(A), _host_coo(B), _host_coo(M)
     if hA is None or hB is None or hM is None:
         return None
+    counters.count("plan.window.built")
     ra, ca, m, k = hA
     rb, cb, nB, kB = hB
     rm, cm, mM, nM = hM
@@ -272,14 +282,23 @@ class BandPlan:
 def build_band_plan(L, U) -> Optional[BandPlan]:
     """Tricount band plan: C<L> = L · U' for lower/upper-triangular
     pattern pairs whose band fits MAX_W_BLOCKS 128-blocks, on L's
-    device.  Returns None (cached) when the structure doesn't qualify."""
+    device.  Returns None (cached) when the structure doesn't qualify.
+    A build (the span ``gb.planning.band_plan``) counts
+    ``plan.band.built``, a cached plan or refusal ``plan.band.reused``."""
     key = ("_band_plan", id(U))
     plan = L._options.get(key)
     if plan is not None:
+        counters.count("plan.band.reused")
         return plan if isinstance(plan, BandPlan) else None
+    with counters.span("gb.planning.band_plan"):
+        return _build_band_plan(L, U, key)
+
+
+def _build_band_plan(L, U, key) -> Optional[BandPlan]:
     hL, hU = _host_coo(L), _host_coo(U)
     if hL is None or hU is None:
         return None
+    counters.count("plan.band.built")
     rl, cl, m, _ = hL
     ru, cu, mu, _ = hU
     nI = -(-m // T)

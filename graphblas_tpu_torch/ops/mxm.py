@@ -59,7 +59,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-import numpy as np
 import torch
 
 from ..core.descriptor import Descriptor, desc_of
@@ -298,6 +297,18 @@ def semiring_mm(sr: Semiring, Av, Ap, Bv, Bp, method_hint=None,
     return vals, tpat, method
 
 
+def csr_flopcount(A, B) -> int:
+    """The exact flop count of A·B over CSR operands
+    (``GB_AxB_flopcount.c``), on their device: B's row degrees gathered
+    at A's column ids and summed, then one scalar read (``reads``, the
+    span ``gb.read.flopcount``) and one ``flopcount.exact``.  torch.sum
+    of an integer tensor gives int64, which the count needs: it passes
+    2^31 on a Kronecker graph of scale 20."""
+    counters.count("flopcount.exact")
+    flops = B.row_degrees().index_select(0, A.indices[:A.nvals]).sum()
+    return counters.host_read(flops, "flopcount")
+
+
 def _mxm_sparse(C, M, accum, sr: Semiring, A, B, d: Descriptor):
     """Sparse-output mxm: engine chosen by the cost model (the
     GB_AxB_meta auto-select), then the CSR epilogue."""
@@ -315,16 +326,17 @@ def _mxm_sparse(C, M, accum, sr: Semiring, A, B, d: Descriptor):
         B = B.T()
     m, k = A.shape
     n = B.ncols
+    if B.nrows != k:
+        raise DimensionMismatch(f"inner dims {A.shape} x {B.shape}")
     if C.shape != (m, n):
         raise DimensionMismatch(f"C is {C.shape}, product is {(m, n)}")
     # exact flop count when the build-time host patterns are around
-    # (GB_AxB_flopcount.c)
+    # (the JAX package's gate), made on the device from the CSR arrays;
+    # else the estimate
     with counters.span("gb.planning.flopcount"):
-        hpA = A._options.get("host_pattern")
-        hpB = B._options.get("host_pattern")
-        if hpA is not None and hpB is not None:
-            degB = np.bincount(hpB[0][:B.nvals], minlength=k + 1)
-            est_flops = max(1, int(degB[hpA[1][:A.nvals]].sum()))
+        if (A._options.get("host_pattern") is not None
+                and B._options.get("host_pattern") is not None):
+            est_flops = max(1, csr_flopcount(A, B))
         else:
             est_flops = max(1, (A.nvals * B.nvals) // max(k, 1))
     with counters.span("gb.planning.choose"):

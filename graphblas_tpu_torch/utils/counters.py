@@ -104,7 +104,7 @@ def add_flops(n: int) -> None:
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the named count (``reads``, ``d2h_bytes``,
     ``h2d_bytes``, ``plan.<name>.built`` / ``.reused``,
-    ``valdot.slabs``, ``valdot.lanes``)."""
+    ``valdot.slabs``, ``valdot.lanes``, ``flopcount.exact``)."""
     if not _state["enabled"]:
         return
     with _lock:

@@ -20,11 +20,13 @@ from graphblas_tpu.ops.mxm import mxm as jmxm
 from graphblas_tpu.ops.mxm import semiring_mm as j_semiring_mm
 from graphblas_tpu.sparse import bitdot as jbd
 from graphblas_tpu.sparse.mask import csr_accum_mask as j_accum_mask
+from graphblas_tpu.utils import counters as jcounters
 import graphblas_tpu_torch as gt
 from graphblas_tpu_torch import convert
 from graphblas_tpu_torch.ops import flopcount as tfc
 from graphblas_tpu_torch.sparse import bitdot as tbd
 from graphblas_tpu_torch.sparse.mask import csr_accum_mask
+from graphblas_tpu_torch.utils import counters
 
 from tests.test_torch_esc import _tuples, assert_same_csr, both, tuples_of
 from tests.test_torch_valdot import _powerlaw
@@ -278,3 +280,119 @@ def test_public_mxm_routes_through_valdot(monkeypatch):
     ei, ej, ex = tuples_of(C2)
     assert np.array_equal(gi, ei) and np.array_equal(gj, ej)
     np.testing.assert_allclose(gx, ex, rtol=5e-5, atol=1e-4)
+
+
+# -- the exact flop count, made on the device --------------------------------
+
+#: (m, k, n, density of A, density of B, extra capacity, empty lines):
+#: "empty lines" empties every third row and column of both operands
+FLOP_CASES = {
+    "square": (40, 40, 40, 0.15, 0.15, 0, False),
+    "rectangular": (17, 33, 9, 0.2, 0.3, 0, False),
+    "empty_rows_cols": (30, 24, 28, 0.3, 0.3, 0, True),
+    "padded": (25, 25, 25, 0.2, 0.2, 500, False),
+    "empty_A": (12, 20, 15, 0.0, 0.3, 0, False),
+    "empty_B": (12, 20, 15, 0.3, 0.0, 64, False),
+}
+
+
+def _flop_tuples(rng, m, n, density, empty_lines):
+    I, J, X = _tuples(rng, m, n, density, "FP32")
+    if empty_lines:
+        keep = (I % 3 != 0) & (J % 3 != 0)
+        I, J, X = I[keep], J[keep], X[keep]
+    return I, J, X
+
+
+def _flop_operands(case, device="cpu"):
+    """(JAX A, JAX B, port A, port B) of one case, all with host
+    patterns; the port's on ``device``."""
+    m, k, n, da, db, extra, empty_lines = FLOP_CASES[case]
+    rng = np.random.default_rng(sorted(FLOP_CASES).index(case))
+    out = []
+    for (r, c, d) in ((m, k, da), (k, n, db)):
+        I, J, X = _flop_tuples(rng, r, c, d, empty_lines)
+        nzmax = len(I) + extra if extra else None
+        Xj = jsp.CsrMatrix.from_coo(I, J, X, r, c, type=gb.FP32,
+                                    nzmax=nzmax, sum_duplicates=False)
+        Xt = gt.csr_from_coo(I, J, X, r, c, type=gt.FP32, nzmax=nzmax,
+                             sum_duplicates=False, device=device)
+        out.append((Xj, Xt))
+    (Aj, At), (Bj, Bt) = out
+    return Aj, Bj, At, Bt
+
+
+def _numpy_flops(A, B) -> int:
+    """The host formula the device count replaced."""
+    hpA, hpB = A._options["host_pattern"], B._options["host_pattern"]
+    k = A.ncols
+    return int(np.bincount(hpB[0][:B.nvals], minlength=k + 1)[
+        hpA[1][:A.nvals]].sum())
+
+
+@pytest.mark.parametrize("case", sorted(FLOP_CASES))
+def test_device_flopcount_matches_numpy(case):
+    """``csr_flopcount`` on the CSR arrays equals the numpy formula over
+    the host patterns, padding sentinels and empty operands included, on
+    the CPU and on a card where one is present."""
+    from graphblas_tpu_torch.ops.mxm import csr_flopcount
+    devices = ["cpu"] + (["cuda"] if torch.cuda.is_available() else [])
+    for dev in devices:
+        _, _, A, B = _flop_operands(case, dev)
+        if FLOP_CASES[case][5]:
+            assert A.nvals < A.nzmax and B.nvals < B.nzmax
+        counters.reset()
+        got = csr_flopcount(A, B)
+        assert isinstance(got, int)
+        assert got == _numpy_flops(A, B)
+        assert counters.stats()["counts"] == {"flopcount.exact": 1,
+                                              "reads": 1}
+
+
+@pytest.mark.parametrize("case", sorted(FLOP_CASES))
+def test_mxm_exact_flops_match_numpy_and_jax(case):
+    """Through ``mxm``: with host patterns the modelled flops are the
+    numpy formula's (at least 1), as the JAX package's, and the engine
+    is the JAX package's; one exact count and one read of it."""
+    Aj, Bj, At, Bt = _flop_operands(case)
+    m, n = At.nrows, Bt.ncols
+    C0j, C0t = empty_both(m, n, "FP32")
+    counters.reset()
+    jcounters.reset()
+    counters.trace_spans(True)
+    try:
+        gt.mxm(C0t, None, None, gt.semiring.plus_times[gt.FP32], At, Bt)
+    finally:
+        counters.trace_spans(False)
+    jmxm(C0j, None, None, jsemiring.plus_times[gb.FP32], Aj, Bj)
+    st = counters.stats()
+    assert st["modelled_flops"] == max(1, _numpy_flops(At, Bt))
+    assert st["modelled_flops"] == jcounters.stats()["modelled_flops"]
+    assert gt.last_axb_method() == jfc.last_axb_method()
+    assert st["counts"]["flopcount.exact"] == 1
+    assert st["spans"]["gb.read.flopcount"]["count"] == 1
+
+
+def test_mxm_without_host_pattern_takes_the_estimate():
+    """Operands with no host pattern keep the estimate nnz(A)·nnz(B)/k:
+    no exact count, no read of it, and the JAX package's engine."""
+    Aj, Bj, At, Bt = _flop_operands("rectangular")
+    for X in (Aj, Bj, At, Bt):
+        del X._options["host_pattern"]
+    k = At.ncols
+    C0j, C0t = empty_both(At.nrows, Bt.ncols, "FP32")
+    counters.reset()
+    jcounters.reset()
+    counters.trace_spans(True)
+    try:
+        gt.mxm(C0t, None, None, gt.semiring.plus_times[gt.FP32], At, Bt)
+    finally:
+        counters.trace_spans(False)
+    jmxm(C0j, None, None, jsemiring.plus_times[gb.FP32], Aj, Bj)
+    st = counters.stats()
+    assert st["modelled_flops"] == max(1, At.nvals * Bt.nvals // k)
+    assert st["modelled_flops"] == jcounters.stats()["modelled_flops"]
+    assert gt.last_axb_method() == jfc.last_axb_method()
+    assert "flopcount.exact" not in st["counts"]
+    assert "gb.read.flopcount" not in st["spans"]
+    assert "gb.planning.flopcount" in st["spans"]

@@ -212,8 +212,8 @@ def test_bfs_reads_levels_plus_one(spans_on):
 
 def test_warm_masked_mxm_reads(spans_on):
     """A masked FP32 ``mxm`` into a fresh CSR C at R-MAT 13 (the valued
-    plan refuses, ESC runs): the cold call reads ESC's nnz and the
-    epilogue's; a warm one only the epilogue's."""
+    plan refuses, ESC runs): every call reads the exact flop count and
+    the epilogue's nnz; the cold call ESC's nnz besides."""
     n = 1 << 13
     L, U = gt.tricount_prep_csr(_rmat(13))
     rng = np.random.default_rng(0)
@@ -234,13 +234,15 @@ def test_warm_masked_mxm_reads(spans_on):
         assert gt.last_axb_method() == "esc:csr_spgemm"
         return counters.stats()
     cold, warm, warm2 = call(), call(), call()
-    assert cold["counts"]["reads"] == 2
+    assert cold["counts"]["reads"] == 3
     assert cold["counts"]["plan.esc.built"] == 1
+    assert cold["counts"]["flopcount.exact"] == 1
     assert warm["counts"] == warm2["counts"] == {
-        "reads": 1, "plan.valdot.reused": 1, "plan.esc.reused": 1}
+        "reads": 2, "plan.valdot.reused": 1, "plan.esc.reused": 1,
+        "flopcount.exact": 1}
     names = set(warm["spans"])
-    assert {"gb.entry.mxm", "gb.planning.flopcount", "gb.planning.choose",
-            "gb.engines.esc", "gb.engines.accum_mask",
+    assert {"gb.entry.mxm", "gb.planning.flopcount", "gb.read.flopcount",
+            "gb.planning.choose", "gb.engines.esc", "gb.engines.accum_mask",
             "gb.read.accum_nnz"} == names
     assert "gb.planning.esc_plan" in cold["spans"]
     assert "gb.planning.valdot_plan" in cold["spans"]

@@ -22,14 +22,17 @@ from .descriptor import Descriptor, desc_of
 from .errors import DimensionMismatch
 from .ops import BinaryOp
 from .types import BOOL, cast, tree_where, zeros_like_typed
+from ..utils import counters
 
 __all__ = ["accum_values", "effective_mask", "apply_mask", "accum_mask"]
 
 
-def _like(C, values, pattern: torch.Tensor):
+def _like(C, values, pattern: torch.Tensor, zero=None):
     """A container of C's class and type holding ``values`` where
-    ``pattern`` is set and 0 elsewhere (the canonical invariant)."""
-    zero = zeros_like_typed((), C.type, pattern.device)
+    ``pattern`` is set and 0 elsewhere (the canonical invariant);
+    ``zero``: C's typed zero, where the caller made it."""
+    if zero is None:
+        zero = zeros_like_typed((), C.type, pattern.device)
     return type(C)(tree_where(pattern, values, zero), pattern, C.type)
 
 
@@ -75,18 +78,22 @@ def apply_mask(C, M, zvals, zpat, desc: Descriptor):
             return C.clear() if desc.replace else C
         return _like(C, zvals, zpat)
     mk = effective_mask(M, desc.mask_scmp, desc.mask_structure)
+    zero = None
     if desc.replace:
-        cvals = zeros_like_typed(C.shape, C.type, C.device)
-        cpat = torch.zeros_like(C.pattern)
+        # C cleared first: nothing of it survives outside the mask
+        zero = zeros_like_typed((), C.type, C.device)
+        cvals, cpat = zero, False
     else:
         cvals, cpat = C.values, C.pattern
     return _like(C, tree_where(mk, zvals, cvals),
-                 torch.where(mk, zpat, cpat))
+                 torch.where(mk, zpat, cpat), zero)
 
 
+@counters.spanned("gb.engines.bitmap_mask")
 def accum_mask(C, M, T, accum: Optional[BinaryOp],
                desc: Optional[Descriptor]):
-    """Full epilogue C<M> = accum(C, T) (reference ``GB_accum_mask.c``)."""
+    """Full epilogue C<M> = accum(C, T) (reference ``GB_accum_mask.c``),
+    the span ``gb.engines.bitmap_mask``."""
     desc = desc_of(desc)
     C = C.wait()
     if M is not None:

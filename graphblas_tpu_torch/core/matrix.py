@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..utils import faultinject
+from ..utils.counters import host_read
 from ..utils.tree import tree_map
 from .errors import DimensionMismatch, IndexOutOfBounds
 from .ops import BinaryOp, binary
@@ -288,11 +289,15 @@ class _Bitmap:
     ``type.storage`` and a bool ``pattern`` of one shape, on one
     device."""
 
-    __slots__ = ("values", "pattern", "type", "_pending", "_options")
+    __slots__ = ("values", "pattern", "type", "_pending", "_options",
+                 "_full")
 
     def _init(self, values, pattern, type, pending, options=None):
         self.values = values
         self.pattern = pattern
+        # (the pattern's version, whether every entry is present) once a
+        # read has learnt it; an in-place edit of the pattern outdates it
+        self._full = None
         self.type = _typed(type)
         # the non-blocking delta list: (index tuple, scalar, accum op)
         self._pending = as_pending(pending)
@@ -626,8 +631,15 @@ class Vector(_Bitmap):
         return self.shape[0]
 
     def all_present(self) -> bool:
-        """Whether every entry is present (read from the pattern)."""
-        return bool(self.wait().pattern.all())
+        """Whether every entry is present: one read of the pattern's
+        all-reduce (``gb.read.all_present``), unless a read of this
+        pattern as it stands learnt it already (an earlier call, or
+        :func:`ops.reduce.reduce_to_scalar` of this vector)."""
+        v = self.wait()
+        if v._full is None or v._full[0] != v.pattern._version:
+            v._full = (v.pattern._version,
+                       host_read(v.pattern.all(), "all_present", bool))
+        return v._full[1]
 
     def extractTuples(self):
         """(I, X) of the entries in index order as host arrays, X in the

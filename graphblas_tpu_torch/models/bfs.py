@@ -18,11 +18,16 @@ implementation serves both — aliases are exported for API parity.
 A takes any matrix container: a bitmap ``Matrix`` runs each level's
 ``vxm`` as a dense product, a ``CsrMatrix`` or ``CscMatrix`` as an SpMV
 (the sparse-x engine of :mod:`graphblas_tpu_torch.sparse.spmv`).  A
-``CsrMatrix`` is turned once into its by-column twin, whose stored
-arrays are A' in CSR, so the levels' ``vxm`` (u'A = A'u) resort nothing;
-the output is the same.  The vectors are bitmap ``Vector`` containers
-on A's device.  The per-level ``bool(reduce_to_scalar(...))`` is the
-loop's one read-back.  ``bfs_jit`` is the whole loop on the bitmap
+``CsrMatrix`` is turned once a call into its by-column twin, whose
+stored arrays are A' in CSR (``CsrMatrix.T``, a device sort), so the
+levels' ``vxm`` (u'A = A'u) resort nothing; the output is the same.
+The vectors are bitmap ``Vector`` containers on A's device.  A level
+reads back once (``gb.read.reduce_scalar``): the successor flag of
+``reduce_to_scalar`` and, in the same copy, whether the frontier is
+full, which the next level's ``vxm`` asks to choose its engine; the
+first level's ``vxm`` reads that itself (``gb.read.all_present``).
+``bfs5m`` and ``bfs6`` are the spans ``gb.entry.bfs5m`` and
+``gb.entry.bfs6``.  ``bfs_jit`` is the whole loop on the bitmap
 pattern's device, reading back one bool a level where the JAX package
 runs one ``lax.while_loop``.
 """
@@ -42,6 +47,7 @@ from ..ops.assign import assign_vector
 from ..ops.ewise import apply as gb_apply
 from ..ops.mxm import vxm
 from ..ops.reduce import reduce_to_scalar
+from ..utils import counters
 
 __all__ = ["bfs5m", "bfs6", "bfs", "bfs_level", "bfs_jit",
            "bfs5m_check", "bfs6_check"]
@@ -51,38 +57,44 @@ _SR_DESC = Descriptor(mask_scmp=True, replace=True)
 
 def vxm_operand(A):
     """A in the orientation ``vxm`` reads without a resort: a CsrMatrix
-    as its by-column twin (one transpose, once), any other container as
-    it is."""
+    as its by-column twin (one device transpose), any other container
+    as it is."""
     from ..sparse.container import CscMatrix, CsrMatrix
     if isinstance(A, CsrMatrix):
         return CscMatrix(A.T())
     return A.wait()
 
 
+@counters.spanned("gb.entry.bfs5m")
 def bfs5m(A, s: int) -> Vector:
     """BFS levels via masked assign + vxm (reference ``bfs5m.c:33-95``).
 
     v[i] = level of node i (1 for the source); unreachable nodes have no
-    entry.
+    entry.  Each level's assign is issued before the previous level's
+    successor flag is read, so the card has it queued while the host
+    waits; after the last level it assigns through an empty frontier,
+    which changes nothing.
     """
     n = A.nrows
     dev = A.device
     Aop = vxm_operand(A)
-    v = Vector.from_dense(np.zeros(n, np.int32), INT32, device=dev)
-    q = Vector.new(BOOL, n, device=dev).setElement(True, s)
+    v = Vector.from_dense(torch.zeros(n, dtype=torch.int32, device=dev),
+                          INT32)
+    q = Vector.new(BOOL, n, device=dev).setElement(True, s).wait()
     boolean = semiring.lor_land[BOOL]
     lor = monoid.lor[BOOL]
 
+    # v<q> = level
+    v = assign_vector(v, q, None, 1, None, None, scalar=True)
     successor = True
     level = 1
     while successor and level <= n:
-        # v<q> = level
-        v = assign_vector(v, q, None, level, None, None, scalar=True)
         # q<!v> = q ||.&& A   (complemented mask: v!=0 marks visited)
         q = vxm(q, v, None, boolean, q, Aop, _SR_DESC)
-        # successor = ||(q)
-        successor = bool(reduce_to_scalar(None, lor, q))
         level += 1
+        # the next level's v<q> = level, then successor = ||(q)
+        v = assign_vector(v, q, None, level, None, None, scalar=True)
+        successor = bool(reduce_to_scalar(None, lor, q))
 
     # make v sparse: v<v> = v with REPLACE (drops the explicit zeros)
     return assign_vector(v, v, None, v, None, Descriptor(replace=True))
@@ -96,6 +108,7 @@ def bfs_level(v: Vector, q: Vector, level: int) -> Vector:
     return gb_apply(v, None, binary.plus[INT32], op, q, None)
 
 
+@counters.spanned("gb.entry.bfs6")
 def bfs6(A, s: int) -> Vector:
     """BFS via apply (reference ``bfs6.c``): v accumulates level masks."""
     n = A.nrows

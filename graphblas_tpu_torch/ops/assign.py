@@ -37,7 +37,7 @@ from ..core.ops import BinaryOp
 from ..core.types import Type, cast_value, full_typed
 from ..utils.tree import tree_map
 from ..utils import counters
-from ..utils.indices import normalize_indices
+from ..utils.indices import ALL, is_all, normalize_indices
 from .containers import (require_container, to_csr_operand,
                          to_hyper_operand, vec_hyper_operand)
 
@@ -94,20 +94,20 @@ def _transposed(A: Matrix) -> Matrix:
     return Matrix(tree_map(lambda v: v.T, A.values), A.pattern.T, A.type)
 
 
-def _operand(A, Ii, Jj, C: Matrix, tran: bool, scalar: bool) -> Matrix:
+def _operand(A, ni: int, nj: int, C: Matrix, tran: bool,
+             scalar: bool) -> Matrix:
     """The region-shaped operand: the scalar expanded, or A (transposed
-    when asked) checked against |I| x |J|."""
+    when asked) checked against |I| x |J| = ``ni`` x ``nj``."""
     if scalar:
-        return _scalar_matrix(A, len(Ii), len(Jj), C.type, C.device)
+        return _scalar_matrix(A, ni, nj, C.type, C.device)
     if not isinstance(A, Matrix):
         from .containers import to_bitmap_operand
         A = to_bitmap_operand(A, "assign input A")
     A = A.wait()
     if tran:
         A = _transposed(A)
-    if A.shape != (len(Ii), len(Jj)):
-        raise DimensionMismatch(
-            f"A is {A.shape}, I x J is {(len(Ii), len(Jj))}")
+    if A.shape != (ni, nj):
+        raise DimensionMismatch(f"A is {A.shape}, I x J is {(ni, nj)}")
     return A
 
 
@@ -150,7 +150,9 @@ def assign(C, M, accum: Optional[BinaryOp], A: Union[Matrix, Any],
     """C<M>(I,J) = accum(C(I,J), A) — GrB_assign; M is C-sized.
 
     Transcribes ``Test/GB_spec_assign.m``: Z = C; Z(I,J) =
-    accum(C(I,J), A); then C<M> = Z with C_replace over all of C.
+    accum(C(I,J), A); then C<M> = Z with C_replace over all of C.  On a
+    bitmap output (a ``Vector`` included) that is the span
+    ``gb.engines.bitmap_assign``.
     """
     accum = _prologue("assign", C, M, accum, A, scalar)
     from ..sparse.assign import csr_assign
@@ -159,13 +161,24 @@ def assign(C, M, accum: Optional[BinaryOp], A: Union[Matrix, Any],
                         desc, scalar)
     if out is not None:
         return out
+    with counters.span("gb.engines.bitmap_assign"):
+        return _bitmap_assign(C, M, accum, A, I, J, desc, scalar)
+
+
+def _bitmap_assign(C: Matrix, M, accum, A, I, J, desc,
+                   scalar: bool) -> Matrix:
     d = desc_of(desc)
     C = C.wait()
     if M is not None:
         M = M.wait()
+    if is_all(I) and is_all(J):
+        # C(:,:) is C: no index lists, gather or scatter
+        A = _operand(A, C.nrows, C.ncols, C, d.tran0, scalar)
+        zvals, zpat = accum_values(C, A, accum)
+        return apply_mask(C, M, zvals, zpat, d)
     Ii = normalize_indices(I, C.nrows, unique=scalar)
     Jj = normalize_indices(J, C.ncols, unique=scalar)
-    A = _operand(A, Ii, Jj, C, d.tran0, scalar)
+    A = _operand(A, len(Ii), len(Jj), C, d.tran0, scalar)
     S = _gather(C, Ii, Jj)
     zij_vals, zij_pat = accum_values(S, A, accum)
     Z = _scatter(C, Ii, Jj, Matrix(zij_vals, zij_pat, C.type))
@@ -189,7 +202,7 @@ def subassign(C, M, accum: Optional[BinaryOp], A: Union[Matrix, Any],
     C = C.wait()
     Ii = normalize_indices(I, C.nrows)
     Jj = normalize_indices(J, C.ncols)
-    A = _operand(A, Ii, Jj, C, d.tran0, scalar)
+    A = _operand(A, len(Ii), len(Jj), C, d.tran0, scalar)
     if M is not None:
         M = _as_matrix(M.wait())
         if M.shape != (len(Ii), len(Jj)):
@@ -229,7 +242,8 @@ def _vector_form(fn, hfn, what: str, w, m, accum, u, I, desc,
     Cm = _as_matrix(w)
     Mm = _as_matrix(m)
     Am = u if scalar else _as_matrix(u)
-    return _to_vector(fn(Cm, Mm, accum, Am, I, [0], desc, scalar=scalar))
+    # the n x 1 view's one column is all of its columns
+    return _to_vector(fn(Cm, Mm, accum, Am, I, ALL, desc, scalar=scalar))
 
 
 def assign_vector(w: Vector, m: Optional[Vector], accum, u, I=None,

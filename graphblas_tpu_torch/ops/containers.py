@@ -13,6 +13,8 @@ by-column twin ``HyperCscMatrix`` and the sparse vector ``SparseVec``.
 
 from __future__ import annotations
 
+import functools
+
 from ..core.errors import GraphBLASError
 from ..core.matrix import Matrix, Vector
 
@@ -28,10 +30,18 @@ class UnsupportedContainer(GraphBLASError):
     not leak raw AttributeErrors."""
 
 
+@functools.cache
 def _containers():
     from ..sparse.container import CscMatrix, CsrMatrix
     from ..sparse.hyper import HyperMatrix
     return CsrMatrix, CscMatrix, HyperMatrix
+
+
+@functools.cache
+def _known_containers():
+    from ..sparse.hyper_csc import HyperCscMatrix
+    from ..sparse.vector import SparseVec
+    return (Matrix, Vector, *_containers(), SparseVec, HyperCscMatrix)
 
 
 def is_sparse_container(x) -> bool:
@@ -45,10 +55,7 @@ def require_container(X, what: str = "operand",
     object raises :class:`UnsupportedContainer`."""
     if X is None and none_ok:
         return
-    from ..sparse.hyper_csc import HyperCscMatrix
-    from ..sparse.vector import SparseVec
-    known = (Matrix, Vector, *_containers(), SparseVec, HyperCscMatrix)
-    if not isinstance(X, known):
+    if not isinstance(X, _known_containers()):
         raise UnsupportedContainer(
             f"{what}: expected a GraphBLAS container (Matrix, Vector, "
             f"CsrMatrix, CscMatrix, HyperMatrix, SparseVec), got "

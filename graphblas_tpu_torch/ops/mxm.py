@@ -532,11 +532,19 @@ def _csr_spmv(sr: Semiring, A, u: Vector):
     return csr_mxv(sr, A, u.values, xp, x_type=u.type)
 
 
+#: builtin multiplies whose operands commute exactly, NaN and signed
+#: zeros included (logical results)
+_COMMUTING = frozenset({"LAND", "LOR", "LXOR", "EQ", "NE"})
+
+
 def _flipped(sr: Semiring) -> Semiring:
     """The semiring with its multiply's operands swapped, so that
     (u' A)' = A' (x) u keeps the operand order of non-commutative
-    multiplies (FIRST, MINUS, DIV, ...)."""
+    multiplies (FIRST, MINUS, DIV, ...); a logical multiply of one
+    domain is its own flip, and keeps its engines' fast paths."""
     mult = sr.mult
+    if mult.name in _COMMUTING and mult.xtype is mult.ytype:
+        return sr
     return Semiring(sr.add, BinaryOp(mult.name + "_FLIP",
                                      lambda x, y: mult.fn(y, x),
                                      mult.ztype, mult.ytype, mult.xtype))
@@ -571,7 +579,7 @@ def mxv(w, m, accum: Optional[BinaryOp], semiring: Semiring, A, u,
     if isinstance(A, CsrMatrix):
         A = A.wait()
         if d.tran0:
-            A = A.T()  # host resort; large callers should cache A'
+            A = A.T()  # a device sort; large callers should cache A'
         if u.size != A.ncols:
             raise DimensionMismatch(
                 f"A is {A.nrows}x{A.ncols}, u has size {u.size}")
@@ -619,7 +627,7 @@ def vxm(w, m, accum: Optional[BinaryOp], semiring: Semiring, u, A,
     if isinstance(A, CsrMatrix):
         A = A.wait()
         if not d.tran1:
-            A = A.T()  # host resort; large callers should cache A'
+            A = A.T()  # a device sort; large callers should cache A'
         if u.size != A.ncols:
             raise DimensionMismatch(
                 f"A' is {A.ncols}x{A.nrows}, u has size {u.size}")

@@ -143,13 +143,13 @@ def _scatter_vector(ids, vals, n: int, t, device) -> Vector:
 def _accum_scalar(accum: BinaryOp, c, t):
     """accum(c, t) on host scalars, through the op itself; a numpy
     scalar of its ztype."""
-    from ..sparse.ewise import host_scalar
+    from ..sparse.ewise import host_value
 
     def arg(v, typ):
         return full_typed((), cast_value(v, typ), typ, "cpu")
     z = cast_result(accum(arg(c, accum.xtype), arg(t, accum.ytype)),
                     accum.ztype)
-    return host_scalar(z, accum.ztype)
+    return host_value(z.reshape(1).numpy(), accum.ztype)
 
 
 @counters.counted("reduce_to_scalar")
@@ -181,7 +181,14 @@ def reduce_to_scalar(accum: Optional[BinaryOp], op: Union[Monoid, BinaryOp],
     else:
         from ..sparse.ewise import host_scalar
         vals = cast(A.values, mon.type, A.type)
-        t = host_scalar(mon.reduce(vals, where=A.pattern), mon.type)
+        r = mon.reduce(vals, where=A.pattern)
+        if isinstance(A, Vector) and not mon.type.is_udt:
+            # the same read learns whether every entry is present, which
+            # a product with this vector asks next in a frontier loop
+            t, full = host_scalar(r, mon.type, A.pattern.all())
+            A._full = (A.pattern._version, full)
+        else:
+            t = host_scalar(r, mon.type)
     if accum is not None and c is not None:
         t = _accum_scalar(accum, c, t)
     return t

@@ -8,7 +8,9 @@ Padding convention: ``indices[k >= nvals] == ncols`` and
 
 The host pattern of a container built from tuples is kept in
 ``_options["host_pattern"]`` as numpy ``(rowids, indices)``: the
-planners read it instead of copying the device arrays back.
+planners read it instead of copying the device arrays back.  A
+transpose, made on the device, keeps a :class:`HostPattern` there,
+which copies its arrays back the first time a reader asks.
 
 The default device is the CUDA card: a constructor called without
 ``device`` on a machine with no card raises (pass ``device="cpu"`` to
@@ -42,8 +44,8 @@ from ..utils import counters, faultinject
 from ..utils.tree import tree_map
 from ..io.native import sort_dedup_native, sort_pairs_native
 
-__all__ = ["CsrMatrix", "CscMatrix", "csr_from_coo", "default_device",
-           "resolve_device"]
+__all__ = ["CsrMatrix", "CscMatrix", "HostPattern", "csr_from_coo",
+           "default_device", "resolve_device"]
 
 
 def default_device() -> torch.device:
@@ -66,6 +68,39 @@ def resolve_device(device=None) -> torch.device:
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+class HostPattern:
+    """A container's host ``(rowids, indices)`` made from its device
+    arrays, as a pair that copies them back (``host_read``, site
+    ``host_pattern``) the first time a reader indexes or unpacks it, and
+    keeps the copies.  A device-made container carries one where the
+    host-built one carried the arrays, so the readers' gates see a host
+    pattern as before, and a caller whose path reads none pays for
+    none."""
+
+    __slots__ = ("_dev", "_host")
+
+    def __init__(self, rowids: torch.Tensor, indices: torch.Tensor):
+        self._dev = (rowids, indices)
+        self._host = None
+
+    def _pair(self) -> tuple:
+        if self._host is None:
+            self._host = tuple(counters.host_read(t, "host_pattern",
+                                                  np.ndarray)
+                               for t in self._dev)
+            self._dev = None
+        return self._host
+
+    def __getitem__(self, k):
+        return self._pair()[k]
+
+    def __iter__(self):
+        return iter(self._pair())
+
+    def __len__(self) -> int:
+        return 2
 
 
 class CsrMatrix:
@@ -208,14 +243,40 @@ class CsrMatrix:
         return Matrix(tree_map(scat, self.values), pat.reshape(m, n),
                       self.type)
 
+    @counters.spanned("gb.containers.transpose")
     def T(self) -> "CsrMatrix":
-        """Transpose = re-sorted COO (host side, a counting sort in the
-        reference's ``GB_transpose_bucket.c``)."""
+        """Transpose on the device (the reference's
+        ``GB_transpose_bucket.c`` counting sort): the live entries
+        stable-sorted by column, the rows gathered by the permutation,
+        the row pointers searched in the sorted columns.  A CSR stores
+        its entries in row order, so a stable sort by column alone puts
+        them in (column, row) order, duplicates in storage order: the
+        arrays are those :func:`csr_from_coo` gives the swapped tuples,
+        padding and ``nzmax`` included.  Its host pattern is a
+        :class:`HostPattern`, copied back only when a reader asks.
+        Counts ``transpose.entries``."""
         A = self.wait()
-        I, J, X = A.extractTuples()
-        return csr_from_coo(J, I, X, A.ncols, A.nrows, type=A.type,
-                            nzmax=A.nzmax, sum_duplicates=False,
-                            device=A.device)
+        m, n, nv = A.nrows, A.ncols, A.nvals
+        dev = A.device
+        cap = A.nzmax or _round_up(max(nv, 8), 128)
+        counters.count("transpose.entries", nv)
+        cols, perm = torch.sort(A.indices[:nv], stable=True)
+        indptr = torch.searchsorted(
+            cols, torch.arange(n + 1, dtype=cols.dtype, device=dev),
+            out_int32=True)
+        indices = torch.full((cap,), m, dtype=torch.int32, device=dev)
+        rowids = torch.full((cap,), n, dtype=torch.int32, device=dev)
+        indices[:nv] = A.rowids[:nv][perm]
+        rowids[:nv] = cols
+
+        def gather(v):
+            out = v.new_zeros(cap)
+            out[:nv] = v[:nv][perm]
+            return out
+        out = CsrMatrix(indptr, indices, rowids, tree_map(gather, A.values),
+                        nv, n, m, A.type)
+        out._options["host_pattern"] = HostPattern(rowids, indices)
+        return out
 
     def __repr__(self):  # pragma: no cover
         return (f"CsrMatrix<{self.type.name}> {self.nrows}x{self.ncols}, "

@@ -36,19 +36,22 @@ package's CSR row reduce raises for it).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.monoids import Monoid
 from ..core.ops import BinaryOp, SelectOp, UnaryOp
 from ..core.types import (Type, cast, cast_result, tree_where,
                           value_take, zeros_like_typed)
+from ..utils.counters import host_read
 from ..utils.tree import tree_map
 from .container import CsrMatrix
 from .spmv import segment_fold
 from .tri import csr_filter_lanes
 
 __all__ = ["csr_ewise_add", "csr_ewise_mult", "csr_apply", "csr_select",
-           "csr_reduce_rows", "csr_reduce_scalar", "host_scalar"]
+           "csr_reduce_rows", "csr_reduce_scalar", "host_scalar",
+           "host_value"]
 
 _BIG = torch.iinfo(torch.int64).max
 
@@ -185,13 +188,28 @@ def csr_reduce_rows(mon: Monoid, A: CsrMatrix):
     return red, deg > 0
 
 
-def host_scalar(r, t: Type):
+def host_scalar(r, t: Type, flag: torch.Tensor = None):
     """A one-element tensor of ``t``'s storage as a numpy scalar of the
-    type's own dtype (a UINT64 value read as unsigned; a dict of them
-    for a user-defined type)."""
+    type's own dtype (a dict of them for a user-defined type), each read
+    through ``host_read`` (site ``reduce_scalar``).  With ``flag``, a
+    one-element bool tensor of a builtin ``t``'s device, the same copy
+    reads it too: (the scalar, ``bool(flag)``)."""
     if t.is_udt:
         return {k: host_scalar(r[k], ft) for k, ft in t.fields}
-    a = r.reshape(1).cpu().numpy()
+    x = r.reshape(1)
+    if flag is None:
+        return host_value(host_read(x, "reduce_scalar", np.ndarray), t)
+    b = host_read(torch.cat([x.view(torch.uint8),
+                             flag.reshape(1).view(torch.uint8)]),
+                  "reduce_scalar", np.ndarray)
+    a = torch.from_numpy(b[:-1].copy()).view(x.dtype).numpy()
+    return host_value(a, t), bool(b[-1])
+
+
+def host_value(a: np.ndarray, t: Type):
+    """The first element of a host array of ``t``'s storage as a numpy
+    scalar of the type's own dtype (a UINT64 value read as
+    unsigned)."""
     if t.is_unsigned:
         a = a.view(t.dtype)
     return a[0]

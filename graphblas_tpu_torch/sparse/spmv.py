@@ -64,11 +64,14 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.ops import cx_extreme
 from ..core.semirings import Semiring
 from ..core.types import (Type, cast, from_ordered, ordered, tree_where,
                           type_of_dtype, type_of_storage, value_take)
+from ..utils import counters
+from ..utils.counters import host_read
 from ..utils.tree import tree_map
 from ..ops.flopcount import record_axb_method
 from . import cuda_spmv
@@ -253,22 +256,26 @@ def _csr_mxv_sparse_x(sr: Semiring, A: CsrMatrix, avals, x_ext, xp_ext,
     ``_udt_mxv_prog``."""
     nrows = A.nrows
     zt = sr.ztype
-    cols = A.indices.long()
+    cols = A.indices
     ident = sr.add.identity_array((), A.device)
     if udt:
         z = sr.mult(avals, value_take(x_ext, cols))
     else:
         z = _mult_apply(sr, avals, x_ext[cols]).to(zt.storage)
-    live = xp_ext[cols] & (A.rowids < nrows)
+    # a padded lane lands in row nrows, which no output keeps
+    live = xp_ext[cols]
     z = tree_where(live, z, ident)
-    seg = A.rowids.clamp(max=nrows)
+    seg = A.rowids.clamp(max=nrows).long()
     y = _reduce_rows(sr, z, seg, nrows)
     hits = torch.zeros(nrows + 1, dtype=torch.int32, device=A.device)
-    hits.index_add_(0, seg.long(), live.to(torch.int32))
+    hits.index_add_(0, seg, live.to(torch.int32))
     ypat = hits[:nrows] > 0
     record_axb_method("spmv:udt" if udt else "spmv:sparse_x")
     if udt:
         return tree_where(ypat, y, ident), ypat
+    if sr.add.identity_value() == 0:
+        # a row with no live lane folded only identities: it holds 0
+        return y, ypat
     return _off_pattern_zero(y, ypat), ypat
 
 
@@ -299,6 +306,7 @@ def _as_storage(x, x_type: Optional[Type], device) -> tuple:
     return torch.from_numpy(np.array(t.to_storage(a))).to(device), t
 
 
+@counters.spanned("gb.engines.spmv")
 def csr_mxv(sr: Semiring, A: CsrMatrix, x, x_pattern=None,
             x_type: Optional[Type] = None):
     """(yvals, ypat) = A *.sr* x.  ``x``: dense [ncols] values (numpy or
@@ -310,23 +318,24 @@ def csr_mxv(sr: Semiring, A: CsrMatrix, x, x_pattern=None,
     entry is finite: its dense tiles would give 0*inf = NaN in every row
     sharing a column block with an inf/NaN entry.  (The JAX package's
     ``csr_mxv`` takes the tiles regardless; ``A._options['bsr_spmv'] =
-    False`` opts a matrix out.)"""
+    False`` opts a matrix out.)  The engines run in the span
+    ``gb.engines.spmv``; the finiteness test is a read
+    (``gb.read.finite_x``)."""
     dev = A.device
     if any(t.is_udt for t in (sr.ztype, sr.xtype, sr.ytype, A.type)):
         return _csr_mxv_udt(sr, A, x, x_pattern)
     x, xt = _as_storage(x, x_type, dev)
     x = cast(x, sr.ytype, xt)
     if (x_pattern is None and cuda_spmv.bsr_spmv_ok(sr, A)
-            and bool(torch.isfinite(x).all())):
+            and host_read(torch.isfinite(x).all(), "finite_x", bool)):
         # dense finite x, dense-enough tiles: the BSR tile kernel
         return cuda_spmv.bsr_spmv(sr, A, x)
     avals = cast(A.values, sr.xtype, A.type)
     # identity slot for padded column indices (sentinel = ncols)
-    x_ext = torch.cat([x, torch.zeros(1, dtype=x.dtype, device=dev)])
+    x_ext = F.pad(x, (0, 1))
     if x_pattern is None:
         return _csr_mxv_dense_x(sr, A, avals, x_ext)
-    xp = torch.as_tensor(x_pattern).to(dev, torch.bool)
-    xp_ext = torch.cat([xp, torch.zeros(1, dtype=torch.bool, device=dev)])
+    xp_ext = F.pad(torch.as_tensor(x_pattern).to(dev, torch.bool), (0, 1))
     return _csr_mxv_sparse_x(sr, A, avals, x_ext, xp_ext)
 
 

@@ -16,7 +16,7 @@ import numpy as np
 
 from ..core.errors import IndexOutOfBounds, InvalidValue
 
-__all__ = ["ALL", "normalize_indices"]
+__all__ = ["ALL", "is_all", "normalize_indices"]
 
 
 class _All:
@@ -27,15 +27,22 @@ class _All:
 ALL = _All()
 
 
+def is_all(I: Any) -> bool:
+    """Whether ``I`` is GrB_ALL (``ALL``, ``None`` or ``":"``)."""
+    return I is None or isinstance(I, _All) or (isinstance(I, str)
+                                                and I == ":")
+
+
 def normalize_indices(I: Any, n: int, unique: bool = False) -> np.ndarray:
     """Resolve an index spec into a 1-D int64 numpy array.
 
     ``unique=True`` dedups (keeping sorted order) for scalar assign
     expansion, matching GB_spec_assign's ``I = unique(I)``.
     """
-    if I is None or isinstance(I, _All) or (isinstance(I, str) and I == ":"):
-        idx = np.arange(n, dtype=np.int64)
-    elif isinstance(I, (int, np.integer)):
+    if is_all(I):
+        # every index once, in order: in range and unique already
+        return np.arange(n, dtype=np.int64)
+    if isinstance(I, (int, np.integer)):
         idx = np.asarray([I], dtype=np.int64)
     elif isinstance(I, slice):
         start = 0 if I.start is None else I.start

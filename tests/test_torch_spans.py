@@ -210,6 +210,49 @@ def test_bfs_reads_levels_plus_one(spans_on):
         assert st["spans"]["gb.entry.bfs_csr"]["count"] == 1
 
 
+@pytest.mark.parametrize("scale", [8, 10])
+def test_warm_bfs5m_sorts_and_copies_nothing_on_the_host(spans_on, scale):
+    """A warm ``models.bfs5m`` on a CsrMatrix: its by-column twin is
+    made on the device (no host sort, no copy, no host pattern read
+    back), and it reads once a level: the successor flag and, in the
+    same two-byte copy, whether the frontier is full, which the next
+    level's ``vxm`` asks.  Only the first level's ``vxm`` reads that
+    itself.  Nothing grows with nnz."""
+    A = _rmat(scale)
+    gt.models.bfs5m(A, 0)
+    for s in (0, 3, 17):
+        counters.reset()
+        v = gt.models.bfs5m(A, s)
+        levels = int(v.values.max())
+        st = counters.stats()
+        assert st["counts"] == {"transpose.entries": A.nvals,
+                                "reads": levels + 1,
+                                "d2h_bytes": 2 * levels}
+        recs = counters.span_records()
+        root = [r for r in recs if r.parent is None]
+        assert _names(root) == ["gb.entry.bfs5m"]
+        assert all(r.root == root[0].id for r in recs)
+        names = set(_names(recs))
+        assert names == {"gb.entry.bfs5m", "gb.containers.transpose",
+                         "gb.engines.bitmap_assign", "gb.engines.spmv",
+                         "gb.engines.bitmap_mask", "gb.read.all_present",
+                         "gb.read.reduce_scalar"}
+        assert st["spans"]["gb.containers.transpose"]["count"] == 1
+        assert st["spans"]["gb.read.all_present"]["count"] == 1
+        assert st["spans"]["gb.read.reduce_scalar"]["count"] == levels
+        assert st["spans"]["gb.engines.spmv"]["count"] == levels
+        np.testing.assert_array_equal(
+            torch.where(v.pattern, v.values, 0).numpy(), gt.bfs_csr(A, s))
+
+
+def test_bfs6_is_its_own_entry(spans_on):
+    A = _rmat(8)
+    counters.reset()
+    gt.models.bfs6(A, 3)
+    roots = [r.name for r in counters.span_records() if r.parent is None]
+    assert roots == ["gb.entry.bfs6"]
+
+
 def test_warm_masked_mxm_reads(spans_on):
     """A masked FP32 ``mxm`` into a fresh CSR C at R-MAT 13 (the valued
     plan refuses, ESC runs): every call reads the exact flop count and

@@ -9,9 +9,14 @@ collapses to one batched dense int8 contraction per block-row:
 
 times the mask panel M_I.  The panels are built on the host in numpy
 from the CSR host pattern, exactly as the JAX package builds them, and
-then moved to the device of the operands.  ``build_window_plan`` and
-``build_band_plan`` return None when the structure is too wide to pay
-(power-law graphs); callers then fall back to the counting engines.
+then moved to the device of the operands.  A container made on the
+device (``csr_tril``, ``csr_triu``, any filtered or computed result)
+keeps no host pattern: the planners then copy its live ``(rowids,
+indices)`` back once and keep the copy to themselves (:func:`_host_coo`).
+``build_window_plan`` and ``build_band_plan`` return None when the
+structure is too wide to pay (power-law graphs); callers then fall back
+to the counting engines.  A plan and a refusal alike are cached on the
+operand, so a warm call plans nothing and copies nothing back.
 
 The per-block partial sums and the masked product panels are computed
 by the kernels of :mod:`cuda_window`; :func:`window_masked_count_sum`
@@ -117,12 +122,25 @@ def _tile_triples(occA, occB, occM) -> int:
                for s in range(0, len(ii), step))
 
 
-def _host_coo(X) -> Optional[Tuple[np.ndarray, np.ndarray, int, int]]:
+def _host_coo(X) -> Tuple[np.ndarray, np.ndarray, int, int]:
     """(rows, cols, nrows, ncols) host pattern of a CsrMatrix, in row
-    order, or None when unavailable without a device copy."""
+    order.  Read from its ``host_pattern`` where it keeps one; a
+    container made on the device keeps none, and then its live
+    ``(rowids, indices)`` are copied back in one read (site
+    ``plan_pattern``, the count ``plan.pattern_from_device``) and kept
+    under ``_options["_plan_pattern"]``, which ties the copy to the
+    container's tensors.  The copy is the planners' own: no
+    ``host_pattern`` is written, so the other engines' gates see the
+    container as before."""
     hp = X._options.get("host_pattern")
     if hp is None:
-        return None
+        hp = X._options.get("_plan_pattern")
+    if hp is None:
+        counters.count("plan.pattern_from_device")
+        hp = counters.host_read(
+            torch.stack([X.rowids[:X.nvals], X.indices[:X.nvals]]),
+            "plan_pattern", np.ndarray)
+        X._options["_plan_pattern"] = hp
     rows, cols = hp
     rows = np.asarray(rows[:X.nvals])
     cols = np.asarray(cols[:X.nvals])
@@ -149,13 +167,10 @@ def build_window_plan(A, B, M) -> Optional[WindowPlan]:
 
 
 def _build_window_plan(A, B, M, key) -> Optional[WindowPlan]:
-    hA, hB, hM = _host_coo(A), _host_coo(B), _host_coo(M)
-    if hA is None or hB is None or hM is None:
-        return None
     counters.count("plan.window.built")
-    ra, ca, m, k = hA
-    rb, cb, nB, kB = hB
-    rm, cm, mM, nM = hM
+    ra, ca, m, k = _host_coo(A)
+    rb, cb, nB, kB = _host_coo(B)
+    rm, cm, mM, nM = _host_coo(M)
     nI = -(-m // T)
     nKb = -(-k // T)
     # per-block-row column window of A
@@ -295,12 +310,9 @@ def build_band_plan(L, U) -> Optional[BandPlan]:
 
 
 def _build_band_plan(L, U, key) -> Optional[BandPlan]:
-    hL, hU = _host_coo(L), _host_coo(U)
-    if hL is None or hU is None:
-        return None
     counters.count("plan.band.built")
-    rl, cl, m, _ = hL
-    ru, cu, mu, _ = hU
+    rl, cl, m, _ = _host_coo(L)
+    ru, cu, mu, _ = _host_coo(U)
     nI = -(-m // T)
     bl, bu = rl // T, ru // T
     # band width in blocks, both directions

@@ -176,22 +176,54 @@ def test_warm_band_count_reads_once(spans_on):
          "gb.read.tri_count"] * 3)
 
 
+def _urand_split(n=4096, deg=6, seed=5):
+    """``csr_tril``/``csr_triu`` of a uniform random symmetric pattern:
+    its band is wider than ``MAX_W_BLOCKS`` blocks and it is too flat
+    for the bitmaps, so the band, window and bitdot plans all refuse."""
+    rng = np.random.default_rng(seed)
+    i, j = rng.integers(0, n, n * deg // 2), rng.integers(0, n, n * deg // 2)
+    keep = i != j
+    key = np.unique(np.concatenate([i[keep] * n + j[keep],
+                                    j[keep] * n + i[keep]]))
+    A = gt.csr_from_coo(key // n, key % n, np.ones(len(key), bool), n, n,
+                        type=gt.BOOL, sum_duplicates=False, device=DEV)
+    return gt.csr_tril(A), gt.csr_triu(A)
+
+
 def test_sort_merge_count_reads(spans_on):
-    """The count of ``csr_tril``/``csr_triu`` (no host pattern, so the
-    band and window plans refuse): the lane total and the count, two
-    reads a warm call."""
-    I, J, X, n = gt.wathen_coo(8, 8, seed=1)
-    A = gt.csr_from_coo(I, J, X, n, n, device=DEV)
-    L, U = gt.csr_tril(A), gt.csr_triu(A)
+    """The count of operands that every plan refuses, each refusal
+    cached: the lane total and the count, two reads a warm call."""
+    L, U = _urand_split()
     want = gt.tricount_auto(L, U)
     counters.reset()
     assert gt.tricount_auto(L, U) == want
     assert gt.last_axb_method() == "tri:sort_merge"
     assert counters.stats()["counts"] == {"reads": 2,
+                                          "plan.band.reused": 1,
+                                          "plan.window.reused": 1,
                                           "plan.bitdot.reused": 1}
     reads = [r.name for r in counters.span_records()
              if r.name.startswith("gb.read.")]
     assert sorted(reads) == ["gb.read.sort_merge_lanes", "gb.read.tri_count"]
+
+
+def test_tril_triu_count_reads_once(spans_on):
+    """The count of ``csr_tril``/``csr_triu`` of a Wathen mesh, as
+    ``tri_demo`` counts: the band plan is built from the lanes copied
+    back once (``gb.read.plan_pattern``, L and U), and a warm call is
+    the band ring with one read."""
+    I, J, X, n = gt.wathen_coo(8, 8, seed=1)
+    A = gt.csr_from_coo(I, J, X, n, n, device=DEV)
+    L, U = gt.csr_tril(A), gt.csr_triu(A)
+    want = gt.tricount_auto(L, U)
+    assert gt.last_axb_method() == "torch:tri_band_ring"
+    assert counters.stats()["spans"]["gb.read.plan_pattern"]["count"] == 2
+    counters.reset()
+    assert gt.tricount_auto(L, U) == want
+    assert counters.stats()["counts"] == {"reads": 1, "plan.band.reused": 1}
+    assert sorted(_names(counters.span_records())) == sorted(
+        ["gb.entry.tricount_auto", "gb.engines.band_ring",
+         "gb.read.tri_count"])
 
 
 def test_bfs_reads_levels_plus_one(spans_on):

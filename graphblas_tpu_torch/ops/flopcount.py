@@ -16,11 +16,15 @@ port name back to the JAX package's name.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
-__all__ = ["axb_flopcount", "choose_axb_method", "last_axb_method",
+from ..utils import counters
+
+__all__ = ["axb_flopcount", "choose_axb_method", "csr_flopcount",
+           "entry_lanes", "flop_blocks", "last_axb_method",
            "record_axb_method", "jax_engine_name"]
 
 _LAST_METHOD = {"method": None}
@@ -28,7 +32,6 @@ _LAST_METHOD = {"method": None}
 
 def record_axb_method(method: str) -> None:
     _LAST_METHOD["method"] = method
-    from ..utils import counters
     counters.record_method(method)
 
 
@@ -59,6 +62,46 @@ def axb_flopcount(A_pattern, B_pattern, M_pattern=None) -> int:
         mcol = np.asarray(M_pattern).any(axis=0)
         Bp = Bp[:, mcol] if mcol.ndim == 1 else Bp
     return int((Bp.T.astype(np.int64) @ acol).sum())
+
+
+def entry_lanes(A, B) -> torch.Tensor:
+    """The lanes of the CSR product A·B per slot of A: B's row degree at
+    the slot's column id (int64, on A's device), 0 on a padded slot.
+    Their sum is the product's flop count (``GB_AxB_flopcount.c``);
+    their cumulative sum places each entry's lanes and slices A into
+    flop-balanced blocks (:func:`flop_blocks`)."""
+    lanes = torch.zeros(A.nzmax, dtype=torch.int64, device=A.device)
+    lanes[:A.nvals] = B.row_degrees().index_select(0, A.indices[:A.nvals])
+    return lanes
+
+
+def csr_flopcount(A, B) -> int:
+    """The exact flop count of A·B over CSR operands, on their device:
+    the sum of :func:`entry_lanes`, then one scalar read (``reads``, the
+    span ``gb.read.flopcount``) and one ``flopcount.exact``.  The sum is
+    int64, which the count needs: it passes 2^31 on a Kronecker graph
+    of scale 20."""
+    counters.count("flopcount.exact")
+    return counters.host_read(entry_lanes(A, B).sum(), "flopcount")
+
+
+def flop_blocks(csum: np.ndarray, cap: int) -> List[Tuple[int, int]]:
+    """Contiguous A-entry blocks ``[s, e)`` at flop-balanced bounds (the
+    slicing plan of ``GB_AxB_parallel.c:52-59``), from the host
+    cumulative lane count ``csum`` of :func:`entry_lanes`: each block
+    holds at most ``cap`` lanes, except a single entry with more, which
+    is a block of its own.  The blocks end with the last lane."""
+    nz = len(csum)
+    total = int(csum[-1]) if nz else 0
+    bounds = [0]
+    prev = 0
+    while bounds[-1] < nz and prev < total:
+        s = bounds[-1]
+        nxt = int(np.searchsorted(csum, prev + cap, side="right"))
+        nxt = min(max(nxt, s + 1), nz)
+        bounds.append(nxt)
+        prev = int(csum[nxt - 1])
+    return list(zip(bounds[:-1], bounds[1:]))
 
 
 # the JAX package's cost model constants (ops/sec), not measured on

@@ -74,7 +74,7 @@ from ..utils.tree import tree_map
 from .containers import (UnsupportedContainer, require_container,
                          to_bitmap_operand, to_csr_operand, to_hyper_operand,
                          vec_hyper_operand)
-from .flopcount import choose_axb_method, record_axb_method
+from .flopcount import choose_axb_method, csr_flopcount, record_axb_method
 
 __all__ = ["mxm", "mxv", "vxm", "semiring_mm"]
 
@@ -295,18 +295,6 @@ def semiring_mm(sr: Semiring, Av, Ap, Bv, Bp, method_hint=None,
     vals = tree_where(tpat, cast_result(vals, zt),
                       zeros_like_typed((), zt, dev))
     return vals, tpat, method
-
-
-def csr_flopcount(A, B) -> int:
-    """The exact flop count of A·B over CSR operands
-    (``GB_AxB_flopcount.c``), on their device: B's row degrees gathered
-    at A's column ids and summed, then one scalar read (``reads``, the
-    span ``gb.read.flopcount``) and one ``flopcount.exact``.  torch.sum
-    of an integer tensor gives int64, which the count needs: it passes
-    2^31 on a Kronecker graph of scale 20."""
-    counters.count("flopcount.exact")
-    flops = B.row_degrees().index_select(0, A.indices[:A.nvals]).sum()
-    return counters.host_read(flops, "flopcount")
 
 
 def _mxm_sparse(C, M, accum, sr: Semiring, A, B, d: Descriptor):

@@ -376,12 +376,9 @@ def build_bitdot_plan(M: CsrMatrix, A: CsrMatrix, B: CsrMatrix,
     keep = np.zeros(A.nzmax, bool)
     keep[:A.nvals] = ~sel_any[a_cols]
     A_light = _shrink(csr_filter_lanes(A, torch.from_numpy(keep)))
-    # hand the residual its host pattern (same order as the device
-    # compaction) so the sort-merge engine can row-slice the mask
-    lk = keep[:A.nvals]
-    A_light._options["host_pattern"] = (a_rows[lk], a_cols[lk])
     light_eids = None
     if keep_entry_lists:
+        lk = keep[:A.nvals]
         le = np.zeros(A_light.nzmax, np.int32)
         le[:int(lk.sum())] = np.nonzero(lk)[0]
         light_eids = torch.from_numpy(le).to(A.device)

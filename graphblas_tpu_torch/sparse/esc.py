@@ -24,10 +24,10 @@ The JAX package's running-maximum pass (``lax.cummax``) over the mask
 keys is a gather here: the keys are sorted, so the running maximum at a
 lane is the key of mask entry ``cumsum(is_mask) - 1``.
 
-Capacity planning reads two scalars on a cold call (the flop total, from
-the host patterns when present, and the output nnz); both are kept in a
-per-(A, B, mask) plan cache with the expansion carries, so warm calls
-read nothing back.
+Capacity planning reads two scalars on a cold call (the flop total, the
+sum of :func:`~graphblas_tpu_torch.ops.flopcount.entry_lanes`, and the
+output nnz); both are kept in a per-(A, B, mask) plan cache with the
+expansion carries, so warm calls read nothing back.
 
 Values of a user-defined type ride the engine field by field: every
 leaf is gathered by the same lanes and permuted by the same stable key
@@ -51,7 +51,7 @@ from ..core.errors import DimensionMismatch
 from ..core.semirings import Semiring
 from ..core.types import (Type, cast, cast_result, tree_where, value_take,
                           zeros_like_typed)
-from ..ops.flopcount import record_axb_method
+from ..ops.flopcount import entry_lanes, flop_blocks, record_axb_method
 from ..utils import counters, faultinject
 from ..utils.counters import host_read
 from ..utils.tree import tree_map
@@ -102,22 +102,13 @@ def _mask_keys(M: CsrMatrix, n: int, kdt, big: int,
     return torch.sort(keys).values
 
 
-def _carries(A: CsrMatrix, B: CsrMatrix):
+def _carries(A: CsrMatrix, B: CsrMatrix, lanes: torch.Tensor):
     """Per-entry expansion carries of the A entries with >= 1 lane
-    (pattern-only; cached in the plan): entry id, lane count, and the
-    B position of its first lane."""
-    k = A.ncols
-    dev = A.device
-    degB = torch.cat([(B.indptr[1:] - B.indptr[:-1]).long(),
-                      torch.zeros(1, dtype=torch.int64, device=dev)])
-    acol = A.indices.long().clamp(max=k)
-    lens = degB[acol]                 # padded entries hit the 0 sentinel
-    lens = torch.where(torch.arange(A.nzmax, device=dev) < A.nvals,
-                       lens, 0)
-    eid = torch.nonzero(lens > 0).flatten()
-    bstart = torch.cat([B.indptr.long(),
-                        torch.zeros(1, dtype=torch.int64, device=dev)])
-    return eid, lens[eid], bstart[acol[eid]]
+    (pattern-only; cached in the plan): entry id, lane count (from
+    ``lanes``, :func:`entry_lanes`), and the B position of its first
+    lane."""
+    eid = torch.nonzero(lanes > 0).flatten()
+    return eid, lanes[eid], B.indptr.long()[A.indices[eid].long()]
 
 
 def _expand(carries, total: int):
@@ -267,19 +258,19 @@ def csr_spgemm(sr: Semiring, A: CsrMatrix, B: CsrMatrix,
     if flops is None:
         counters.count("plan.esc.built")
         with counters.span("gb.planning.esc_plan"):
-            flops = _flop_total(A, B)
+            lanes = entry_lanes(A, B)
+            flops = host_read(lanes.sum(), "esc_flops")
     else:
         counters.count("plan.esc.reused")
     if flops == 0 or (mask is not None and not complement
                       and mask.nvals == 0):
         return _empty_csr(m, n, zt, A.device)
     if flops > _ESC_LANE_CAP:
-        return _csr_spgemm_chunked(sr, A, B, mask, complement, structural,
-                                   flops)
+        return _csr_spgemm_chunked(sr, A, B, mask, complement, structural)
     E = _bucket4(flops)
-    if carries is None:
+    if carries is None:              # a plan build: lanes made above
         with counters.span("gb.planning.esc_plan"):
-            carries = _carries(A, B)
+            carries = _carries(A, B, lanes)
 
     with counters.span("gb.engines.esc"):
         has_mask = mask is not None
@@ -301,24 +292,9 @@ def csr_spgemm(sr: Semiring, A: CsrMatrix, B: CsrMatrix,
     return CsrMatrix(indptr, oj[:cap], oi[:cap], tree_map(lambda v: v[:cap], ov), nnz, m, n, zt)
 
 
-def _flop_total(A: CsrMatrix, B: CsrMatrix) -> int:
-    """The product's lane count: from the build-time host patterns when
-    both operands keep them, else from the device (one scalar read)."""
-    k = A.ncols
-    hpA = A._options.get("host_pattern")
-    hpB = B._options.get("host_pattern")
-    if hpA is not None and hpB is not None:
-        degB = np.bincount(hpB[0][:B.nvals], minlength=k)
-        return int(degB[hpA[1][:A.nvals]].sum())
-    degB = torch.cat([(B.indptr[1:] - B.indptr[:-1]).long(),
-                      torch.zeros(1, dtype=torch.int64, device=A.device)])
-    lens = degB[A.indices.long().clamp(max=k)][:A.nvals]
-    return host_read(lens.sum(), "esc_flops")
-
-
 def _csr_spgemm_chunked(sr: Semiring, A: CsrMatrix, B: CsrMatrix,
-                        mask, complement: bool, structural: bool,
-                        flops: int) -> CsrMatrix:
+                        mask, complement: bool,
+                        structural: bool) -> CsrMatrix:
     """Huge products: contiguous A-entry blocks at flop-balanced
     boundaries (the GB_AxB_parallel.c:52-59 slicing plan), each block
     through the one-program engine, partials merged pairwise with the
@@ -337,31 +313,11 @@ def _csr_spgemm_chunked(sr: Semiring, A: CsrMatrix, B: CsrMatrix,
         if rb() is B.indices and rm() is mask_buf:
             blocks = blocks_c
     if blocks is None:
-        hpA = A._options.get("host_pattern")
-        hpB = B._options.get("host_pattern")
-        if hpA is not None and hpB is not None:
-            degB = np.bincount(hpB[0][:B.nvals],
-                               minlength=k).astype(np.int64)
-            csum = np.cumsum(degB[hpA[1][:A.nvals]])
-        else:
-            degB = host_read((B.indptr[1:] - B.indptr[:-1]).long(),
-                             "esc_block_degrees", np.ndarray)
-            acol = host_read(A.indices[:A.nvals].long(), "esc_block_cols",
-                             np.ndarray)
-            csum = np.cumsum(degB[acol])
-        nz = len(csum)
-        bounds = [0]
-        prev = 0
-        while bounds[-1] < nz and prev < flops:
-            s0 = bounds[-1]
-            nxt = int(np.searchsorted(csum, prev + _ESC_LANE_CAP,
-                                      side="right"))
-            nxt = min(max(nxt, s0 + 1), nz)
-            bounds.append(nxt)
-            prev = int(csum[nxt - 1])
+        csum = host_read(torch.cumsum(entry_lanes(A, B)[:A.nvals], 0),
+                         "esc_block_lanes", np.ndarray)
         blocks = []
         dev = A.device
-        for s0, e0 in zip(bounds[:-1], bounds[1:]):
+        for s0, e0 in flop_blocks(csum, _ESC_LANE_CAP):
             cap = _bucket(max(e0 - s0, 8), 128)
             pad = cap - (e0 - s0)
             blk = CsrMatrix(
@@ -376,9 +332,6 @@ def _csr_spgemm_chunked(sr: Semiring, A: CsrMatrix, B: CsrMatrix,
                     v[s0:e0], torch.zeros(pad, dtype=v.dtype, device=dev)]),
                     A.values),
                 e0 - s0, m, A.ncols, A.type)
-            if hpA is not None:
-                blk._options["host_pattern"] = (hpA[0][s0:e0],
-                                                hpA[1][s0:e0])
             blocks.append(blk)
         A._options[ckey] = (_ref(B.indices), _ref(mask_buf), blocks)
     out = None

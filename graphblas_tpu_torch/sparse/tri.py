@@ -34,7 +34,7 @@ import torch
 from ..utils.tree import tree_map
 
 from ..core.errors import DimensionMismatch
-from ..ops.flopcount import record_axb_method
+from ..ops.flopcount import entry_lanes, flop_blocks, record_axb_method
 from ..utils import counters
 from ..utils.counters import host_read
 from .container import CsrMatrix
@@ -53,11 +53,14 @@ _LANE_CAP = 1 << 26
 _BIGKEY = (1 << 62) - 1
 
 
-def _counts_block(ncolsA: int, a_indices, a_rowids, b_indptr, b_indices,
-                  m_rowids, m_indices, m_nvals: int, n_out: int,
-                  flops: int) -> torch.Tensor:
+def _counts_block(ncolsA: int, a_indices, a_rowids, lanes, starts,
+                  b_indptr, b_indices, m_rowids, m_indices, m_nvals: int,
+                  n_out: int, flops: int) -> torch.Tensor:
     """Masked pair counts of one block of A entries against the mask
-    slice (m_rowids, m_indices); ``flops`` is the block's lane count.
+    slice (m_rowids, m_indices); ``lanes`` are the block's entries' lane
+    counts (:func:`entry_lanes`), ``starts`` the lane, counted from the
+    block's first, at which each entry's lanes begin, ``flops`` their
+    total.
 
     Expansion: lane t of A entry a reads B entry indptr[k_a] + t - start_a
     and gets key i_a * n_out + j.  Membership: the mask keys (tagged even)
@@ -68,14 +71,10 @@ def _counts_block(ncolsA: int, a_indices, a_rowids, b_indptr, b_indices,
     or before the lane, less one."""
     dev = a_indices.device
     nzM = m_indices.shape[0]
-    degB = torch.cat([(b_indptr[1:] - b_indptr[:-1]).long(),
-                      torch.zeros(1, dtype=torch.int64, device=dev)])
-    acol = a_indices.long().clamp(max=ncolsA)
-    lens = degB[acol]                 # padded entries hit the 0 sentinel
     ent = torch.repeat_interleave(
-        torch.arange(a_indices.shape[0], device=dev), lens,
+        torch.arange(a_indices.shape[0], device=dev), lanes,
         output_size=flops)            # lane -> A entry
-    starts = torch.cumsum(lens, 0) - lens
+    acol = a_indices.long().clamp(max=ncolsA)   # padded: no lane reads it
     pos = (b_indptr.long()[acol][ent] - starts[ent]
            + torch.arange(flops, device=dev))
     key = a_rowids.long()[ent] * n_out + b_indices.long()[pos]
@@ -95,16 +94,6 @@ def _counts_block(ncolsA: int, a_indices, a_rowids, b_indptr, b_indices,
     return torch.where(m_live, counts, 0).to(torch.int32)
 
 
-def _entry_flops_csum(A: CsrMatrix, B: CsrMatrix) -> torch.Tensor:
-    """int64 cumulative lane count per A entry (padded entries add 0)."""
-    degB = torch.cat([(B.indptr[1:] - B.indptr[:-1]).long(),
-                      torch.zeros(1, dtype=torch.int64, device=A.device)])
-    lens = degB[A.indices.long().clamp(max=A.ncols)]
-    lens = torch.where(torch.arange(A.nzmax, device=A.device) < A.nvals,
-                       lens, 0)
-    return torch.cumsum(lens, 0)
-
-
 @counters.spanned("gb.engines.sort_merge")
 def masked_pair_counts(M: CsrMatrix, A: CsrMatrix, B: CsrMatrix,
                        chunk: int = _LANE_CAP) -> torch.Tensor:
@@ -120,59 +109,43 @@ def masked_pair_counts(M: CsrMatrix, A: CsrMatrix, B: CsrMatrix,
     n = B.ncols
     if M.shape != (m, n):
         raise DimensionMismatch(f"mask {M.shape} vs product {(m, n)}")
-    csum = _entry_flops_csum(A, B)
+    lanes = entry_lanes(A, B)
+    csum = torch.cumsum(lanes, 0)
     flops = host_read(csum[-1], "sort_merge_lanes") if A.nzmax else 0
     if flops == 0 or M.nvals == 0:
         return torch.zeros(M.nzmax, dtype=torch.int32, device=M.device)
     cap = max(min(chunk, _LANE_CAP), 1 << 14)
     if flops <= cap:
-        return _counts_block(k, A.indices, A.rowids, B.indptr, B.indices,
-                             M.rowids, M.indices, M.nvals, n, flops)
+        return _counts_block(k, A.indices, A.rowids, lanes, csum - lanes,
+                             B.indptr, B.indices, M.rowids, M.indices,
+                             M.nvals, n, flops)
 
-    # Host split: contiguous A-entry blocks of <= cap lanes each (a
-    # block is never empty, so a single entry with more than `cap`
-    # lanes still goes through as its own block).
-    csum = host_read(csum, "sort_merge_blocks", np.ndarray)
-    nz = A.nzmax
-    bounds = [0]
-    prev = 0
-    while bounds[-1] < nz and prev < flops:
-        s = bounds[-1]
-        nxt = int(np.searchsorted(csum, prev + cap, side="right"))
-        nxt = min(max(nxt, s + 1), nz)
-        bounds.append(nxt)
-        prev = int(csum[nxt - 1])
-    blocks = list(zip(bounds[:-1], bounds[1:]))
-
-    # mask row-slicing: a block covers a contiguous A-entry (= row)
-    # range, and its counts can only land on mask entries in those rows,
-    # so each block sorts only that slice of the mask
-    hpA = A._options.get("host_pattern")
-    hpM = M._options.get("host_pattern")
+    # Host split: contiguous A-entry blocks of <= cap lanes each.  A
+    # block covers a contiguous range of A's rows, so its counts land
+    # only on the mask entries of those rows: each block sorts that
+    # slice of the mask, M.indptr[first row] : M.indptr[last row + 1],
+    # all blocks' bounds gathered on the card and read at once.
+    csum_h = host_read(csum, "sort_merge_blocks", np.ndarray)
+    blocks = flop_blocks(csum_h, cap)
+    edges = counters.to_device(np.array(
+        [[s for s, _ in blocks], [e - 1 for _, e in blocks]],
+        dtype=np.int64), A.device)
+    rows = A.rowids.long()[edges.clamp(max=A.nvals - 1)]
+    mptr = M.indptr.long()
+    slices = host_read(torch.stack([mptr[rows[0]], mptr[rows[1] + 1]]),
+                       "sort_merge_mask_slices", np.ndarray)
+    first = csum - lanes
     counts = torch.zeros(M.nzmax, dtype=torch.int32, device=M.device)
-    use_slice = hpA is not None and hpM is not None and len(blocks) > 1
-    if use_slice:
-        a_rows_h = np.asarray(hpA[0][:A.nvals])
-        m_rows_h = np.asarray(hpM[0][:M.nvals])
-    for s, e in blocks:
-        blk_flops = int(csum[e - 1]) - (int(csum[s - 1]) if s else 0)
-        if blk_flops == 0:
+    for (s, e), ms, me in zip(blocks, slices[0].tolist(),
+                              slices[1].tolist()):
+        base = int(csum_h[s - 1]) if s else 0
+        blk_flops = int(csum_h[e - 1]) - base
+        if blk_flops == 0 or me == ms:
             continue
-        ai, ar = A.indices[s:e], A.rowids[s:e]
-        if use_slice:
-            r0 = a_rows_h[min(s, A.nvals - 1)]
-            r1 = a_rows_h[min(e - 1, A.nvals - 1)]
-            ms = int(np.searchsorted(m_rows_h, r0, side="left"))
-            me = int(np.searchsorted(m_rows_h, r1, side="right"))
-            if me == ms:
-                continue
-            counts[ms:me] += _counts_block(
-                k, ai, ar, B.indptr, B.indices, M.rowids[ms:me],
-                M.indices[ms:me], me - ms, n, blk_flops)
-        else:
-            counts += _counts_block(k, ai, ar, B.indptr, B.indices,
-                                    M.rowids, M.indices, M.nvals, n,
-                                    blk_flops)
+        counts[ms:me] += _counts_block(
+            k, A.indices[s:e], A.rowids[s:e], lanes[s:e],
+            first[s:e] - base, B.indptr, B.indices, M.rowids[ms:me],
+            M.indices[ms:me], me - ms, n, blk_flops)
     return counts
 
 

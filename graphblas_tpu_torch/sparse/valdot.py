@@ -384,8 +384,6 @@ def build_valdot_plan(M: CsrMatrix, A: CsrMatrix, B: CsrMatrix,
     keep = np.zeros(A.nzmax, bool)
     keep[:A.nvals] = ~sel_any[a_cols]
     A_light = _bd._shrink(csr_filter_lanes(A, torch.from_numpy(keep)))
-    lk = keep[:A.nvals]
-    A_light._options["host_pattern"] = (a_rows[lk], a_cols[lk])
     return ValdotPlan(A_light, level_cols, sel_end, covered_all,
                       total - covered_all, tuple(levels), cnt_total,
                       finite_ok)

@@ -31,6 +31,7 @@ from graphblas_tpu_torch.core import ops as tops
 from graphblas_tpu_torch.core import semirings as tsr
 from graphblas_tpu_torch.sparse import esc as tesc
 from graphblas_tpu_torch.sparse import spmv as tspmv
+from graphblas_tpu_torch.utils import counters
 
 
 def _tuples(rng, m, n, density, tname):
@@ -239,11 +240,13 @@ def test_esc_plan_cache_valued_mask_invalidation():
     assert C2.nvals < C1.nvals
 
 
+@pytest.mark.parametrize("host_pattern", [True, False])
 @pytest.mark.parametrize("masked", [False, True])
-def test_chunked_matches_single_program(monkeypatch, masked):
+def test_chunked_matches_single_program(monkeypatch, masked, host_pattern):
     """Flop totals beyond the lane cap split into A-entry blocks whose
     partials monoid-merge to the same result (cap patched in both
-    packages)."""
+    packages).  Operands with and without a host pattern take one path:
+    the same reads, one of them the blocks' cumulative lane count."""
     r = np.random.default_rng(99)
     n = 400
     I, J, _ = _tuples(r, n, n, 6000 / n / n, "FP32")
@@ -260,8 +263,21 @@ def test_chunked_matches_single_program(monkeypatch, masked):
     monkeypatch.setattr(tesc, "_ESC_LANE_CAP", 1 << 14)
     monkeypatch.setattr(jesc, "_ESC_LANE_CAP", 1 << 14)
     A2j, A2t = both(I, J, va, n, n, "FP32")
-    got = tesc.csr_spgemm(srt, A2t, Bt, mask=mt)
+    if not host_pattern:
+        del A2t._options["host_pattern"], Bt._options["host_pattern"]
+    counters.reset()
+    counters.trace_spans(True)
+    try:
+        got = tesc.csr_spgemm(srt, A2t, Bt, mask=mt)
+    finally:
+        counters.trace_spans(False)
     assert gt.last_axb_method() == "esc:chunked"
+    nb = len(A2t._options["_spgemm_chunks"][2])
+    assert nb > 1
+    assert {name: sp["count"] for name, sp in counters.stats()[
+        "spans"].items() if name.startswith("gb.read.")} == {
+        "gb.read.esc_flops": 1 + nb, "gb.read.esc_block_lanes": 1,
+        "gb.read.esc_nnz": nb, "gb.read.esc_merge_nnz": nb - 1}
     want = jesc.csr_spgemm(srj, A2j, Bj, mask=mj)
     assert jax_last_method() == "esc:chunked"
     assert_same_csr(got, want)

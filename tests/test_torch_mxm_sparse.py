@@ -322,12 +322,16 @@ def _flop_operands(case, device="cpu"):
     return Aj, Bj, At, Bt
 
 
-def _numpy_flops(A, B) -> int:
-    """The host formula the device count replaced."""
+def _numpy_lanes(A, B) -> np.ndarray:
+    """The host formula the device count replaced, per live A entry: B's
+    row degree at the entry's column id."""
     hpA, hpB = A._options["host_pattern"], B._options["host_pattern"]
     k = A.ncols
-    return int(np.bincount(hpB[0][:B.nvals], minlength=k + 1)[
-        hpA[1][:A.nvals]].sum())
+    return np.bincount(hpB[0][:B.nvals], minlength=k + 1)[hpA[1][:A.nvals]]
+
+
+def _numpy_flops(A, B) -> int:
+    return int(_numpy_lanes(A, B).sum())
 
 
 @pytest.mark.parametrize("case", sorted(FLOP_CASES))
@@ -335,7 +339,7 @@ def test_device_flopcount_matches_numpy(case):
     """``csr_flopcount`` on the CSR arrays equals the numpy formula over
     the host patterns, padding sentinels and empty operands included, on
     the CPU and on a card where one is present."""
-    from graphblas_tpu_torch.ops.mxm import csr_flopcount
+    from graphblas_tpu_torch.ops.flopcount import csr_flopcount
     devices = ["cpu"] + (["cuda"] if torch.cuda.is_available() else [])
     for dev in devices:
         _, _, A, B = _flop_operands(case, dev)
@@ -347,6 +351,39 @@ def test_device_flopcount_matches_numpy(case):
         assert got == _numpy_flops(A, B)
         assert counters.stats()["counts"] == {"flopcount.exact": 1,
                                               "reads": 1}
+
+
+@pytest.mark.parametrize("case", sorted(FLOP_CASES))
+def test_entry_lanes_and_flop_blocks(case):
+    """``entry_lanes`` equals the numpy formula per entry (0 on padded
+    slots), and ``flop_blocks`` over its cumulative sum gives contiguous
+    blocks from entry 0 that hold every lane, each within the cap unless
+    it is a single entry, on the CPU and on a card where one is
+    present."""
+    from graphblas_tpu_torch.ops.flopcount import entry_lanes, flop_blocks
+    devices = ["cpu"] + (["cuda"] if torch.cuda.is_available() else [])
+    for dev in devices:
+        _, _, A, B = _flop_operands(case, dev)
+        lanes = entry_lanes(A, B)
+        assert lanes.dtype == torch.int64 and lanes.shape == (A.nzmax,)
+        assert lanes.device == A.indices.device
+        lanes = lanes.cpu().numpy()
+        assert np.array_equal(lanes[:A.nvals], _numpy_lanes(A, B))
+        assert not lanes[A.nvals:].any()
+        csum = np.cumsum(lanes)
+        total = _numpy_flops(A, B)
+        for cap in sorted({1, 5, max(1, total // 4), max(1, total)}):
+            blocks = flop_blocks(csum, cap)
+            if total == 0:
+                assert blocks == []
+                continue
+            assert blocks[0][0] == 0 and blocks[-1][1] <= A.nzmax
+            assert all(e0 == s1 for (_, e0), (s1, _) in zip(blocks,
+                                                            blocks[1:]))
+            per = [int(lanes[s:e].sum()) for s, e in blocks]
+            assert sum(per) == total
+            assert all(e > s and (p <= cap or e - s == 1)
+                       for (s, e), p in zip(blocks, per))
 
 
 @pytest.mark.parametrize("case", sorted(FLOP_CASES))

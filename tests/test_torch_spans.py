@@ -288,7 +288,9 @@ def test_bfs6_is_its_own_entry(spans_on):
 def test_warm_masked_mxm_reads(spans_on):
     """A masked FP32 ``mxm`` into a fresh CSR C at R-MAT 13 (the valued
     plan refuses, ESC runs): every call reads the exact flop count and
-    the epilogue's nnz; the cold call ESC's nnz besides."""
+    the epilogue's nnz; the cold call ESC's plan besides: its lane total
+    (the sum of ``entry_lanes``, read from the card whether or not the
+    operands keep a host pattern) and its nnz."""
     n = 1 << 13
     L, U = gt.tricount_prep_csr(_rmat(13))
     rng = np.random.default_rng(0)
@@ -309,7 +311,7 @@ def test_warm_masked_mxm_reads(spans_on):
         assert gt.last_axb_method() == "esc:csr_spgemm"
         return counters.stats()
     cold, warm, warm2 = call(), call(), call()
-    assert cold["counts"]["reads"] == 3
+    assert cold["counts"]["reads"] == 4
     assert cold["counts"]["plan.esc.built"] == 1
     assert cold["counts"]["flopcount.exact"] == 1
     assert warm["counts"] == warm2["counts"] == {

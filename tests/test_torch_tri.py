@@ -13,7 +13,9 @@ import graphblas_tpu as gb
 from graphblas_tpu import sparse as jsp
 from graphblas_tpu.sparse import tri as jtri
 import graphblas_tpu_torch as gt
+from graphblas_tpu_torch.ops.flopcount import entry_lanes
 from graphblas_tpu_torch.sparse import tri as ttri
+from graphblas_tpu_torch.utils import counters
 
 
 def _sym(seed, n, nedges):
@@ -86,13 +88,24 @@ def test_split_blocks_match_jax(slice_mask):
     I, J = _sym(3, 300, 4000)
     At, Aj = _both(I, J, 300)
     if not slice_mask:
-        # a filtered copy has no host pattern: every block counts
-        # against the whole mask instead of its row slice
+        # a filtered copy keeps no host pattern: its blocks slice the
+        # mask by rows all the same, with the same reads
         At = ttri.csr_filter_lanes(At, torch.ones(At.nzmax, dtype=bool))
         Aj = jtri.csr_filter_lanes(Aj, np.ones(Aj.nzmax, bool))
-    flops = int(ttri._entry_flops_csum(At, At)[-1])
+    flops = int(entry_lanes(At, At).sum())
     assert flops > 4 * (1 << 14)
-    got = ttri.masked_pair_counts(At, At, At, chunk=1)
+    counters.reset()
+    counters.trace_spans(True)
+    try:
+        got = ttri.masked_pair_counts(At, At, At, chunk=1)
+    finally:
+        counters.trace_spans(False)
+    st = counters.stats()
+    assert st["counts"]["reads"] == 3
+    assert {name: sp["count"] for name, sp in st["spans"].items()
+            if name.startswith("gb.read.")} == {
+        "gb.read.sort_merge_lanes": 1, "gb.read.sort_merge_blocks": 1,
+        "gb.read.sort_merge_mask_slices": 1}
     whole = ttri.masked_pair_counts(At, At, At)
     want = np.asarray(jtri.masked_pair_counts(Aj, Aj, Aj, chunk=1))
     assert np.array_equal(got.numpy(), want)

@@ -11,18 +11,17 @@ expand-sort-compress formulation of the reference's Gustavson engine
      the per-entry B-row degrees (the flop enumeration of
      ``GB_AxB_flopcount.c``), its B entry by offset into B's row;
   2. *sort*: lanes are keyed by output coordinate i*n+j and sorted
-     (stable); masked-out and padded lanes fall to the tail.  The mask
-     is applied before the fold: its sorted keys ride the same sort,
-     tagged to land just before their lanes, and a lane belongs to the
-     mask when the mask key sorted last before it equals its own;
+     (stable).  The mask is applied before the sort: a CSR stores its
+     keys ascending, so a lane's membership is a binary search in the
+     mask's keys as stored, and a lane outside the effective mask takes
+     a key past every output coordinate and falls to the tail.  No mask
+     key enters the sort (the JAX package merges the mask's sorted keys
+     into it and takes a running maximum, ``lax.cummax``);
   3. *compress*: segment heads mark unique output coordinates; the add
      monoid folds each segment (named monoids scatter-reduce; any other
      associative op takes a segmented scan), and head lanes compact to
-     the padded output.
-
-The JAX package's running-maximum pass (``lax.cummax``) over the mask
-keys is a gather here: the keys are sorted, so the running maximum at a
-lane is the key of mask entry ``cumsum(is_mask) - 1``.
+     the padded output.  A masked-out lane is a segment of its own, so
+     the fold puts no two of them on one slot.
 
 Capacity planning reads two scalars on a cold call (the flop total, the
 sum of :func:`~graphblas_tpu_torch.ops.flopcount.entry_lanes`, and the
@@ -87,19 +86,28 @@ def _bucket4(x: int, lo: int = 1024) -> int:
     return c
 
 
-def _mask_keys(M: CsrMatrix, n: int, kdt, big: int,
-               structural: bool = False) -> torch.Tensor:
-    """Sorted truthy-entry keys of the mask (padded lanes -> big)."""
-    dev = M.device
-    live = torch.arange(M.nzmax, device=dev) < M.nvals
+def _mask_keys(M: CsrMatrix, n: int, kdt, structural: bool = False):
+    """(keys, selects) of the mask in storage order.  A CSR stores its
+    entries by row, then column, and pads with (nrows, ncols), so the
+    keys ascend as stored and need no sort; a slot selects when it is
+    live and, for a valued mask, nonzero."""
+    sel = torch.arange(M.nzmax, device=M.device) < M.nvals
     if not structural:
         if M.type.is_udt:
             raise TypeError("a mask with user-defined values is not valid; "
                             "use a structural mask")
-        live = live & (M.values != 0)
-    keys = M.rowids.to(kdt) * n + M.indices.to(kdt)
-    keys = torch.where(live, keys, big)
-    return torch.sort(keys).values
+        sel = sel & (M.values != 0)
+    return M.rowids.to(kdt) * n + M.indices.to(kdt), sel
+
+
+def _in_mask(m_keys: torch.Tensor, m_sel: torch.Tensor,
+             keys: torch.Tensor) -> torch.Tensor:
+    """Whether each key is a selecting entry of the mask: a binary search
+    in the mask's ascending keys, then the selection at the slot found."""
+    if m_keys.shape[0] == 0:
+        return torch.zeros(keys.shape, dtype=torch.bool, device=keys.device)
+    idx = torch.searchsorted(m_keys, keys).clamp_(max=m_keys.shape[0] - 1)
+    return (m_keys[idx] == keys) & m_sel[idx]
 
 
 def _carries(A: CsrMatrix, B: CsrMatrix, lanes: torch.Tensor):
@@ -121,19 +129,15 @@ def _expand(carries, total: int):
     return ec, first + torch.arange(total, device=dev)
 
 
-def _esc_core(sr: Semiring, E: int, m: int, n: int, has_mask: bool,
-              complement: bool, kdt, carries, total: int,
-              a_rowids, a_values, b_indices, b_values, m_keys,
-              atype: Type, btype: Type):
-    """One program of the engine over ``total`` lanes; returns
-    (indptr, indices, rowids, values, nnz tensor) with EO+1 slots, EO =
-    E (the lane bucket) plus the mask's length: the JAX package's
-    output layout."""
+def _esc_core(sr: Semiring, E: int, m: int, n: int, complement: bool,
+              kdt, carries, total: int, a_rowids, a_values, b_indices,
+              b_values, m_keys, m_sel, atype: Type, btype: Type):
+    """One program of the engine over ``total`` lanes, masked when
+    ``m_keys`` is given (:func:`_mask_keys`); returns (indptr, indices,
+    rowids, values, nnz tensor) with E+1 slots (E: the lane bucket).
+    Counts the lanes that enter the key sort (``esc.sorted_lanes``)."""
     dev = a_rowids.device
-    intmax = torch.iinfo(kdt).max
-    # bigbase survives the *2+1 tag encoding of the mask merge
-    bigbase = intmax // 2 - 1
-    big = intmax
+    big = torch.iinfo(kdt).max
     sent = m * n                      # output sentinel: row m, col n
 
     ec, posc = _expand(carries, total)
@@ -145,60 +149,51 @@ def _esc_core(sr: Semiring, E: int, m: int, n: int, has_mask: bool,
     a = cast(value_take(a_values, ec), xt, atype)
     b = cast(value_take(b_values, posc), yt, btype)
     z = cast_result(sr.mult(a, b), zt)
-    ident = sr.add.identity_value()
-    ident_arr = sr.add.identity_array((), dev)
 
-    if has_mask:
-        NM = m_keys.shape[0]
-        allk = torch.cat([m_keys * 2, key * 2 + 1])
-        sk, order = torch.sort(allk, stable=True)
-        is_m = order < NM
-        zs = tree_map(lambda v, i: torch.cat([
-            torch.full((NM,), i, dtype=v.dtype, device=dev), v])[order],
-            z, ident)
-        # running maximum of the (sorted) mask keys: a gather of the
-        # mask key counted so far
-        mrank = torch.cumsum(is_m, 0) - 1
-        run = torch.where(mrank >= 0, m_keys[mrank.clamp(min=0)] * 2, -1)
-        lane = (~is_m) & (sk < bigbase * 2)
-        match = lane & (sk == run + 1)
-        keep = (lane & ~match) if complement else match
-        ks = torch.where(keep, sk >> 1, big)
-        zs = tree_where(keep, zs, ident_arr)
-    else:
-        ks, order = torch.sort(key, stable=True)
-        zs = value_take(z, order)
-    E2 = ks.shape[0]
-    EO = E + (m_keys.shape[0] if has_mask else 0)
+    if m_keys is not None:
+        member = _in_mask(m_keys, m_sel, key)
+        key = torch.where(member != complement, key, big)
+    counters.count("esc.sorted_lanes", total)
+    ks, order = torch.sort(key, stable=True)
+    zs = value_take(z, order)
 
-    head = torch.ones(E2, dtype=torch.bool, device=dev)
+    head = torch.ones(total, dtype=torch.bool, device=dev)
     head[1:] = ks[1:] != ks[:-1]
+    if m_keys is not None:
+        # a masked-out lane heads a segment of its own: its value
+        # reaches no output, and no two of them fold onto one slot
+        head[1:] |= ks[1:] == big
     seg = torch.cumsum(head, 0) - 1
-    seg_vals = segment_fold(sr.add, zs, seg, E2 + 1, zt)
+    seg_vals = segment_fold(sr.add, zs, seg, total + 1, zt)
 
     # compact: one output slot per live head
     out_head = head & (ks < big)
     r = torch.cumsum(out_head, 0) - 1
     nnzC = out_head.sum()
-    tgt = torch.where(out_head, r, EO + 1)
-    out_keys = torch.full((EO + 2,), sent, dtype=kdt, device=dev)
+    tgt = torch.where(out_head, r, E + 1)
+    out_keys = torch.full((E + 2,), sent, dtype=kdt, device=dev)
     out_keys.scatter_(0, tgt, ks)
     out_vals = tree_map(
-        lambda o, v: o.scatter_(0, tgt, v[seg].to(o.dtype))[:EO + 1],
-        zeros_like_typed((EO + 2,), zt, dev), seg_vals)
-    out_keys = out_keys[:EO + 1]
+        lambda o, v: o.scatter_(0, tgt, v[seg].to(o.dtype))[:E + 1],
+        zeros_like_typed((E + 2,), zt, dev), seg_vals)
+    out_keys = out_keys[:E + 1]
     return _assemble(out_keys, sent, m, n) + (out_vals, nnzC)
 
 
 def _assemble(out_keys: torch.Tensor, sent: int, m: int, n: int):
-    """(indptr, indices, rowids) of compacted sorted keys (sentinel ->
-    row m, column n)."""
+    """(indptr, indices, rowids) of compacted keys (sentinel -> row m,
+    column n).  The keys must ascend, the sentinels last: each caller
+    (``_esc_core``, ``_merge_partials``, ``valdot._combine``,
+    ``mask._epilogue``) scatters keys that ascend (sorted, or a CSR's
+    in storage order) to their ``cumsum`` ranks over a tail of
+    sentinels, so the row ids ascend too and the row pointers are a
+    binary search in them."""
     is_sent = out_keys == sent
     oi = torch.where(is_sent, m, out_keys // n).to(torch.int32)
     oj = torch.where(is_sent, n, out_keys % n).to(torch.int32)
-    counts = torch.bincount(oi.long(), minlength=m + 1)
-    indptr = torch.zeros(m + 1, dtype=torch.int32, device=out_keys.device)
-    indptr[1:] = torch.cumsum(counts[:m], 0)
+    indptr = torch.searchsorted(
+        oi, torch.arange(m + 1, dtype=oi.dtype, device=oi.device),
+        out_int32=True)
     return indptr, oj, oi
 
 
@@ -231,16 +226,14 @@ def csr_spgemm(sr: Semiring, A: CsrMatrix, B: CsrMatrix,
         raise DimensionMismatch(f"mask {mask.shape} vs output {(m, n)}")
     zt = sr.ztype
 
-    # key dtype: int32 sorts faster; the masked path carries keys as
-    # key*2+1 (the sort-merge tag), one extra bit of headroom
-    kbits = 31 if mask is None else 30
-    if (m + 1) * n < (1 << kbits):
+    # key dtype: int32 sorts faster
+    if (m + 1) * n < (1 << 31):
         kdt = torch.int32
-    elif (m + 1) * n < (1 << (kbits + 32)):
+    elif (m + 1) * n < (1 << 63):
         kdt = torch.int64
     else:
         raise NotImplementedError(
-            "dimension product exceeds 2^62; use a HyperMatrix output "
+            "dimension product exceeds 2^63; use a HyperMatrix output "
             "(the pair-key engine of sparse.hyper)")
 
     pkey = ("_spgemm_plan", bool(complement), bool(structural))
@@ -273,13 +266,11 @@ def csr_spgemm(sr: Semiring, A: CsrMatrix, B: CsrMatrix,
             carries = _carries(A, B, lanes)
 
     with counters.span("gb.engines.esc"):
-        has_mask = mask is not None
-        m_keys = (_mask_keys(mask, n, kdt, torch.iinfo(kdt).max // 2 - 1,
-                             structural) if has_mask else None)
+        m_keys, m_sel = (_mask_keys(mask, n, kdt, structural)
+                         if mask is not None else (None, None))
         indptr, oj, oi, ov, nnzC = _esc_core(
-            sr, E, m, n, has_mask, complement, kdt, carries, flops,
-            A.rowids, A.values, B.indices, B.values, m_keys, A.type,
-            B.type)
+            sr, E, m, n, complement, kdt, carries, flops, A.rowids,
+            A.values, B.indices, B.values, m_keys, m_sel, A.type, B.type)
         if nnz_known is not None:
             nnz = nnz_known          # plan hit: nothing read back
         else:

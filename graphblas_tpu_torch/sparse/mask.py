@@ -12,8 +12,9 @@ analysis applied vectorized:
                 dropped (Z=T has no entry there)
   key outside:  C entry survives unless REPLACE; T is irrelevant
 
-Mask membership is a binary search (``torch.searchsorted``) against the
-mask's sorted truthy keys.  Struct values of a user-defined type ride
+Mask membership is a binary search (``torch.searchsorted``) in the
+mask's keys as stored (a CSR's keys ascend in storage order), then the
+selection at the slot found.  Struct values of a user-defined type ride
 every select leaf by leaf; a valued mask over them raises.
 """
 
@@ -32,7 +33,7 @@ from ..utils import counters
 from ..utils.counters import host_read
 from ..utils.tree import tree_map
 from .container import CsrMatrix
-from .esc import _assemble, _bucket, _empty_csr
+from .esc import _assemble, _bucket, _empty_csr, _in_mask, _mask_keys
 
 __all__ = ["csr_accum_mask", "csr_clear"]
 
@@ -45,21 +46,15 @@ def _key_dtype(m: int, n: int):
     raise NotImplementedError("dimension product exceeds 2^63")
 
 
-def _live_keys(X: CsrMatrix, n: int, kdt, big: int,
-               truthy: bool = False) -> torch.Tensor:
+def _live_keys(X: CsrMatrix, n: int, kdt, big: int) -> torch.Tensor:
     live = torch.arange(X.nzmax, device=X.device) < X.nvals
-    if truthy:
-        if X.type.is_udt:
-            raise TypeError("a mask with user-defined values is not valid; "
-                            "use a structural mask")
-        live = live & (X.values != 0)
     keys = X.rowids.to(kdt) * n + X.indices.to(kdt)
     return torch.where(live, keys, big)
 
 
 def _epilogue(ctype: Type, ttype: Type, accum: Optional[BinaryOp],
-              replace: bool, scmp: bool, has_mask: bool, m: int, n: int,
-              kdt, c_keys, c_values, t_keys, t_values, m_keys):
+              replace: bool, scmp: bool, m: int, n: int, kdt, c_keys,
+              c_values, t_keys, t_values, m_keys, m_sel):
     dev = c_keys.device
     big = torch.iinfo(kdt).max
     sent = m * n
@@ -88,10 +83,8 @@ def _epilogue(ctype: Type, ttype: Type, accum: Optional[BinaryOp],
     def cast_t(v):
         return cast(v, ctype, ttype)
 
-    if has_mask:
-        idx = torch.searchsorted(m_keys, ks)
-        idxc = idx.clamp(max=m_keys.shape[0] - 1)
-        member = (m_keys[idxc] == ks) & live
+    if m_keys is not None:
+        member = _in_mask(m_keys, m_sel, ks) & live
         if scmp:
             member = ~member & live
     else:
@@ -151,14 +144,11 @@ def csr_accum_mask(C: CsrMatrix, M: Optional[CsrMatrix], T: CsrMatrix,
     big = torch.iinfo(kdt).max
     c_keys = _live_keys(C, n, kdt, big)
     t_keys = _live_keys(T, n, kdt, big)
-    if M is not None:
-        m_keys = torch.sort(_live_keys(M, n, kdt, big,
-                                       truthy=not d.mask_structure)).values
-    else:
-        m_keys = torch.zeros(1, dtype=kdt, device=C.device)
+    m_keys, m_sel = (_mask_keys(M, n, kdt, d.mask_structure)
+                     if M is not None else (None, None))
     indptr, oj, oi, ov, nnzC = _epilogue(
-        C.type, T.type, accum, d.replace, d.mask_scmp, M is not None,
-        m, n, kdt, c_keys, C.values, t_keys, T.values, m_keys)
+        C.type, T.type, accum, d.replace, d.mask_scmp, m, n, kdt, c_keys,
+        C.values, t_keys, T.values, m_keys, m_sel)
     nnz = host_read(nnzC, "accum_nnz")
     E = c_keys.shape[0] + t_keys.shape[0]
     cap = min(_bucket(max(nnz, 8)), E + 1)

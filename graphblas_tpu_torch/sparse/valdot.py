@@ -657,24 +657,18 @@ def _combine(sr: Semiring, E: int, m: int, n: int, m_rowids, m_indices,
     (a CSR subset of the mask) and compact to padded CSR arrays."""
     dev = acc.device
     nzR = r_rowids.shape[0]
-    big = (1 << 62) - 1
     lane_m = torch.arange(E, device=dev)
     m_live = (lane_m < m_nvals) & m_truthy
-    mk = torch.where(lane_m < m_nvals,
-                     m_rowids.long() * n + m_indices.long(), big)
+    # a CSR's keys ascend in storage order, padding last: the mask entry
+    # a residual lane lands on is a binary search in the mask's keys
+    # (the residual is a CSR subset of the mask; the JAX package merges
+    # both in one sort and takes a running maximum of the lane ids)
+    mk = m_rowids.long() * n + m_indices.long()
+    rk = r_rowids.long() * n + r_indices.long()
     rl = torch.arange(nzR, device=dev) < r_nvals
-    rk = torch.where(rl, r_rowids.long() * n + r_indices.long(), big)
-    # sort-merge: mask entries tag 0 (sort first), residual tag 1
-    sk, order = torch.sort(torch.cat([mk * 2, rk * 2 + 1]), stable=True)
-    is_m = order < E
-    # the mask entry a residual lane lands on: the mask keys ascend in
-    # CSR order, so the k-th mask lane in sorted order is mask entry k
-    # (the JAX package's running maximum of the lane ids)
-    midx = torch.cumsum(is_m, 0) - 1
-    r_at = torch.where((~is_m) & (sk < big * 2), midx, E)
-    src = (order - E).clamp(0, max(nzR - 1, 0))
+    r_at = torch.where(rl, torch.searchsorted(mk, rk), E)
     res_val = torch.zeros(E + 1, dtype=r_vals.dtype, device=dev)
-    res_val.scatter_(0, r_at, r_vals[src])
+    res_val.scatter_(0, r_at, r_vals)
     res_has = torch.zeros(E + 1, dtype=torch.bool, device=dev)
     res_has.scatter_(0, r_at, torch.ones_like(r_at, dtype=torch.bool))
     res_val, res_has = res_val[:E], res_has[:E]
@@ -690,7 +684,7 @@ def _combine(sr: Semiring, E: int, m: int, n: int, m_rowids, m_indices,
     nnzC = present.sum()
     tgt = torch.where(present, r, E + 1)
     keys = torch.full((E + 2,), m * n, dtype=torch.int64, device=dev)
-    keys.scatter_(0, tgt, m_rowids.long() * n + m_indices.long())
+    keys.scatter_(0, tgt, mk)
     ov = torch.zeros(E + 2, dtype=val.dtype, device=dev)
     ov.scatter_(0, tgt, val)
     indptr, oj, oi = _assemble(keys[:E], m * n, m, n)

@@ -151,6 +151,129 @@ def test_esc_valued_mask_zeros():
     assert not keys & zero
 
 
+#: masks against the product's lanes: (m, k, n, density of A, of B, of
+#: M, extra padded mask slots, share of mask values set to 0, mask rows
+#: only past A's rows, lane cap of both packages or None)
+MASK_CASES = {
+    "padded_zeros": (20, 20, 20, 0.25, 0.25, 0.4, 300, 0.3, False, None),
+    "long_mask": (40, 40, 40, 0.02, 0.02, 0.9, 0, 0.0, False, None),
+    "short_mask": (30, 30, 30, 0.3, 0.3, 0.01, 0, 0.0, False, None),
+    "all_masked_out": (24, 24, 24, 0.3, 0.3, 0.5, 0, 0.0, True, None),
+    "chunked_padded_zeros": (40, 40, 40, 0.15, 0.15, 0.3, 300, 0.3, False,
+                             1 << 9),
+}
+
+
+def _mask_case(case):
+    """(JAX A, B, M, port A, B, M) of one case of ``MASK_CASES``."""
+    m, k, n, da, db, dm, extra, zeros, past, _ = MASK_CASES[case]
+    rng = np.random.default_rng(sorted(MASK_CASES).index(case) + 40)
+    I, J, X = _tuples(rng, m, k, da, "FP32")
+    if past:                         # A only in the upper half of rows
+        keep = I < m // 2
+        I, J, X = I[keep], J[keep], X[keep]
+    Aj, At = both(I, J, X, m, k, "FP32")
+    Bj, Bt = both(*_tuples(rng, k, n, db, "FP32"), k, n, "FP32")
+    I, J, X = _tuples(rng, m, n, dm, "FP32")
+    if past:                         # the mask only in the lower half
+        keep = I >= m // 2
+        I, J, X = I[keep], J[keep], X[keep]
+    X[rng.random(len(X)) < zeros] = 0
+    Mj = jsp.CsrMatrix.from_coo(I, J, X, m, n, type=gb.FP32,
+                                nzmax=(len(I) + extra) if extra else None,
+                                sum_duplicates=False)
+    return Aj, Bj, Mj, At, Bt, convert.from_jax(Mj, device="cpu")
+
+
+@pytest.mark.parametrize("structural", [False, True])
+@pytest.mark.parametrize("complement", [False, True])
+@pytest.mark.parametrize("case", sorted(MASK_CASES))
+def test_esc_mask_membership_matches_jax(monkeypatch, case, complement,
+                                         structural):
+    """Membership searched in the mask's stored keys gives the JAX
+    package's merged-sort answer: a padded mask with valued zeros, masks
+    far longer and far shorter than the product's lanes, a product the
+    mask removes whole, and the chunked path, each plain, complemented
+    and structural."""
+    Aj, Bj, Mj, At, Bt, Mt = _mask_case(case)
+    cap = MASK_CASES[case][-1]
+    if cap is not None:
+        monkeypatch.setattr(tesc, "_ESC_LANE_CAP", cap)
+        monkeypatch.setattr(jesc, "_ESC_LANE_CAP", cap)
+    if MASK_CASES[case][6]:
+        assert Mt.nvals < Mt.nzmax
+    srj = jsr.semiring.plus_times[gb.FP32]
+    Cj = jesc.csr_spgemm(srj, Aj, Bj, mask=Mj, complement=complement,
+                         structural=structural)
+    Ct = tesc.csr_spgemm(convert.from_jax(srj), At, Bt, mask=Mt,
+                         complement=complement, structural=structural)
+    assert gt.last_axb_method() == jax_last_method()
+    if cap is not None:
+        assert gt.last_axb_method() == "esc:chunked"
+        assert len(At._options["_spgemm_chunks"][2]) > 1
+    if case == "all_masked_out" and not complement:
+        assert Ct.nvals == 0
+    assert_same_csr(Ct, Cj)
+    ip = Ct.indptr.numpy()
+    assert ip[0] == 0 and ip[-1] == Ct.nvals and np.all(np.diff(ip) >= 0)
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+@pytest.mark.parametrize("complement", [False, True])
+def test_esc_sorted_lanes_are_the_products_lanes(monkeypatch, complement,
+                                                 chunked):
+    """``esc.sorted_lanes`` counts the product's lanes alone, summed over
+    the blocks of the chunked path: the mask, here longer than the
+    product, adds none of its keys to the sort."""
+    rng = np.random.default_rng(21)
+    n = 60
+    _, At = both(*_tuples(rng, n, n, 0.08, "FP32"), n, n, "FP32")
+    _, Bt = both(*_tuples(rng, n, n, 0.08, "FP32"), n, n, "FP32")
+    _, Mt = both(*_tuples(rng, n, n, 0.8, "FP32"), n, n, "FP32")
+    hpA, hpB = At._options["host_pattern"], Bt._options["host_pattern"]
+    lanes = int(np.bincount(hpB[0][:Bt.nvals], minlength=n + 1)[
+        hpA[1][:At.nvals]].sum())
+    assert 0 < lanes < Mt.nvals
+    if chunked:
+        monkeypatch.setattr(tesc, "_ESC_LANE_CAP", lanes // 4)
+    counters.reset()
+    tesc.csr_spgemm(gt.semiring.plus_times[gt.FP32], At, Bt, mask=Mt,
+                    complement=complement)
+    assert gt.last_axb_method() == ("esc:chunked" if chunked
+                                    else "esc:csr_spgemm")
+    assert counters.stats()["counts"]["esc.sorted_lanes"] == lanes
+
+
+#: compacted keys of a 4 x 5 output (sentinel 20: row 4, column 5)
+ASSEMBLE_CASES = {
+    "sentinel_tail": [1, 3, 6, 12, 13, 19, 20, 20, 20],
+    "all_sentinel": [20, 20, 20, 20],
+    "empty": [],
+    "one_full_row": [5, 6, 7, 8, 9, 20, 20],
+    "last_row_full": [0, 15, 16, 17, 18, 19, 20],
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", sorted(ASSEMBLE_CASES))
+def test_assemble_indptr_matches_bincount(case, dtype):
+    """The row pointers searched in the ascending row ids equal a
+    ``bincount`` of them; indices and row ids take the sentinel's (4, 5)
+    at the tail."""
+    m, n = 4, 5
+    keys = np.asarray(ASSEMBLE_CASES[case], np.int64)
+    indptr, oj, oi = tesc._assemble(torch.tensor(keys, dtype=dtype),
+                                    m * n, m, n)
+    live = keys[keys < m * n]
+    want = np.zeros(m + 1, np.int64)
+    want[1:] = np.cumsum(np.bincount(live // n, minlength=m))
+    assert indptr.dtype == torch.int32
+    assert np.array_equal(indptr.numpy(), want)
+    sent = keys == m * n
+    assert np.array_equal(oi.numpy(), np.where(sent, m, keys // n))
+    assert np.array_equal(oj.numpy(), np.where(sent, n, keys % n))
+
+
 def test_esc_empty_and_shapes():
     rng = np.random.default_rng(9)
     srt = gt.semiring.plus_times[gt.FP32]

@@ -217,6 +217,42 @@ def test_csr_accum_mask_structural():
     assert {k for k in tkeys if k in set(zip(I, J))} <= keys
 
 
+#: (mask density, extra padded mask slots, share of mask values 0)
+EPILOGUE_MASKS = {"padded_zeros": (0.5, 200, 0.3),
+                  "long_mask": (0.95, 0, 0.0),
+                  "short_mask": (0.02, 300, 0.0)}
+
+
+@pytest.mark.parametrize("structural", [False, True])
+@pytest.mark.parametrize("scmp", [False, True])
+@pytest.mark.parametrize("case", sorted(EPILOGUE_MASKS))
+def test_csr_accum_mask_searches_stored_mask_keys(case, scmp, structural):
+    """The epilogue's membership, searched in the mask's keys as stored
+    (padding and valued zeros included, nothing sorted), gives the JAX
+    package's answer, with and without accumulation and REPLACE."""
+    dm, extra, zeros = EPILOGUE_MASKS[case]
+    rng = np.random.default_rng(sorted(EPILOGUE_MASKS).index(case) + 30)
+    C0j, C0t = rand_both(rng, 16, 14, 0.3, "INT32")
+    Tj, Tt = rand_both(rng, 16, 14, 0.4, "INT32")
+    I, J, X = _tuples(rng, 16, 14, dm, "INT32")
+    X = np.where(rng.random(len(X)) < zeros, 0, X + 10).astype(np.int32)
+    Mj = jsp.CsrMatrix.from_coo(I, J, X, 16, 14, type=gb.INT32,
+                                nzmax=(len(I) + extra) if extra else None,
+                                sum_duplicates=False)
+    Mt = convert.from_jax(Mj, device="cpu")
+    assert Mt.nzmax >= Mt.nvals + extra
+    for accum, replace in ((None, False), ("plus", True)):
+        dj, dt = _desc(mask_scmp=scmp, mask_structure=structural,
+                       replace=replace)
+        aj = gb.binary[accum][gb.INT32] if accum else None
+        at = gt.binary[accum][gt.INT32] if accum else None
+        got = csr_accum_mask(C0t, Mt, Tt, at, dt)
+        assert_same_csr(got, j_accum_mask(C0j, Mj, Tj, aj, dj))
+        ip = got.indptr.numpy()
+        assert ip[0] == 0 and ip[-1] == got.nvals
+        assert np.all(np.diff(ip) >= 0)
+
+
 def test_mxm_csr_mixed_containers():
     """Bitmap Matrix inputs with a CSR C: inputs convert, output stays
     sparse."""

@@ -290,7 +290,8 @@ def test_warm_masked_mxm_reads(spans_on):
     plan refuses, ESC runs): every call reads the exact flop count and
     the epilogue's nnz; the cold call ESC's plan besides: its lane total
     (the sum of ``entry_lanes``, read from the card whether or not the
-    operands keep a host pattern) and its nnz."""
+    operands keep a host pattern) and its nnz.  ESC's key sort takes the
+    product's lanes alone, no mask key (``esc.sorted_lanes``)."""
     n = 1 << 13
     L, U = gt.tricount_prep_csr(_rmat(13))
     rng = np.random.default_rng(0)
@@ -311,12 +312,15 @@ def test_warm_masked_mxm_reads(spans_on):
         assert gt.last_axb_method() == "esc:csr_spgemm"
         return counters.stats()
     cold, warm, warm2 = call(), call(), call()
+    hpL, hpU = Lv._options["host_pattern"], Uv._options["host_pattern"]
+    lanes = int(np.bincount(hpU[0][:Uv.nvals], minlength=n)[
+        hpL[1][:Lv.nvals]].sum())
     assert cold["counts"]["reads"] == 4
     assert cold["counts"]["plan.esc.built"] == 1
     assert cold["counts"]["flopcount.exact"] == 1
     assert warm["counts"] == warm2["counts"] == {
         "reads": 2, "plan.valdot.reused": 1, "plan.esc.reused": 1,
-        "flopcount.exact": 1}
+        "flopcount.exact": 1, "esc.sorted_lanes": lanes}
     names = set(warm["spans"])
     assert {"gb.entry.mxm", "gb.planning.flopcount", "gb.read.flopcount",
             "gb.planning.choose", "gb.engines.esc", "gb.engines.accum_mask",
@@ -327,7 +331,8 @@ def test_warm_masked_mxm_reads(spans_on):
 
 def test_warm_valdot_counts_slabs_and_lanes(spans_on, monkeypatch):
     """The value-panel engine on a cached hybrid plan: one read (its
-    nnz), its slabs and live lanes counted."""
+    nnz), its slabs and live lanes counted, and the residual's lanes
+    alone sorted."""
     monkeypatch.setattr(tbd, "_MIN_LANES", 1)
     A = _rmat(9)
     n = A.nrows
@@ -355,7 +360,8 @@ def test_warm_valdot_counts_slabs_and_lanes(spans_on, monkeypatch):
     live = [lv.nlive for lv in plan.levels if lv.nlive]
     assert st["counts"] == {"plan.valdot.reused": 1, "plan.esc.reused": 1,
                             "valdot.slabs": len(live),
-                            "valdot.lanes": sum(live), "reads": 1}
+                            "valdot.lanes": sum(live), "reads": 1,
+                            "esc.sorted_lanes": plan.light_lanes}
     assert {"gb.engines.valdot_slabs", "gb.engines.esc",
             "gb.engines.valdot_combine", "gb.read.valdot_nnz"} == set(
         st["spans"])

@@ -641,6 +641,15 @@ class Vector(_Bitmap):
                        host_read(v.pattern.all(), "all_present", bool))
         return v._full[1]
 
+    def learn_full(self, full: bool) -> "Vector":
+        """This vector, with whether every entry is present recorded as
+        ``full``: the caller learnt it without a read (from a count it
+        read already), so :meth:`all_present` reads nothing until the
+        pattern changes."""
+        v = self.wait()
+        v._full = (v.pattern._version, bool(full))
+        return v
+
     def extractTuples(self):
         """(I, X) of the entries in index order as host arrays, X in the
         type's numpy dtype."""

@@ -8,14 +8,22 @@ the set, then drop them and their neighbors from the candidate pool.
 Singletons join the set up front.
 
 The random scores use the reference's portable simple_rand stream
-(``mis_score.c``: 0.0001 + x/(1+2*degree)), drawn on the host in the JAX
-package's order: one draw for every entry of ``degrees`` on every pass,
-candidate or not, so the stream and the set match it bit for bit.
-``degrees`` never changes and crosses to the host once; each pass pulls
-``candidates`` for the draw and reads their ``nvals`` twice: those are
-the loop's sync points.  A takes any matrix container on any device
-(a ``CsrMatrix`` is turned once into its by-column twin, as in
-:mod:`.bfs`).
+(``mis_score.c``: 0.0001 + x/(1+2*degree)) in the JAX package's order:
+one draw for every entry of ``degrees`` on every pass, candidate or not,
+so the stream and the set match it bit for bit.  Every pass runs on A's
+device: the draws by :meth:`SimpleRand.rand_x_tensor` (the stream's
+jump-ahead, state advanced on the host), each entry's draw found by its
+rank among the entries of ``degrees``, then ``prob<candidates> =
+mis_score(degrees)`` as ``mis.c`` writes it, a ``GrB_apply`` under the
+candidates mask (span ``gb.engines.mis_score``).  The only reads are
+the candidates' ``nvals``, twice a pass, and once a call with the
+number of ``degrees``' entries (``gb.read.mis_nvals``); whether
+``prob`` and ``new_members`` hold every entry, which ``vxm`` asks to
+choose its engine, follows from the same count.  The counts
+``mis.passes`` and ``mis.draws`` add up the passes and the draws.  A
+takes any matrix container on any device (a ``CsrMatrix`` is turned
+once into its by-column twin, as in :mod:`.bfs`); the call is the span
+``gb.entry.mis``.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..core.descriptor import Descriptor
 from ..core.matrix import Vector
@@ -34,6 +43,8 @@ from ..ops.assign import assign_vector
 from ..ops.ewise import apply as gb_apply, eWiseAdd
 from ..ops.mxm import vxm
 from ..ops.reduce import reduce_to_vector
+from ..utils import counters
+from ..utils.counters import host_read
 from ..utils.simple_rand import SimpleRand
 from .bfs import vxm_operand
 
@@ -44,6 +55,11 @@ _SR_DESC = Descriptor(replace=True, mask_scmp=True)
 _ID = UnaryOp("ID", lambda x: x, BOOL, BOOL)
 
 
+def _nvals(v: Vector) -> int:
+    return host_read(v.wait().pattern.sum(), "mis_nvals")
+
+
+@counters.spanned("gb.entry.mis")
 def mis(A, seed: int = 1, rng: Optional[SimpleRand] = None) -> Vector:
     """iset[i] = True if node i is in the maximal independent set.
 
@@ -67,35 +83,44 @@ def mis(A, seed: int = 1, rng: Optional[SimpleRand] = None) -> Vector:
                                None, True, None, None, scalar=True)
     iset = assign_vector(Vector.new(BOOL, n, device=dev), degrees, None,
                          True, None, _SR_DESC, scalar=True)
-    deg_np = degrees.to_dense()
-    idx = np.nonzero(degrees.pattern_np())[0]
-    weight = 1.0 + 2.0 * deg_np[idx]
+    # one read: the draws a pass (the entries of degrees) and the
+    # candidates; each entry's draw is its rank among the entries
+    ndeg, nvals = (int(x) for x in host_read(
+        torch.stack([degrees.pattern.sum(), candidates.pattern.sum()]),
+        "mis_nvals", np.ndarray))
+    rank = (torch.cumsum(degrees.pattern, 0) - 1).clamp(min=0)
 
-    nvals = candidates.nvals()
     last_nvals = nvals
     while nvals > 0:
-        # prob<candidates> = mis_score(degrees): the reference's stream,
-        # drawn for EVERY entry of degrees (GrB_apply computes
-        # op(degrees) first and masks afterwards, mis.c:109-110)
-        cand_np = candidates.pattern_np() & (candidates.to_dense() != 0)
-        scores = np.zeros(n, np.float64)
-        scores[idx] = 0.0001 + rng.rand_x_batch(len(idx)) / weight
-        prob = Vector.from_dense(np.where(cand_np, scores, 0.0), FP64,
-                                 pattern=cand_np, device=dev)
+        counters.count("mis.passes")
+        counters.count("mis.draws", ndeg)
+        full = nvals == n
+        with counters.span("gb.engines.mis_score"):
+            # prob<candidates> = mis_score(degrees): the draws for EVERY
+            # entry of degrees (GrB_apply computes op(degrees) first and
+            # masks afterwards, mis.c:109-110)
+            x = rng.rand_x_tensor(ndeg, dev)[rank]
+            score = UnaryOp("MIS_SCORE",
+                            lambda d: 0.0001 + x / (1.0 + 2.0 * d),
+                            FP64, FP64)
+            prob = gb_apply(Vector.new(FP64, n, device=dev), candidates,
+                            None, score, degrees).learn_full(full)
 
         # neighbor_max<candidates> = prob max.select1st A
         neighbor_max = vxm(Vector.new(FP64, n, device=dev), candidates,
                            None, max_select1st, prob, Aop, _R_DESC)
-        # new_members = prob > neighbor_max  (eWiseAdd GT)
+        # new_members = prob > neighbor_max  (eWiseAdd GT); its pattern
+        # is the candidates'
         new_members = eWiseAdd(Vector.new(BOOL, n, device=dev), None, None,
-                               binary.gt[FP64], prob, neighbor_max)
+                               binary.gt[FP64], prob, neighbor_max
+                               ).learn_full(full)
         # iset |= new_members
         iset = eWiseAdd(iset, None, None, binary.lor[BOOL], iset,
                         new_members)
         # candidates<!new_members> = candidates (REPLACE): drop new members
         candidates = gb_apply(candidates, new_members, None, _ID,
                               candidates, _SR_DESC)
-        nvals = candidates.nvals()
+        nvals = _nvals(candidates)
         if nvals == 0:
             break
         # new_neighbors<candidates> = new_members lor.land A
@@ -103,7 +128,7 @@ def mis(A, seed: int = 1, rng: Optional[SimpleRand] = None) -> Vector:
                             None, boolean, new_members, Aop)
         candidates = gb_apply(candidates, new_neighbors, None, _ID,
                               candidates, _SR_DESC)
-        nvals = candidates.nvals()
+        nvals = _nvals(candidates)
         if nvals == last_nvals:
             raise RuntimeError("mis stalled (corrupted input?)")
         last_nvals = nvals

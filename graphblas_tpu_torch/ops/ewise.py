@@ -16,7 +16,9 @@ transposed frame, ``SparseVec``) takes the pair-key merges of
 dimension.  Ops over a user-defined type get and give dicts of tensors
 on every container (the hypersparse ones too, where the JAX package
 raises); a struct value meets a builtin domain with the cast rule's
-``TypeError``.
+``TypeError``.  The bitmap paths of ``eWiseAdd``, ``eWiseMult`` and
+``apply`` are the span ``gb.engines.ewise``; over bitmap operands with
+no pending tuples they read nothing back.
 """
 
 from __future__ import annotations
@@ -148,11 +150,12 @@ def _dispatch_ewise(C, M, accum, op, A, B, d, union):
                                     f"vs C {C.shape}")
         T = (csr_ewise_add if union else csr_ewise_mult)(op, Aw, Bw)
         return finish_csr(Cw, Mw, T, accum, d, csc)
-    A = transposed(bitmap_operand(A, "eWise input A"), d.tran0)
-    B = transposed(bitmap_operand(B, "eWise input B"), d.tran1)
-    M = bitmap_operand(M, "mask") if M is not None else None
-    T = _ewise_T(op, A, B, union=union)
-    return accum_mask(C, M, T, accum, d)
+    with counters.span("gb.engines.ewise"):
+        A = transposed(bitmap_operand(A, "eWise input A"), d.tran0)
+        B = transposed(bitmap_operand(B, "eWise input B"), d.tran1)
+        M = bitmap_operand(M, "mask") if M is not None else None
+        T = _ewise_T(op, A, B, union=union)
+        return accum_mask(C, M, T, accum, d)
 
 
 def require_args(what, C, M, *inputs):
@@ -215,11 +218,12 @@ def apply(C, M, accum: Optional[BinaryOp], op: UnaryOp, A,
         if Aw.shape != Cw.shape:
             raise DimensionMismatch(f"apply {Aw.shape} vs C {C.shape}")
         return finish_csr(Cw, Mw, csr_apply(op, Aw), accum, d, csc)
-    A = transposed(bitmap_operand(A, "apply input"), d.tran0)
-    M = bitmap_operand(M, "mask") if M is not None else None
-    vals = cast_result(op(cast(A.values, op.xtype, A.type)), op.ztype)
-    T = type(A)(vals, A.pattern, op.ztype).canonical()
-    return accum_mask(C, M, T, accum, d)
+    with counters.span("gb.engines.ewise"):
+        A = transposed(bitmap_operand(A, "apply input"), d.tran0)
+        M = bitmap_operand(M, "mask") if M is not None else None
+        vals = cast_result(op(cast(A.values, op.xtype, A.type)), op.ztype)
+        T = type(A)(vals, A.pattern, op.ztype).canonical()
+        return accum_mask(C, M, T, accum, d)
 
 
 def _index_grids(shape, device):

@@ -187,9 +187,10 @@ def segment_reduce(monoid_name: str, vals: torch.Tensor,
             vals = torch.where(torch.isnan(vals), torch.full(
                 (), identity, dtype=vals.dtype, device=dev), vals)
         keys = ordered(vals, t)
-        ident = torch.full((), identity, dtype=vals.dtype)
+        # the identity filled on the device: a host tensor copied over
+        # would be a pageable copy, which waits for the card
+        ident = torch.full((), identity, dtype=vals.dtype, device=dev)
         out = ordered(ident, t).to(keys.dtype).expand(num_segments).clone()
-        out = out.to(dev)
         out.scatter_reduce_(0, idx, keys, reduce=(
             "amax" if nm == "MAX" else "amin"))
         return from_ordered(out, t)

@@ -30,7 +30,7 @@ STAND_INS = ("jax", "graphblas_tpu")
 #: the test files that hold card-only tests
 FILES = ("test_torch_bitdot.py", "test_torch_bsr.py",
          "test_torch_bsr_spmv.py", "test_torch_complex.py",
-         "test_torch_probes.py",
+         "test_torch_probes.py", "test_torch_simple_rand_device.py",
          "test_torch_tropical.py", "test_torch_udt_ops.py",
          "test_torch_valdot.py", "test_torch_valdot_compact.py",
          "test_torch_window.py")
